@@ -7,19 +7,25 @@ exits non-zero without printing a result when there is no card. Phases, each
 fatal on failure:
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build the CUDA kernels from ``cyberfabric_core_tpu_torch/ops/csrc``;
+2. build the CUDA kernels from ``cyberfabric_core_tpu_torch/ops/csrc``, all
+   sources at once;
 3. kernels: each kernel held against its plain PyTorch version on the card,
-   at small shapes (window, idle rows, shared pages) and at the llama-3-8b
-   main-path shapes in bf16; ragged at q_len=1 bitwise equal to decode;
+   at small shapes (window, idle rows, shared pages, GQA groups, rows of
+   length 1) and at the llama-3-8b main-path shapes in bf16; ragged at
+   q_len=1 bitwise equal to decode; flash rows past the length exactly zero;
    CUDA-event times of kernel, plain version and one PyTorch SDPA call over
-   the already-gathered dense K/V (a yardstick only, never used by the port),
-   beside each kernel's bound;
-4. serving: ``ContinuousBatchingEngine`` built the way the llm-gateway worker
-   builds it from quickstart-shaped ``engine_options`` at llama-3-8b full
-   width (random weights from a seed), 8 requests submitted from 3 threads;
-   every stream gets one terminal event with the right reason, both kernels
-   were launched, no page leaks, and every greedy token lies within a bf16
-   margin of the max of the dense forward's logits (teacher-forced);
+   dense inputs prepared outside the timed call (a yardstick only, never
+   used by the port), beside each kernel's bound;
+4. serving, three runs of ``ContinuousBatchingEngine`` at llama-3-8b full
+   width (random weights from a seed, built once and shared), each from
+   quickstart-shaped ``engine_options`` as the llm-gateway worker maps them:
+   (a) mixed batching (the default path), 8 requests from 3 threads;
+   (b) phase-separated (``mixed_batch`` off, ``prefill_coalesce`` 4), the
+   same 8 requests; (c) dense mode (``prefix_cache_pages`` 0), 4 greedy
+   requests. Every stream gets one terminal event with the right reason, the
+   path's kernels were launched (and, phase-separated, the ragged kernel
+   never), no page leaks, and every greedy token lies within a bf16 margin
+   of the max of the dense forward's logits (teacher-forced);
 5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -38,6 +44,7 @@ import torch
 from cyberfabric_core_tpu_torch.models import llama
 from cyberfabric_core_tpu_torch.models.configs import get_config
 from cyberfabric_core_tpu_torch.ops import _build
+from cyberfabric_core_tpu_torch.ops import flash_attention as fa
 from cyberfabric_core_tpu_torch.ops import paged_attention as pa
 from cyberfabric_core_tpu_torch.runtime.engine import EngineConfig, SamplingParams
 from cyberfabric_core_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
@@ -45,7 +52,17 @@ from cyberfabric_core_tpu_torch.runtime.tokenizer import ByteTokenizer
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak, same source
-SOURCE = "cyberfabric_core_tpu_torch/ops/csrc/paged_attention.cu"
+KERNELS = {  # name → (source, the TPU kernel it replaces, wrapper)
+    "ragged_paged_attention": ("cyberfabric_core_tpu_torch/ops/csrc/paged_attention.cu",
+                               "cyberfabric_core_tpu/ops/paged_attention.py:421",
+                               pa.ragged_paged_attention),
+    "paged_decode_attention": ("cyberfabric_core_tpu_torch/ops/csrc/paged_attention.cu",
+                               "cyberfabric_core_tpu/ops/paged_attention.py:188",
+                               pa.paged_decode_attention),
+    "flash_self_attention": ("cyberfabric_core_tpu_torch/ops/csrc/flash_attention.cu",
+                             "cyberfabric_core_tpu/ops/flash_attention.py:125",
+                             fa.flash_self_attention),
+}
 #: dense-oracle margin: a greedy token's dense logit may sit this far below
 #: the dense row's max. The paged path and the dense oracle round bf16
 #: activations at different points over 32 layers; at V = 128k near-ties
@@ -107,6 +124,28 @@ def make_table(B, Pmax, N, seed, dev, share=False):
 
 def i32(xs, dev):
     return torch.tensor(xs, dtype=torch.int32, device=dev)
+
+
+def bound(nbytes, flops):
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the bf16 tensor-core rate, in ms."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def time_kernel(name, kern, plain, lib, nbytes, flops, err) -> dict:
+    """CUDA-event times of the kernel, its plain version and the library
+    yardstick, beside the bound. These launches are not the main path's: the
+    serving phases reset the counters before they run."""
+    ms = cuda_ms(kern, 50)
+    plain_ms = cuda_ms(plain, 3, warmup=1)
+    library_ms = cuda_ms(lib, 50)
+    b_ms, b_by = bound(nbytes, flops)
+    log(f"kernel {name} main shapes: ms={ms:.4f} plain_ms={plain_ms:.3f} "
+        f"library_ms={library_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+        f"max_abs_err={err:.3e} (tolerance: one bf16 ulp of the plain value)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
 
 
 # ------------------------------------------------------------------ kernel phase
@@ -200,12 +239,6 @@ def kernel_main_shapes(dev, gen, cfg, page, Pmax, n_pages) -> dict[str, dict]:
                  + B * Qmax * Hq * D * 2 + B * (Pmax + 2) * 4)
     rag_flops = 4 * Hq * D * rag_pairs
 
-    def bound(nbytes, flops):
-        t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
-        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
-
-    # counts of these timing launches are not the main path's: the serving
-    # phase resets the counters before it runs
     for name, kern, plain, lib, nbytes, flops, err in [
         ("paged_decode_attention",
          lambda: pa.paged_decode_attention(q1, k, v, pt, lens),
@@ -218,16 +251,64 @@ def kernel_main_shapes(dev, gen, cfg, page, Pmax, n_pages) -> dict[str, dict]:
          lambda: sdpa(qq, kd, vd, attn_mask=mask_rag),
          rag_bytes, rag_flops, err_rag),
     ]:
-        ms = cuda_ms(kern, 50)
-        plain_ms = cuda_ms(plain, 3, warmup=1)
-        library_ms = cuda_ms(lib, 50)
-        b_ms, b_by = bound(nbytes, flops)
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
-        log(f"kernel {name} main shapes: ms={ms:.4f} plain_ms={plain_ms:.3f} "
-            f"library_ms={library_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-            f"max_abs_err={err:.3e} (tolerance: one bf16 ulp of the plain value)")
+        results[name] = time_kernel(name, kern, plain, lib, nbytes, flops, err)
     return results
+
+
+def flash_case(dev, gen, T, Hq, Hkv, lengths, window, D=128):
+    B = len(lengths)
+    q, k, v = (torch.randn((B, T, h, D), generator=gen, device=dev).to(torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    lens = i32(lengths, dev)
+    out = fa.flash_self_attention(q, k, v, lens, sliding_window=window)
+    err = bf16_ulp_close(out, fa.flash_self_attention_plain(q, k, v, lens,
+                                                            sliding_window=window))
+    for b, L in enumerate(lengths):
+        if not bool((out[b, L:] == 0).all()):
+            raise AssertionError(f"flash rows past length {L} of row {b} are not zero")
+    return (q, k, v, lens), err
+
+
+def flash_small_shapes(dev, gen) -> None:
+    """G = 1, 2, 4, 8; windows; lengths below T; T not a multiple of the
+    64-key tile; a row of length 1."""
+    for T, Hq, Hkv, lengths, window in [(200, 4, 4, [200, 1], None),
+                                        (130, 8, 4, [77, 130], 33),
+                                        (64, 8, 2, [64, 40], None),
+                                        (300, 32, 4, [299, 150], 100),
+                                        (97, 32, 8, [1, 96], 16)]:
+        flash_case(dev, gen, T, Hq, Hkv, lengths, window)
+    torch.cuda.synchronize()
+    log("kernel flash small shapes: within one bf16 ulp of the plain version; "
+        "rows past the length zero")
+
+
+def flash_main_shape(dev, gen, cfg) -> dict:
+    """The coalesced batch_prefill group of the serving storm's two longest
+    prompts at bucket 2048: B=2, T=2048, lengths [1300, 1500]."""
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lengths, T = [1300, 1500], 2048
+    (q, k, v, lens), err = flash_case(dev, gen, T, Hq, Hkv, lengths, None)
+    # library yardstick: SDPA on [B, H, T, D] with GQA expanded and the mask
+    # (k <= q) & (k < len) built outside the timed call
+    qq = q.permute(0, 2, 1, 3).contiguous()
+    kk = k.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1).contiguous()
+    vv = v.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1).contiguous()
+    pos = torch.arange(T, device=dev)
+    mask = ((pos[None, :] <= pos[:, None])[None] & (pos[None, None, :] < lens[:, None, None]))[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = sum(n * (n + 1) // 2 for n in lengths)
+    tokens = sum(lengths)
+    # q read at valid positions, K+V of the valid tokens, the whole output
+    # written (rows past the length are zeros by contract), the lengths
+    nbytes = (tokens * Hq * D * 2 + tokens * Hkv * D * 2 * 2
+              + len(lengths) * T * Hq * D * 2 + len(lengths) * 4)
+    return time_kernel(
+        "flash_self_attention",
+        lambda: fa.flash_self_attention(q, k, v, lens),
+        lambda: fa.flash_self_attention_plain(q, k, v, lens),
+        lambda: sdpa(qq, kk, vv, attn_mask=mask),
+        nbytes, 4 * Hq * D * pairs, err)
 
 
 # ------------------------------------------------------------------ serving phase
@@ -249,6 +330,7 @@ def engine_config_from_options(opts: dict) -> EngineConfig:
         prefix_cache_pages=int(opts.pop("prefix_cache_pages", default_pages)),
         prefix_page_size=page,
         prefill_budget_tokens=int(opts.pop("prefill_budget_tokens", 512)),
+        prefill_coalesce=int(opts.pop("prefill_coalesce", 4)),
         mixed_batch=str(opts.pop("mixed_batch", True)).lower()
         not in ("0", "false", "no", "off"))
 
@@ -322,50 +404,68 @@ def dense_margin(params, cfg, rope, prompt, toks) -> tuple[float, torch.Tensor]:
     return float((logits.max(dim=1).values - got).max()), top2[:, 0] - top2[:, 1]
 
 
-def serving_phase(card: str) -> dict[str, int]:
-    opts = {"model_config": "llama-3-8b", "max_seq_len": 2048, "max_batch": 8,
-            "prefix_page_size": 64, "decode_chunk": 8,
-            "prefill_budget_tokens": 512, "mixed_batch": True}
+QUICKSTART = {"model_config": "llama-3-8b", "max_seq_len": 2048, "max_batch": 8,
+              "prefix_page_size": 64, "decode_chunk": 8,
+              "prefill_budget_tokens": 512, "mixed_batch": True}
+
+
+def build_engine(label: str, opts: dict, params=None):
     ecfg = engine_config_from_options(opts)
     t = time.perf_counter()
-    engine = ContinuousBatchingEngine(ecfg, seed=0)  # on the card, by default
-    log(f"serving engine built: llama-3-8b full width, {engine.pool.num_pages} "
-        f"pages, {time.perf_counter() - t:.1f} s")
-    cfg = engine.model_config
+    engine = ContinuousBatchingEngine(ecfg, params=params, seed=0)  # on the card
+    log(f"serving engine [{label}] built: llama-3-8b full width, "
+        f"{engine.stats()['mode']}, {engine.stats()['pages_total']} pages, "
+        f"use_flash={engine.use_flash}, {time.perf_counter() - t:.1f} s")
+    return engine, ecfg
+
+
+def storm_requests(engine, ecfg) -> list:
+    """8 prompts of 16..1500 tokens, 32 output tokens each; request 3 stops
+    on a token it emits greedily (learned by a probe), request 5 samples with
+    a seed."""
     rng = np.random.default_rng(0)
     lens = [16, 96, 250, 511, 700, 1000, 1300, 1500]
-    prompts = [rng.integers(3, cfg.vocab_size, n).tolist() for n in lens]
-    try:
-        # learn a token request 3 emits greedily, then stop on it below
-        probe = serve(engine, [(prompts[3], SamplingParams(max_tokens=12))], 1)[0]["toks"]
-        fresh = [t for j, t in enumerate(probe)
-                 if t not in probe[:j] and t not in ecfg.eos_token_ids]
-        stop_id = fresh[-1] if fresh else probe[0]
-        requests = [(p, SamplingParams(max_tokens=32)) for p in prompts]
-        requests[3] = (prompts[3], SamplingParams(max_tokens=32, stop_token_ids=(stop_id,)))
-        requests[5] = (prompts[5], SamplingParams(max_tokens=32, temperature=0.8, seed=42))
-        pages_total = engine.stats()["pages_total"]
+    prompts = [rng.integers(3, engine.model_config.vocab_size, n).tolist() for n in lens]
+    probe = serve(engine, [(prompts[3], SamplingParams(max_tokens=12))], 1)[0]["toks"]
+    fresh = [t for j, t in enumerate(probe)
+             if t not in probe[:j] and t not in ecfg.eos_token_ids]
+    stop_id = fresh[-1] if fresh else probe[0]
+    requests = [(p, SamplingParams(max_tokens=32)) for p in prompts]
+    requests[3] = (prompts[3], SamplingParams(max_tokens=32, stop_token_ids=(stop_id,)))
+    requests[5] = (prompts[5], SamplingParams(max_tokens=32, temperature=0.8, seed=42))
+    return requests
 
-        pa.ragged_paged_attention.launches = 0
-        pa.paged_decode_attention.launches = 0
+
+def serving_phase(card: str, label: str, engine, ecfg, requests,
+                  launched: tuple, never: tuple = ()) -> dict[str, int]:
+    """Serve ``requests`` with every kernel count set to 0 just before and
+    read just after; the kernels in ``launched`` must have run and those in
+    ``never`` must not. Checks streams, pages and the dense oracle; prints
+    ttft and tokens/s. Returns this run's launch counts."""
+    cfg = engine.model_config
+    try:
+        pages_total = engine.stats()["pages_total"]
+        for _, _, wrapper in KERNELS.values():
+            wrapper.launches = 0
         t0 = time.perf_counter()
         recs = serve(engine, requests)
         wall = time.perf_counter() - t0
-        launches = {"ragged_paged_attention": pa.ragged_paged_attention.launches,
-                    "paged_decode_attention": pa.paged_decode_attention.launches}
+        launches = {name: wrapper.launches for name, (_, _, wrapper) in KERNELS.items()}
         stats = engine.stats()
     finally:
         engine.shutdown()
     check_streams(recs, requests, lambda sp: set(sp.stop_token_ids) | set(ecfg.eos_token_ids))
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched on the main path: {launches}")
+    if any(launches[n] <= 0 for n in launched) or any(launches[n] for n in never):
+        raise AssertionError(f"[{label}] launches {launches}: expected {launched} "
+                             f"to run and {never} never")
     if stats["pages_in_use"] != 0 or stats["pages_free"] != pages_total:
-        raise AssertionError(f"pages leaked: {stats}")
-    stopped = recs[3]["fins"][-1] == "stop"
-    log(f"serving: 8 requests done, reasons {[r['fins'][-1] for r in recs]}, "
-        f"stop request stopped={stopped}, rounds {stats['rounds']}, "
-        f"prefill chunks {stats['prefill_chunks']}, launches {launches}, pages leaked 0")
-    log(f"serving round wall ms by kind (engine lifetime): {stats['round_ms']}")
+        raise AssertionError(f"[{label}] pages leaked: {stats}")
+    log(f"serving [{label}]: {len(requests)} requests done, reasons "
+        f"{[r['fins'][-1] for r in recs]}, rounds {stats['rounds']}, prefill chunks "
+        f"{stats['prefill_chunks']}, prefill dispatches {stats['prefill_dispatches']} "
+        f"(coalesced {stats['coalesced_prefills']}), launches {launches}, pages leaked 0")
+    log(f"serving [{label}] wall ms by round kind (engine lifetime): {stats['round_ms']}; "
+        f"phase-separated prefill ms {stats['prefill_ms']:.1f}")
 
     with torch.inference_mode():
         worst, runner_up = 0.0, []
@@ -376,26 +476,62 @@ def serving_phase(card: str) -> dict[str, int]:
             worst = max(worst, gap)
             runner_up.append(ru)
             if gap > LOGIT_MARGIN:
-                raise AssertionError(f"request {i}: a greedy token sits {gap:.3f} "
-                                     f"below the dense max (margin {LOGIT_MARGIN})")
+                raise AssertionError(f"[{label}] request {i}: a greedy token sits "
+                                     f"{gap:.3f} below the dense max (margin {LOGIT_MARGIN})")
         ru = torch.cat(runner_up).cpu()
         caught = float((ru > LOGIT_MARGIN).float().mean())
         q = torch.quantile(ru, torch.tensor([0.1, 0.5, 0.9])).tolist()
-    log(f"serving oracle: every greedy token within {worst:.4f} of the dense "
+    log(f"serving [{label}] oracle: every greedy token within {worst:.4f} of the dense "
         f"forward's max logit (margin {LOGIT_MARGIN})")
-    log(f"serving oracle power: dense top-1/top-2 gap over {ru.numel()} greedy rows "
-        f"min={float(ru.min()):.4f} p10={q[0]:.4f} p50={q[1]:.4f} p90={q[2]:.4f}; "
+    log(f"serving [{label}] oracle power: dense top-1/top-2 gap over {ru.numel()} greedy "
+        f"rows min={float(ru.min()):.4f} p10={q[0]:.4f} p50={q[1]:.4f} p90={q[2]:.4f}; "
         f"the runner-up token would fail the margin at {caught:.3f} of rows "
         f"(least allowed {MIN_RUNNER_UP_CAUGHT})")
     if caught < MIN_RUNNER_UP_CAUGHT:
-        raise AssertionError(f"the margin {LOGIT_MARGIN} admits the runner-up token "
-                             f"at {1 - caught:.3f} of rows: the oracle cannot see "
+        raise AssertionError(f"[{label}] the margin {LOGIT_MARGIN} admits the runner-up "
+                             f"token at {1 - caught:.3f} of rows: the oracle cannot see "
                              "a wrong token")
     ttft = sorted((r["t1"] - r["t0"]) * 1e3 for r in recs)
     n_tok = sum(len(r["toks"]) for r in recs)
-    log(f"info [{card}]: ttft_ms p50={ttft[len(ttft) // 2]:.1f} max={ttft[-1]:.1f}; "
-        f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s")
+    log(f"info [{card}] serving [{label}]: ttft_ms p50={ttft[len(ttft) // 2]:.1f} "
+        f"max={ttft[-1]:.1f}; {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s")
     return launches
+
+
+def serving_phases(card: str) -> dict[str, int]:
+    """The three serving runs on one set of weights. Returns the kernels'
+    main-path launch counts: the paged kernels from the mixed run, flash from
+    the phase-separated run."""
+    engine, ecfg = build_engine("mixed", QUICKSTART)
+    requests = storm_requests(engine, ecfg)
+    mixed = serving_phase(card, "mixed", engine, ecfg, requests,
+                          launched=("ragged_paged_attention", "paged_decode_attention"),
+                          never=("flash_self_attention",))
+    params = engine.params
+    del engine
+    torch.cuda.empty_cache()
+
+    # an unbounded round budget lets the storm's same-bucket prompts (700 and
+    # 1000 at 1024, 1300 and 1500 at 2048) meet in one admission pass and
+    # coalesce; at 512 the budget admits each long prompt alone
+    opts = dict(QUICKSTART, mixed_batch=False, prefill_coalesce=4, prefill_budget_tokens=0)
+    engine, ecfg = build_engine("phase-separated", opts, params)
+    phase = serving_phase(card, "phase-separated", engine, ecfg, requests,
+                          launched=("flash_self_attention", "paged_decode_attention"),
+                          never=("ragged_paged_attention",))
+    del engine
+    torch.cuda.empty_cache()
+
+    engine, ecfg = build_engine("dense", dict(QUICKSTART, prefix_cache_pages=0), params)
+    dense_requests = [(p, SamplingParams(max_tokens=16)) for p, _ in requests[:4]]
+    serving_phase(card, "dense", engine, ecfg, dense_requests,
+                  launched=("flash_self_attention",),
+                  never=("ragged_paged_attention", "paged_decode_attention"))
+    del engine
+    torch.cuda.empty_cache()
+    return {"ragged_paged_attention": mixed["ragged_paged_attention"],
+            "paged_decode_attention": mixed["paged_decode_attention"],
+            "flash_self_attention": phase["flash_self_attention"]}
 
 
 def main() -> int:
@@ -422,18 +558,18 @@ def main() -> int:
     gen.manual_seed(1)
     with torch.inference_mode():
         kernel_small_shapes(dev, gen)
+        flash_small_shapes(dev, gen)
         cfg = get_config("llama-3-8b")
         kern = kernel_main_shapes(dev, gen, cfg, page=64, Pmax=32, n_pages=321)
+        kern["flash_self_attention"] = flash_main_shape(dev, gen, cfg)
     torch.cuda.empty_cache()
 
-    launches = serving_phase(card)
+    launches = serving_phases(card)
 
-    replaces = {"ragged_paged_attention": "cyberfabric_core_tpu/ops/paged_attention.py:421",
-                "paged_decode_attention": "cyberfabric_core_tpu/ops/paged_attention.py:188"}
     line = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], **kern[name]}
-        for name in ("ragged_paged_attention", "paged_decode_attention")]}
+        for name, (src, replaces, _) in KERNELS.items()]}
     for entry in line["kernels"]:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms"):
             if not math.isfinite(entry[key]):

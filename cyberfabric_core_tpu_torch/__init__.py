@@ -6,6 +6,7 @@ The package mirrors the JAX package's layout (``models/``, ``ops/``,
 needs from that package it keeps as its own copy.
 
 Every entry point runs on the CUDA device unless the caller passes
-``device="cpu"`` (see :mod:`.device`). The two paged-attention kernels are
-hand-written CUDA C++ for ``sm_90a`` (``ops/csrc/``), built at first use.
+``device="cpu"`` (see :mod:`.device`). Its kernels (paged attention, ragged
+and decode; flash prefill attention) are hand-written CUDA C++ for
+``sm_90a`` (``ops/csrc/``), built at first use.
 """

@@ -27,6 +27,7 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import attention_with_cache
+from ..ops.flash_attention import flash_self_attention
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import paged_decode_attention, ragged_paged_attention
 from ..ops.rope import apply_rope
@@ -186,16 +187,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
 
 def forward(params: LlamaModel, cfg: ModelConfig, input_ids: torch.Tensor,
             positions: torch.Tensor, cache: KVCache, cache_start: torch.Tensor,
-            rope_tables: tuple[torch.Tensor, torch.Tensor]
+            rope_tables: tuple[torch.Tensor, torch.Tensor], use_flash: bool = False
             ) -> tuple[torch.Tensor, KVCache]:
     """Dense forward (prefill T>1 or decode T=1) over a dense cache, written
-    in place at ``cache_start``. Returns (hidden [B, T, H], cache). The test
-    and chip-smoke oracle for the paged forwards."""
+    in place at ``cache_start``. Returns (hidden [B, T, H], cache).
+
+    ``use_flash`` attends with :func:`ops.flash_attention.flash_self_attention`
+    over this step's own k/v with ``cache_start + T`` as the lengths, as the
+    JAX forward does: ONLY valid for a fresh cache (cache_start all zero),
+    since the kernel sees the new tokens, not the cache history."""
     cos_t, sin_t = rope_tables
     B, T = input_ids.shape
     Hq, D = cfg.num_heads, cfg.head_dim
     h = _embed_scale(embed_lookup(params.embed, input_ids), cfg)
     kv_len_after = cache_start + T
+    flash_lens = kv_len_after.to(torch.int32).contiguous() if use_flash else None
     b_idx = torch.arange(B, device=h.device)[:, None]
     t_idx = cache_start.long()[:, None] + torch.arange(T, device=h.device)[None, :]
     k_cache, v_cache = cache
@@ -204,11 +210,41 @@ def forward(params: LlamaModel, cfg: ModelConfig, input_ids: torch.Tensor,
         q, k, v = _qkv_proj(lp, x, cfg, positions, cos_t, sin_t)
         k_cache[layer, b_idx, t_idx] = k.to(k_cache.dtype)
         v_cache[layer, b_idx, t_idx] = v.to(v_cache.dtype)
-        attn = attention_with_cache(q, k_cache[layer], v_cache[layer], positions,
-                                    kv_len_after, sliding_window=cfg.sliding_window)
+        if use_flash:
+            attn = flash_self_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                        flash_lens, sliding_window=cfg.sliding_window)
+        else:
+            attn = attention_with_cache(q, k_cache[layer], v_cache[layer], positions,
+                                        kv_len_after, sliding_window=cfg.sliding_window)
         h = _attn_out(lp, h, attn.reshape(B, T, Hq * D))
         h = _mlp_residual(lp, h, cfg)
     return _final_norm(params, h, cfg), (k_cache, v_cache)
+
+
+def prefill_collect(params: LlamaModel, cfg: ModelConfig, input_ids: torch.Tensor,
+                    lengths: torch.Tensor, rope_tables: tuple[torch.Tensor, torch.Tensor],
+                    use_flash: bool = False) -> tuple[torch.Tensor, KVCache]:
+    """Prefill that RETURNS the new per-layer k/v ``[L, B, T, Hkv, D]``
+    instead of writing a persistent cache; the scheduler places them into a
+    slot (pool pages or a dense cache row). Returns (last_h [B, H], kv).
+    The same function as :func:`forward` on a fresh cache of S = T."""
+    B, T = input_ids.shape
+    dev = input_ids.device
+    positions = torch.arange(T, dtype=torch.int32, device=dev)[None, :].expand(B, T)
+    cache = init_cache(cfg, B, T, params.dtype, device=dev)
+    hidden, kv = forward(params, cfg, input_ids, positions, cache,
+                         torch.zeros(B, dtype=torch.int32, device=dev), rope_tables,
+                         use_flash=use_flash)
+    return gather_last_hidden(hidden, lengths), kv
+
+
+def insert_slot_kv(cache: KVCache, new_kv: KVCache, slot: int) -> KVCache:
+    """Write one request's collected kv ``[L, 1, T, Hkv, D]`` into positions
+    ``0 .. T-1`` of its dense cache row ``slot``, in place (the JAX function
+    donates the cache to a dynamic_update_slice). Returns the cache."""
+    for c, new in zip(cache, new_kv):
+        c[:, int(slot), :new.shape[2]] = new[:, 0].to(c.dtype)
+    return cache
 
 
 def forward_paged_decode(

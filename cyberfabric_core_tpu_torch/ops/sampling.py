@@ -12,6 +12,10 @@ exactly one uniform draw and hands out that draw. :func:`sample_token_per_slot`
 then turns each row's draw into a token by inverse-CDF over the warped,
 sorted distribution — a pure function of logits and draws, so the tests can
 feed both packages' warps the same numbers.
+
+:func:`sample_token` is the shared-stream form dense mode uses (JAX
+``sample_token`` with one key for the batch): one generator, one uniform per
+row per sampling step.
 """
 
 from __future__ import annotations
@@ -101,3 +105,24 @@ def sample_token_per_slot(
     pos = torch.minimum(pos, n_kept - 1)
     sampled = torch.gather(sorted_idx, 1, pos[:, None])[:, 0].to(torch.int32)
     return torch.where(temperature > 0, sampled, greedy)
+
+
+def sample_token(
+    logits: torch.Tensor,       # [B, V] f32
+    generator: torch.Generator,
+    temperature: torch.Tensor,  # [B] f32; 0 → greedy
+    top_p: torch.Tensor,        # [B] f32
+    top_k: torch.Tensor,        # [B] int
+    all_greedy: Optional[bool] = None,
+) -> torch.Tensor:
+    """Returns [B] int32 tokens from ONE stream shared by the batch: the
+    generator advances by one uniform per row at every step that samples
+    (none when the whole batch is greedy). ``all_greedy`` as in
+    :func:`sample_token_per_slot`."""
+    if all_greedy is None:
+        all_greedy = not bool((temperature > 0).any())
+    if all_greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    u = torch.rand(logits.shape[0], generator=generator, device=logits.device)
+    return sample_token_per_slot(logits, u, temperature, top_p, top_k,
+                                 all_greedy=False)

@@ -1,15 +1,25 @@
-"""Engine configuration and request/event types (counterpart of ``runtime/engine.py``).
+"""Engine configuration, request/event types and the fused dense decode body
+(counterpart of ``runtime/engine.py``).
 
 ``EngineConfig`` is the JAX package's dataclass field for field, so the
 worker's ``engine_options`` parse the same way for both packages. Which of
 its options the port's scheduler honours, ignores or rejects is decided in
-:mod:`.scheduler`. The lockstep ``InferenceEngine`` comes with a later slice.
+:mod:`.scheduler`. :func:`build_decode_chunk_fn` is the decode body the dense
+scheduler runs; the lockstep ``InferenceEngine`` around it comes with a later
+slice.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
+
+from ..device import DeviceLike
+from ..models import llama
+from ..models.configs import ModelConfig
+from ..ops.sampling import sample_token
 
 
 class SchedulerSaturated(RuntimeError):
@@ -219,6 +229,14 @@ class EngineConfig:
                 else 0
         return max(0, int(self.decode_lookahead))
 
+    def resolve_use_flash(self, device: DeviceLike = None) -> bool:
+        """Whether prefill attends through the flash kernel. ``None`` means
+        on wherever the engine runs on CUDA (the port's default device) and
+        off on the CPU, where the kernel would run its plain version."""
+        if self.use_flash is not None:
+            return self.use_flash
+        return torch.device("cuda" if device is None else device).type == "cuda"
+
     def buckets(self) -> tuple[int, ...]:
         if self.prefill_buckets:
             return self.prefill_buckets
@@ -241,6 +259,54 @@ class EngineConfig:
             if length <= b:
                 return b
         raise AssertionError("unreachable: buckets() always covers max_seq_len")
+
+
+def build_decode_chunk_fn(model_config: ModelConfig, k_steps: int, rope_tables,
+                          *, max_seq: Optional[int] = None,
+                          device_term: bool = False) -> Callable:
+    """The shared fused decode body: k (forward T=1 over the dense cache →
+    lm_head → sample) steps, a Python loop where JAX runs ``lax.scan``. The
+    cache is written in place; the function returns it for signature parity.
+
+    Sampling shares ONE ``torch.Generator`` across the batch
+    (:func:`ops.sampling.sample_token`). ``all_greedy`` is the caller's
+    host-side knowledge that no row samples (then nothing is drawn).
+
+    Only the ``device_term=True`` form is ported (dense mode runs it; the
+    plain form comes with the lockstep ``InferenceEngine``): inputs add
+    (active, finished, stop_ids, limit_lens), outputs add (lengths,
+    finished). A step matches the sampled token against the row's stop ids
+    and length limit (and, at the chunk's last step, the window bound
+    ``len + k > max_seq``); a finished row freezes (its last token and length
+    stop advancing) and emits -1."""
+    if not device_term:
+        raise NotImplementedError("not ported yet: build_decode_chunk_fn without "
+                                  "device_term (lockstep InferenceEngine slice)")
+
+    def decode_chunk_term(params, k_cache, v_cache, last_tokens, lengths, generator,
+                          temperature, top_p, top_k, active, finished, stop_ids,
+                          limit_lens, all_greedy=None):
+        cache, toks, lens, fin, out = (k_cache, v_cache), last_tokens, lengths, finished, []
+        for j in range(k_steps):
+            run = active & ~fin
+            hidden, cache = llama.forward(params, model_config, toks[:, None],
+                                          lens[:, None], cache, lens, rope_tables)
+            logits = llama.lm_head_logits(params, model_config, hidden[:, 0])
+            nxt = sample_token(logits, generator, temperature, top_p, top_k,
+                               all_greedy=all_greedy)
+            new_lens = lens + 1
+            is_stop = (nxt[:, None] == stop_ids).any(dim=1)
+            hit = new_lens >= limit_lens
+            if max_seq is not None and j == k_steps - 1:
+                hit = hit | (new_lens + k_steps > max_seq)
+            out.append(torch.where(run, nxt, torch.full_like(nxt, -1)))
+            toks = torch.where(run, nxt, toks)
+            lens = torch.where(run, new_lens, lens)
+            fin = fin | (run & (is_stop | hit))
+        lens = torch.where(active, lens, torch.zeros_like(lens))
+        return torch.stack(out, dim=1), cache[0], cache[1], toks, generator, lens, fin
+
+    return decode_chunk_term
 
 
 @dataclass

@@ -6,10 +6,15 @@ scratch (padding and frozen rows write there), the allocator hands out pages
 page-table row points at. The paged forwards write into the pool tensors in
 place (the JAX package donates them instead).
 
+A chain is built one of two ways: chunk by chunk as mixed rounds write a
+prompt into it (:meth:`admit_chain` + :meth:`extend_chain`), or at once from
+a phase-separated prefill's collected KV (:meth:`admit_slot`).
+
 Until the radix prefix cache lands every page has exactly one holder, its
 chain: :meth:`release_slot` frees the chain's pages directly and
 :meth:`commit_chain` (radix publishing) is a no-op. Per-page reference
-counts come with prefix reuse, which shares pages between chains.
+counts, ``store_prefill`` and tree publishing come with prefix reuse, which
+shares pages between chains.
 """
 
 from __future__ import annotations
@@ -61,6 +66,28 @@ class PrefixKVPool:
         add = self.pages_for(length_needed) - len(chain)
         if add > 0:
             chain.extend(self._alloc(add))
+        return chain
+
+    def admit_slot(self, prompt_ids: list[int], kv: tuple[torch.Tensor, torch.Tensor]
+                   ) -> list[int]:
+        """Place one request's prefilled KV (``[L, 1, T', Hkv, D]`` each,
+        T' >= len(prompt_ids)) into freshly allocated private pages — the
+        full prompt pages, then the tail page — and return the chain. One
+        indexed copy per pool writes every page; positions past the prompt
+        in the tail page carry the prefill's padding KV, masked by length
+        until decode overwrites them. Raises MemoryError (nothing
+        allocated) when the pool is short."""
+        T = len(prompt_ids)
+        n = self.pages_for(T)
+        chain = self._alloc(n)
+        span = n * self.page_size
+        ids = torch.tensor(chain, dtype=torch.long, device=self.k_pool.device)
+        for pool, new in ((self.k_pool, kv[0]), (self.v_pool, kv[1])):
+            L, _, width, Hkv, D = new.shape
+            src = new[:, 0, :span]
+            if width < span:  # the prefill bucket is shorter than the pages
+                src = torch.nn.functional.pad(src, (0, 0, 0, 0, 0, span - width))
+            pool[:, ids] = src.reshape(L, n, self.page_size, Hkv, D).to(pool.dtype)
         return chain
 
     def release_slot(self, chain: list[int]) -> None:

@@ -1,4 +1,4 @@
-"""The port's CUDA paged-attention kernels against their plain versions.
+"""The port's CUDA attention kernels against their plain versions.
 
 Needs a CUDA card (Hopper: the kernels are built for sm_90a) and skips
 without one. Run on the card with
@@ -9,11 +9,12 @@ without one. Run on the card with
 machine runs the port without JAX). Tolerance: every bf16 output element
 within one bf16 ulp of the plain version's (same f32 arithmetic, another
 summation order before the final rounding); q_len=1 ragged rows bitwise
-equal to decode."""
+equal to decode; flash rows past the length exactly zero."""
 
 import pytest
 import torch
 
+from cyberfabric_core_tpu_torch.ops import flash_attention as fa
 from cyberfabric_core_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -83,3 +84,38 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(dev):
         pa.paged_decode_attention(q[:, 0].float(), k, v, pt, lens)
     with pytest.raises(ValueError):
         pa.paged_decode_attention(q[:, 0].contiguous(), k, v, pt, lens.long())
+
+
+@pytest.mark.parametrize("T,Hq,Hkv,lengths,window", [
+    (200, 4, 4, [200, 1], None),      # G=1, T not a tile multiple, a length-1 row
+    (130, 8, 4, [77, 130], 33),       # G=2, window
+    (64, 8, 2, [64, 40], None),       # G=4
+    (300, 32, 4, [299, 150], 100),    # G=8, window
+])
+def test_cuda_flash_matches_plain(dev, T, Hq, Hkv, lengths, window):
+    g = torch.Generator(device=dev)
+    g.manual_seed(T)
+    B = len(lengths)
+    q, k, v = (torch.randn((B, T, h, 128), generator=g, device=dev).to(torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = fa.flash_self_attention.launches
+    out = fa.flash_self_attention(q, k, v, lens, sliding_window=window)
+    ref = fa.flash_self_attention_plain(q, k, v, lens, sliding_window=window)
+    assert fa.flash_self_attention.launches == before + 1
+    assert _one_ulp(out, ref)
+    for b, L in enumerate(lengths):
+        assert bool((out[b, L:] == 0).all())
+
+
+def test_cuda_flash_refuses_what_the_kernel_does_not_take(dev):
+    q = torch.zeros((1, 16, 12, 128), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((1, 16, 4, 128), dtype=torch.bfloat16, device=dev)
+    lens = torch.tensor([16], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        fa.flash_self_attention(q, k, k, lens)                      # G=3
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_self_attention(q[:, :, :4].float(), k.float(), k.float(), lens)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_self_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                                k[..., :64].contiguous(), lens)

@@ -115,3 +115,90 @@ def test_paged_forwards_match_jax_over_steps(models):
 def test_moe_config_is_a_later_slice():
     with pytest.raises(NotImplementedError, match="mixture-of-experts"):
         tllama.init_params(get_config("tiny-moe"), device="cpu")
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_prefill_collect_matches_jax(models, use_flash):
+    """Both packages' prefill_collect (the JAX one through its Pallas flash
+    kernel in interpret mode when ``use_flash``): last hidden state at each
+    row's length and the whole collected KV [L, B, T, Hkv, D]."""
+    jcfg, jparams, _, cfg, tparams = models
+    T = 24
+    ids = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, T)).astype(np.int32)
+    lengths = np.asarray([T, 11], np.int32)
+    jh, jkv = jllama.prefill_collect(jparams, jcfg, jnp.asarray(ids), jnp.asarray(lengths),
+                                     jrope(16, 256, 10000.0), use_flash=use_flash)
+    th, tkv = tllama.prefill_collect(tparams, cfg, torch.from_numpy(ids),
+                                     torch.from_numpy(lengths),
+                                     rope_frequencies(16, 256, 10000.0, device="cpu"),
+                                     use_flash=use_flash)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    for t, j in zip(tkv, jkv):
+        assert t.shape == (cfg.num_layers, 2, T, cfg.num_kv_heads, cfg.head_dim)
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
+
+
+def test_insert_slot_kv_matches_jax(models):
+    _, _, _, cfg, _ = models
+    rng = np.random.default_rng(6)
+    L, Hkv, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    cache = [rng.standard_normal((L, 3, 32, Hkv, D)).astype(np.float32) for _ in range(2)]
+    new = [rng.standard_normal((L, 1, 16, Hkv, D)).astype(np.float32) for _ in range(2)]
+    want = jllama.insert_slot_kv(tuple(map(jnp.asarray, cache)), tuple(map(jnp.asarray, new)),
+                                 jnp.asarray(1, jnp.int32))
+    tcache = tuple(torch.from_numpy(c.copy()) for c in cache)
+    got = tllama.insert_slot_kv(tcache, tuple(map(torch.from_numpy, new)), 1)
+    assert got[0] is tcache[0]  # in place
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_decode_chunk_fn_matches_jax(models):
+    """The fused dense decode body with device termination over 4 greedy
+    steps from a prefilled cache: tokens, cache, lengths and the finished
+    mask; row 2 is inactive and row 1 stops on its second token. The form
+    without device termination is not ported yet and says so."""
+    import jax
+
+    from cyberfabric_core_tpu.runtime.engine import build_decode_chunk_fn as jbuild
+    from cyberfabric_core_tpu_torch.runtime.engine import build_decode_chunk_fn
+
+    jcfg, jparams, _, cfg, tparams = models
+    B, S, k = 3, 32, 4
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, cfg.vocab_size, (B, 8)).astype(np.int32)
+    lengths = np.asarray([8, 5, 0], np.int32)
+    jrt, trt = jrope(16, 256, 10000.0), rope_frequencies(16, 256, 10000.0, device="cpu")
+    pos = np.broadcast_to(np.arange(8, dtype=np.int32), (B, 8)).copy()
+    _, jcache = jllama.forward(jparams, jcfg, jnp.asarray(ids), jnp.asarray(pos),
+                               jllama.init_cache(jcfg, B, S, jnp.float32),
+                               jnp.zeros(B, jnp.int32), jrt)
+    tcache = tuple(torch.from_numpy(np.array(c)) for c in jcache)
+    last = np.asarray([3, 9, 0], np.int32)
+    zeros, ones = np.zeros(B, np.float32), np.ones(B, np.float32)
+    jargs = [jparams, jcache[0], jcache[1], jnp.asarray(last), jnp.asarray(lengths),
+             jax.random.PRNGKey(0), jnp.asarray(zeros), jnp.asarray(ones),
+             jnp.zeros(B, jnp.int32)]
+    targs = [tparams, tcache[0], tcache[1], torch.from_numpy(last),
+             torch.from_numpy(lengths), torch.Generator().manual_seed(0),
+             torch.from_numpy(zeros), torch.from_numpy(ones),
+             torch.zeros(B, dtype=torch.int32)]
+    probe = np.asarray(jbuild(jcfg, 2, jrt)(*jargs)[0])
+    active = np.asarray([True, True, False])
+    stops = np.full((B, 2), -1, np.int32)
+    stops[1, 0] = probe[1, 1]
+    limits = np.asarray([100, 100, 0], np.int32)
+    extra = [active, np.zeros(B, bool), stops, limits]
+    jargs += [jnp.asarray(a) for a in extra]
+    targs += [torch.from_numpy(a) for a in extra]
+    jout = jbuild(jcfg, k, jrt, max_seq=S, device_term=True)(*jargs)
+    tout = build_decode_chunk_fn(cfg, k, trt, max_seq=S, device_term=True)(*targs)
+    np.testing.assert_array_equal(tout[0].numpy(), np.asarray(jout[0]))
+    np.testing.assert_array_equal(tout[3].numpy(), np.asarray(jout[3]))
+    for t, j in zip(tout[1:3], jout[1:3]):
+        np.testing.assert_allclose(t.numpy()[:, :2], np.asarray(j)[:, :2], **TOL)
+    np.testing.assert_array_equal(tout[5].numpy(), np.asarray(jout[5]))
+    np.testing.assert_array_equal(tout[6].numpy(), np.asarray(jout[6]))
+    assert tout[0][1, 1] == probe[1, 1] and (tout[0][1, 2:] == -1).all()
+    with pytest.raises(NotImplementedError, match="InferenceEngine"):
+        build_decode_chunk_fn(cfg, k, trt)

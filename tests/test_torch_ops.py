@@ -111,3 +111,26 @@ def test_seeded_slot_draws_do_not_depend_on_companions():
     # the draw respects the warp: row 2 stays inside its top-5
     top5 = set(torch.topk(logits[2] / 1.2, 5).indices.tolist())
     assert all(t[2] in top5 for t in crowded)
+
+
+def test_shared_stream_sample_token_draws_one_uniform_per_row():
+    """Dense mode's ``sample_token``: greedy rows take the argmax (as JAX's
+    ``sample_token``), and a sampling batch advances the one generator by
+    one uniform per row — the same tokens as the per-slot sampler fed those
+    uniforms."""
+    rng = np.random.default_rng(3)
+    logits = torch.from_numpy(rng.standard_normal((3, 50)).astype(np.float32))
+    temp = torch.tensor([0.0, 0.7, 1.2])
+    top_p, top_k = torch.tensor([1.0, 0.9, 1.0]), torch.tensor([0, 0, 10])
+    want_greedy = np.asarray(jsampling.sample_token(
+        jnp.asarray(logits.numpy()), jnp.zeros(2, jnp.uint32), jnp.zeros(3),
+        jnp.ones(3), jnp.zeros(3, jnp.int32)))
+    g = torch.Generator().manual_seed(11)
+    greedy = sampling.sample_token(logits, g, torch.zeros(3), torch.ones(3),
+                                   torch.zeros(3, dtype=torch.int32))
+    np.testing.assert_array_equal(greedy.numpy(), want_greedy)
+    assert torch.equal(g.get_state(), torch.Generator().manual_seed(11).get_state())
+    got = sampling.sample_token(logits, g, temp, top_p, top_k)
+    u = torch.rand(3, generator=torch.Generator().manual_seed(11))
+    want = sampling.sample_token_per_slot(logits, u, temp, top_p, top_k)
+    assert torch.equal(got, want) and got[0] == greedy[0]
