@@ -11,11 +11,16 @@ fatal on failure:
    sources at once;
 3. kernels: each kernel held against its plain PyTorch version on the card,
    at small shapes (window, idle rows, shared pages, GQA groups, rows of
-   length 1) and at the llama-3-8b main-path shapes in bf16; ragged at
-   q_len=1 bitwise equal to decode; flash rows past the length exactly zero;
-   CUDA-event times of kernel, plain version and one PyTorch SDPA call over
-   dense inputs prepared outside the timed call (a yardstick only, never
-   used by the port), beside each kernel's bound;
+   length 1; decode lengths on both sides of split boundaries, windows that
+   empty whole splits) and at the llama-3-8b main-path shapes in bf16;
+   ragged at q_len=1 bitwise equal to decode, every position of a span of
+   up to SHORT_SPAN tokens bitwise equal to decoding it alone, a prompt-chunk
+   row's bits independent of where its span starts; flash rows past the
+   length exactly zero; device times (CUDA-graph replay) of each kernel and
+   of one PyTorch SDPA call over dense inputs prepared outside the timed call
+   (a yardstick only, never used by the port), CUDA-event times of the plain
+   version, beside each kernel's bound, with the paged kernels' blocks,
+   splits and achieved rates;
 4. serving, three runs of ``ContinuousBatchingEngine`` at llama-3-8b full
    width (random weights from a seed, built once and shared), each from
    quickstart-shaped ``engine_options`` as the llm-gateway worker maps them:
@@ -46,6 +51,7 @@ from cyberfabric_core_tpu_torch.models.configs import get_config
 from cyberfabric_core_tpu_torch.ops import _build
 from cyberfabric_core_tpu_torch.ops import flash_attention as fa
 from cyberfabric_core_tpu_torch.ops import paged_attention as pa
+from cyberfabric_core_tpu_torch.ops.timing import graph_ms
 from cyberfabric_core_tpu_torch.runtime.engine import EngineConfig, SamplingParams
 from cyberfabric_core_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
 from cyberfabric_core_tpu_torch.runtime.tokenizer import ByteTokenizer
@@ -96,6 +102,9 @@ def bf16_ulp_close(out: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """CUDA-event time per call of ``iters`` back-to-back calls. Where the
+    host enqueues a call more slowly than the card runs it, this reads the
+    host's rate, not the card's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -106,6 +115,35 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 50) -> float:
+    """Host wall time per call to enqueue ``iters`` calls (no sync inside)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def device_breakdown(fn, iters: int = 20) -> str:
+    """Device time per call of each CUDA kernel ``fn`` launches, from a
+    torch.profiler window (informational)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key.split("::")[-1].split("(")[0] if "::" in e.key else e.key[:40],
+                 e.device_time_total / iters / 1e3)
+                for e in prof.key_averages() if e.device_time_total > 0]
+    except Exception as exc:  # the breakdown is information, not a gate
+        return f"not measured ({type(exc).__name__}: {exc})"
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(rows, key=lambda r: -r[1]))
 
 
 def make_pools(gen, N, page, Hkv, D, dev):
@@ -133,22 +171,67 @@ def bound(nbytes, flops):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def paged_geometry(Hq, Hkv, page, Pmax, B, Qmax, split_rows, chunks) -> dict:
+    """What the paged kernels launch for one call of B rows, from its inputs
+    as the kernels read them (no window). ``split_rows``: for each row that
+    takes the decode path, the key counts of its positions (a decode row's
+    length; each position of a short ragged span); ``chunks``: the (hist,
+    q_len) of ragged rows longer than SHORT_SPAN, None for decode (Qmax 1).
+    Blocks launched per kernel, the blocks that load K/V, the decode path's
+    (position, split) partials, and the chunk path's tensor-core operations
+    (64x64 tiles walked, Q.K once and P.V three times)."""
+    S, G = pa.split_pages(), Hq // Hkv
+    P = 64 // G
+
+    def n_split(L):
+        return -(-min(L, Pmax * page) // (S * page))
+
+    geo = {"split_blocks": B * Hkv * -(-Pmax // S),
+           "split_working": sum(max(map(n_split, row)) for row in split_rows) * Hkv,
+           "partials": sum(n_split(L) for row in split_rows for L in row) * Hkv,
+           "combine_blocks": B * Hkv}
+    if chunks is not None:
+        tiles = sum((h + min(ql, t + P) - 1) // 64 + 1
+                    for h, ql in chunks for t in range(0, ql, P))
+        geo.update(chunk_blocks=-(-Qmax // P) * Hkv * B,
+                   chunk_working=sum(-(-ql // P) for _, ql in chunks) * Hkv,
+                   chunk_tiles=tiles * Hkv,
+                   chunk_tc_flops=tiles * Hkv * 64 * 64 * 128 * 2 * 4)
+    return geo
+
+
 def time_kernel(name, kern, plain, lib, nbytes, flops, err) -> dict:
-    """CUDA-event times of the kernel, its plain version and the library
-    yardstick, beside the bound. These launches are not the main path's: the
-    serving phases reset the counters before they run."""
-    ms = cuda_ms(kern, 50)
+    """Times of the kernel and the library yardstick on the card (CUDA-graph
+    replay: device time, no host gaps) and of the plain version (CUDA
+    events), beside the bound; also back-to-back event times, the host's
+    enqueue time per call and the device time of each kernel the wrapper
+    launches. These launches are not the main path's: the serving phases
+    reset the counters before they run."""
+    ms = graph_ms(kern)
     plain_ms = cuda_ms(plain, 3, warmup=1)
-    library_ms = cuda_ms(lib, 50)
+    library_ms = graph_ms(lib)
     b_ms, b_by = bound(nbytes, flops)
     log(f"kernel {name} main shapes: ms={ms:.4f} plain_ms={plain_ms:.3f} "
         f"library_ms={library_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
         f"max_abs_err={err:.3e} (tolerance: one bf16 ulp of the plain value)")
+    log(f"kernel {name} main shapes, back-to-back calls: events {cuda_ms(kern, 50):.4f} "
+        f"ms a call (library {cuda_ms(lib, 50):.4f}), host enqueue {host_ms(kern):.4f} ms "
+        f"a call; device time by kernel: {device_breakdown(kern)}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms)
 
 
 # ------------------------------------------------------------------ kernel phase
+def ragged_one(q1, k, v, pt, lens, window):
+    """Each row's decode query as a ragged span of one token at lens-1."""
+    B, Hq, D = q1.shape
+    qr = torch.zeros((B, 8, Hq, D), dtype=torch.bfloat16, device=q1.device)
+    qr[:, 0] = q1
+    ones = torch.ones(B, dtype=torch.int32, device=q1.device)
+    return pa.ragged_paged_attention(qr, k, v, pt, lens - 1, ones,
+                                     sliding_window=window)[:, 0]
+
+
 def kernel_small_shapes(dev, gen) -> None:
     """Window, idle rows, shared pages, G=2 and G=4, page 16 and 64."""
     for Hq, Hkv, page, Pmax, window in [(4, 2, 16, 6, None), (8, 2, 16, 6, 21),
@@ -172,18 +255,82 @@ def kernel_small_shapes(dev, gen) -> None:
             if not bool((rag[b, int(q_lens[b]):] == 0).all()):
                 raise AssertionError(f"ragged padding rows of row {b} are not zero")
         # a decode row's value cannot depend on its round's kind
-        qr = torch.zeros((B, 8, Hq, D), dtype=torch.bfloat16, device=dev)
-        qr[:, 0] = q1
         lens1 = torch.clamp_min(lens, 1)
-        rag1 = pa.ragged_paged_attention(qr, k, v, pt, lens1 - 1,
-                                         torch.ones(B, dtype=torch.int32, device=dev),
-                                         sliding_window=window)
         dec1 = pa.paged_decode_attention(q1, k, v, pt, lens1, sliding_window=window)
-        if not torch.equal(rag1[:, 0], dec1):
+        if not torch.equal(ragged_one(q1, k, v, pt, lens1, window), dec1):
             raise AssertionError("ragged q_len=1 differs from decode")
     torch.cuda.synchronize()
     log("kernels small shapes: decode and ragged within one bf16 ulp of their "
         "plain versions; padding rows zero; ragged q_len=1 == decode bitwise")
+
+
+def kernel_split_cases(dev, gen) -> None:
+    """The decode path's splits, short spans and chunk rows, at G=2 with
+    16-token pages and at the llama-3-8b head shape with 64-token pages."""
+    S = pa.split_pages()
+    for Hq, Hkv, page in [(4, 2, 16), (32, 8, 64)]:
+        span = S * page
+        # lengths on both sides of split boundaries; windows that leave every
+        # split but the last one or two empty
+        lengths = [span - 1, span, span + 1, 2 * span + 1, 3 * span - 1, 1]
+        B, Pmax = len(lengths), 3 * span // page + 1
+        N = (pa.SHORT_SPAN + 1) * Pmax + 2  # room for the short-span rows' tables
+        k, v = make_pools(gen, N, page, Hkv, 128, dev)
+        pt = make_table(B, Pmax, N, 3, dev, share=True)
+        lens = i32(lengths, dev)
+        q1 = torch.randn((B, Hq, 128), generator=gen, device=dev).to(torch.bfloat16)
+        for window in (None, span - page // 2, 2 * span - page // 2):
+            dec = pa.paged_decode_attention(q1, k, v, pt, lens, sliding_window=window)
+            bf16_ulp_close(dec, pa.paged_decode_attention_plain(q1, k, v, pt, lens, window))
+            if not torch.equal(ragged_one(q1, k, v, pt, lens, window), dec):
+                raise AssertionError(f"split lengths {lengths} window {window}: "
+                                     "ragged q_len=1 differs from decode")
+
+        # spans of 2..SHORT_SPAN tokens decode position by position
+        q_lens_l = list(range(2, pa.SHORT_SPAN + 1))
+        Bs, Qmax = len(q_lens_l), 16
+        hist_l = [span - 3 + 5 * b for b in range(Bs)]
+        pts = make_table(Bs, Pmax, N, 4, dev)
+        hist, q_lens = i32(hist_l, dev), i32(q_lens_l, dev)
+        q = torch.randn((Bs, Qmax, Hq, 128), generator=gen, device=dev).to(torch.bfloat16)
+        for window in (None, page + 5):
+            rag = pa.ragged_paged_attention(q, k, v, pts, hist, q_lens, sliding_window=window)
+            bf16_ulp_close(rag, pa.ragged_paged_attention_plain(q, k, v, pts, hist,
+                                                                 q_lens, window))
+            for i in range(pa.SHORT_SPAN):
+                rows = [b for b in range(Bs) if i < q_lens_l[b]]
+                dec = pa.paged_decode_attention(q[rows, i].contiguous(), k, v,
+                                                pts[rows].contiguous(), hist[rows] + i + 1,
+                                                sliding_window=window)
+                if not torch.equal(rag[rows, i], dec):
+                    raise AssertionError(f"short span position {i} differs from decode")
+            for b in range(Bs):
+                if not bool((rag[b, q_lens_l[b]:] == 0).all()):
+                    raise AssertionError(f"short span padding of row {b} is not zero")
+
+        # one chunk row at absolute position pos, inside spans that start
+        # elsewhere and are cut at other boundaries: the same bits
+        pos = span + 22
+        qrow = torch.randn((Hq, 128), generator=gen, device=dev).to(torch.bfloat16)
+        for window in (None, 45):
+            outs = []
+            for start, qlen in [(pos - 50, 60), (pos - 30, 45),
+                                (pos - pa.SHORT_SPAN, pa.SHORT_SPAN + 1)]:
+                qc = torch.randn((1, 64, Hq, 128), generator=gen, device=dev).to(torch.bfloat16)
+                qc[0, pos - start] = qrow
+                hist, q_lens = i32([start], dev), i32([qlen], dev)
+                out = pa.ragged_paged_attention(qc, k, v, pt[:1].contiguous(), hist, q_lens,
+                                                sliding_window=window)
+                bf16_ulp_close(out, pa.ragged_paged_attention_plain(
+                    qc, k, v, pt[:1], hist, q_lens, window))
+                outs.append(out[0, pos - start])
+            if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+                raise AssertionError(f"chunk row at {pos} depends on its span's start")
+    torch.cuda.synchronize()
+    log(f"kernels split cases ({S} pages per split): decode across split boundaries "
+        "and emptying windows within one bf16 ulp, ragged q_len=1 == decode; spans of "
+        f"2..{pa.SHORT_SPAN} == decode position by position; a chunk row's bits "
+        "independent of its span's start")
 
 
 def kernel_main_shapes(dev, gen, cfg, page, Pmax, n_pages) -> dict[str, dict]:
@@ -202,15 +349,21 @@ def kernel_main_shapes(dev, gen, cfg, page, Pmax, n_pages) -> dict[str, dict]:
     q = torch.randn((B, Qmax, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
 
     results = {}
+    short = pa.SHORT_SPAN
+    geometry = {
+        "paged_decode_attention": paged_geometry(Hq, Hkv, page, Pmax, B, 1,
+                                                 [[L] for L in lengths], None),
+        "ragged_paged_attention": paged_geometry(
+            Hq, Hkv, page, Pmax, B, Qmax,
+            [[h + i + 1 for i in range(ql)] for h, ql in zip(hist_l, qlen_l)
+             if 0 < ql <= short],
+            [(h, ql) for h, ql in zip(hist_l, qlen_l) if ql > short]),
+    }
     dec = pa.paged_decode_attention(q1, k, v, pt, lens)
     err_dec = bf16_ulp_close(dec, pa.paged_decode_attention_plain(q1, k, v, pt, lens))
     rag = pa.ragged_paged_attention(q, k, v, pt, hist, q_lens)
     err_rag = bf16_ulp_close(rag, pa.ragged_paged_attention_plain(q, k, v, pt, hist, q_lens))
-    qr = torch.zeros((B, 8, Hq, D), dtype=torch.bfloat16, device=dev)
-    qr[:, 0] = q1
-    rag1 = pa.ragged_paged_attention(qr, k, v, pt, lens - 1,
-                                     torch.ones(B, dtype=torch.int32, device=dev))
-    if not torch.equal(rag1[:, 0], dec):
+    if not torch.equal(ragged_one(q1, k, v, pt, lens, None), dec):
         raise AssertionError("main shapes: ragged q_len=1 differs from decode")
 
     # library yardstick: SDPA over the dense K/V gathered (and GQA-expanded)
@@ -252,6 +405,15 @@ def kernel_main_shapes(dev, gen, cfg, page, Pmax, n_pages) -> dict[str, dict]:
          rag_bytes, rag_flops, err_rag),
     ]:
         results[name] = time_kernel(name, kern, plain, lib, nbytes, flops, err)
+        ms, geo = results[name]["ms"], geometry[name]
+        rate = (f" (chunk path: {geo['chunk_tc_flops'] / 1e9:.2f} GFLOP of tensor-core "
+                f"work over {geo['chunk_tiles']} tiles, "
+                f"{geo['chunk_tc_flops'] / ms / 1e9:.1f} TFLOP/s if it took the whole call)"
+                if "chunk_tiles" in geo else "")
+        log(f"kernel {name} main shapes: blocks {geo}; achieved "
+            f"{nbytes / ms / 1e6:.1f} GB/s and {flops / ms / 1e9:.2f} TFLOP/s of the "
+            f"counted work against bound {results[name]['bound_ms']:.4f} ms and library "
+            f"{results[name]['library_ms']:.4f} ms{rate}")
     return results
 
 
@@ -558,6 +720,7 @@ def main() -> int:
     gen.manual_seed(1)
     with torch.inference_mode():
         kernel_small_shapes(dev, gen)
+        kernel_split_cases(dev, gen)
         flash_small_shapes(dev, gen)
         cfg = get_config("llama-3-8b")
         kern = kernel_main_shapes(dev, gen, cfg, page=64, Pmax=32, n_pages=321)

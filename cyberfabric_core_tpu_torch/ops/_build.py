@@ -2,10 +2,11 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with ``ctypes``. Libraries land in
-``build/kernels/`` at the repository root, named by a hash of the source and
-the flags, so a changed source rebuilds and an unchanged one is reused. All
-sources compile in parallel (one ``nvcc`` each, started together). The build
-runs at first use, never at import.
+``build/kernels/`` at the repository root, named by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so a changed source or
+header rebuilds and an unchanged one is reused. All sources compile in
+parallel (one ``nvcc`` each, started together). The build runs at first
+use, never at import.
 """
 
 from __future__ import annotations
@@ -39,7 +40,12 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library path for ``src``, keyed by the source, every shared header
+    of ``csrc/`` (any source may include any of them) and the flags."""
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

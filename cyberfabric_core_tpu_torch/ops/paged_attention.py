@@ -10,17 +10,28 @@ signatures and layouts:
 - :func:`paged_decode_attention` — one query per row over ``lengths[b]`` keys
   (the current token included). Replaces ``paged_decode_attention`` (:188).
 
-Each wrapper launches the hand-written Hopper kernel of
+Each wrapper launches the hand-written Hopper kernels of
 ``ops/csrc/paged_attention.cu`` for CUDA tensors, and runs its plain PyTorch
 version (``*_plain``) only for CPU tensors. There is no fallback from the
-kernel to the plain version. Each wrapper counts its kernel launches in its
-``launches`` attribute.
+kernel to the plain version. Each wrapper counts its calls that launch the
+kernels in its ``launches`` attribute.
 
-The plain versions walk the pages in the kernels' order with the same
-per-page online-softmax update (f32 scores scaled after the dot, -1e30 mask,
-floored correction, P·V in f32, denominator floored at 1e-30). Every query
-row's arithmetic is independent of the rows beside it, so a ragged row with
-q_len=1 is bitwise equal to the decode row.
+On the card, decode is split-KV: each row's keys are cut every
+:func:`split_pages` pages from key 0, one block per (row, kv head, split)
+writes a partial softmax to scratch, and a second kernel merges the
+partials in split order. The ragged entry sends every position of a span
+of at most :data:`SHORT_SPAN` tokens through that same decode path (so
+ragged q_len=1 is bitwise equal to decode, and each such position to
+decoding its token alone) and longer spans through a tensor-core kernel.
+
+The plain versions walk the pages in order with the kernels' per-page
+online-softmax update (scores scaled after the dot, -1e30 mask, floored
+correction, denominator floored at 1e-30), accumulating in float64: they
+are the reference the kernels are held to within one bf16 ulp, and an f32
+reference's own rounding would approach that bar at near-zero outputs. They
+do not copy the splits or the tensor-core path. Every query row's arithmetic
+is independent of the rows beside it, so a ragged row with q_len=1 is
+bitwise equal to the decode row.
 """
 
 from __future__ import annotations
@@ -34,6 +45,10 @@ import torch
 _NEG_INF = -1e30
 _HEAD_DIM = 128     # the CUDA kernel's head dim
 _MAX_PAGE = 64      # the CUDA kernel's largest page
+_MAX_GROUP = 8      # the CUDA kernel's most query heads per kv head
+#: ragged spans of at most this many positions take the decode (split-KV)
+#: path on the card; longer spans the tensor-core chunk path
+SHORT_SPAN = 8
 
 
 # ---------------------------------------------------------------- plain versions
@@ -41,27 +56,29 @@ def _online_softmax_pages(qrows: torch.Tensor, q_abs: torch.Tensor,
                           valid: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, page_table: torch.Tensor,
                           sliding_window: Optional[int]) -> torch.Tensor:
-    """qrows [B, Hkv, R, D] (any float dtype), q_abs/valid [B, R] → f32
+    """qrows [B, Hkv, R, D] (any float dtype), q_abs/valid [B, R] → float64
     [B, Hkv, R, D]. Pages are walked in order; a page no query of a row can
     see is an exact no-op of the update (correction 1, zero mass), so walking
-    every page up to the last one any row needs gives the kernels' numbers."""
+    every page up to the last one any row needs gives each row the value it
+    has alone."""
     B, Hkv, R, D = qrows.shape
     page = k_pool.shape[1]
     Pmax = page_table.shape[1]
     dev = qrows.device
+    f64 = torch.float64
     scale = 1.0 / D ** 0.5
-    q = qrows.float()
+    q = qrows.to(f64)
     q_abs = q_abs.long()
-    m = torch.full((B, Hkv, R), _NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, Hkv, R), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, Hkv, R, D), dtype=torch.float32, device=dev)
+    m = torch.full((B, Hkv, R), _NEG_INF, dtype=f64, device=dev)
+    l = torch.zeros((B, Hkv, R), dtype=f64, device=dev)
+    acc = torch.zeros((B, Hkv, R, D), dtype=f64, device=dev)
     last = int(torch.where(valid, q_abs, -1).max()) if valid.numel() else -1
     n_pages = min(last // page + 1, Pmax) if last >= 0 else 0
     k_off = torch.arange(page, device=dev)
     for j in range(n_pages):
         pid = page_table[:, j].long()
-        k = k_pool[pid].float().permute(0, 2, 1, 3)    # [B, Hkv, page, D]
-        v = v_pool[pid].float().permute(0, 2, 1, 3)
+        k = k_pool[pid].to(f64).permute(0, 2, 1, 3)    # [B, Hkv, page, D]
+        v = v_pool[pid].to(f64).permute(0, 2, 1, 3)
         kpos = j * page + k_off                        # [page]
         mask = valid[:, :, None] & (kpos[None, None, :] <= q_abs[:, :, None])
         if sliding_window is not None:
@@ -127,10 +144,12 @@ def paged_gather_dense(k_pool: torch.Tensor, v_pool: torch.Tensor,
 
 # ---------------------------------------------------------------- CUDA launches
 _LIB_SIGNATURES = {
-    "ragged_paged_attention_bf16": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+    "ragged_paged_attention_bf16": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_void_p],
-    "paged_decode_attention_bf16": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    "paged_decode_attention_bf16": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],
+    "paged_attention_split_pages": [],
+    "paged_attention_short_span": [],
 }
 
 
@@ -144,7 +163,25 @@ def _lib():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    if lib.paged_attention_short_span() != SHORT_SPAN:
+        raise RuntimeError(f"the kernel library routes spans of up to "
+                           f"{lib.paged_attention_short_span()} positions to the "
+                           f"decode path, this module expects {SHORT_SPAN}")
     return lib
+
+
+def split_pages() -> int:
+    """Pages per split of the card's decode path (a constant of the kernel
+    library, so it needs the library built)."""
+    return _lib().paged_attention_split_pages()
+
+
+def _scratch(items: int, Hkv: int, G: int, Pmax: int, dev) -> torch.Tensor:
+    """f32 scratch of the decode path's partials: (m, l, acc[D]) for each
+    (item, kv head, split, head)."""
+    n_split = -(-Pmax // split_pages())
+    return torch.empty(items * Hkv * n_split * G * (_HEAD_DIM + 2),
+                       dtype=torch.float32, device=dev)
 
 
 def _check_cuda_inputs(q, k_pool, v_pool, tables) -> None:
@@ -155,8 +192,8 @@ def _check_cuda_inputs(q, k_pool, v_pool, tables) -> None:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name} must be bfloat16 for the CUDA kernel, "
                             f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     for name, t in tables.items():
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int32 tensor on {dev}")
@@ -168,8 +205,9 @@ def _check_cuda_inputs(q, k_pool, v_pool, tables) -> None:
         raise ValueError(f"the CUDA kernel takes head_dim {_HEAD_DIM}, got {D}")
     if page > _MAX_PAGE:
         raise ValueError(f"page size {page} exceeds the kernel's {_MAX_PAGE}")
-    if q.shape[-2] % Hkv:
-        raise ValueError(f"{q.shape[-2]} query heads do not group over {Hkv} kv heads")
+    if q.shape[-2] % Hkv or q.shape[-2] // Hkv > _MAX_GROUP:
+        raise ValueError(f"{q.shape[-2]} query heads over {Hkv} kv heads: the CUDA "
+                         f"kernel takes groups of at most {_MAX_GROUP}")
 
 
 def _window_arg(sliding_window: Optional[int]) -> int:
@@ -203,11 +241,13 @@ def paged_decode_attention(
                        {"page_table": page_table, "lengths": lengths})
     B, Hq, D = q.shape
     N, page, Hkv, _ = k_pool.shape
+    Pmax = page_table.shape[1]
     out = torch.empty_like(q)
+    scratch = _scratch(B, Hkv, Hq // Hkv, Pmax, q.device)
     rc = _lib().paged_decode_attention_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, N, page, page_table.shape[1],
+        scratch.data_ptr(), B, Hq, Hkv, N, page, Pmax,
         _window_arg(sliding_window), 1.0 / D ** 0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "paged_decode_attention")
@@ -229,8 +269,9 @@ def ragged_paged_attention(
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """Returns [B, Qmax, Hq, D]; positions past a row's q_len are zeros. The
-    span's own K/V must already be in the pool. ``q_block`` is the number of
-    span positions one CUDA block serves (Qmax must be a multiple of it)."""
+    span's own K/V must already be in the pool. ``q_block`` is the JAX
+    kernel's block of span positions (Qmax must be a multiple of it); the
+    CUDA kernels tile by their own fixed sizes."""
     B, Qmax, Hq, D = q.shape
     if Qmax % q_block:
         raise ValueError(f"Qmax {Qmax} must be a multiple of q_block {q_block}")
@@ -242,11 +283,13 @@ def ragged_paged_attention(
     _check_cuda_inputs(q, k_pool, v_pool, {"page_table": page_table,
                                            "hist": hist, "q_lens": q_lens})
     N, page, Hkv, _ = k_pool.shape
+    Pmax = page_table.shape[1]
     out = torch.empty_like(q)
+    scratch = _scratch(B * min(Qmax, SHORT_SPAN), Hkv, Hq // Hkv, Pmax, q.device)
     rc = _lib().ragged_paged_attention_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), hist.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
-        B, Qmax, Hq, Hkv, N, page, page_table.shape[1], q_block,
+        scratch.data_ptr(), B, Qmax, Hq, Hkv, N, page, Pmax,
         _window_arg(sliding_window), 1.0 / D ** 0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "ragged_paged_attention")

@@ -9,7 +9,10 @@ without one. Run on the card with
 machine runs the port without JAX). Tolerance: every bf16 output element
 within one bf16 ulp of the plain version's (same f32 arithmetic, another
 summation order before the final rounding); q_len=1 ragged rows bitwise
-equal to decode; flash rows past the length exactly zero."""
+equal to decode, and every position of a span of up to SHORT_SPAN tokens
+bitwise equal to decoding its token alone; a prompt-chunk row's bits
+independent of where its span starts; flash rows past the length exactly
+zero."""
 
 import pytest
 import torch
@@ -75,6 +78,84 @@ def test_cuda_kernels_match_plain(dev, window, Hq, Hkv, page):
     dec1 = pa.paged_decode_attention(q[:, 0].contiguous(), k, v, pt, lens1,
                                      sliding_window=window)
     assert torch.equal(rag1[:, 0], dec1)
+
+
+def _ragged_one(q1, k, v, pt, lens, window):
+    """Each row's query as a ragged span of one token at lens-1."""
+    B, Hq, D = q1.shape
+    qr = torch.zeros((B, 8, Hq, D), dtype=q1.dtype, device=q1.device)
+    qr[:, 0] = q1
+    return pa.ragged_paged_attention(qr, k, v, pt, lens - 1,
+                                     torch.ones(B, dtype=torch.int32, device=q1.device),
+                                     sliding_window=window)[:, 0]
+
+
+@pytest.mark.parametrize("Hq,Hkv,page", [(4, 2, 16), (32, 8, 64)])
+@pytest.mark.parametrize("window_splits", [None, 1, 2])
+def test_cuda_decode_split_boundaries(dev, Hq, Hkv, page, window_splits):
+    """Lengths at S*page - 1, S*page and S*page + 1 (S = pages per split),
+    two and three splits long; windows of none, and of lengths that leave
+    every split but the last one or two empty."""
+    span = pa.split_pages() * page
+    lengths = [span - 1, span, span + 1, 2 * span + 1, 3 * span - 1, 1]
+    window = None if window_splits is None else window_splits * span - page // 2
+    B = len(lengths)
+    Pmax = -(-max(lengths) // page) + 1
+    q, k, v, pt = _inputs(dev, B, 1, Hq, Hkv, page, Pmax, seed=page + (window or 0))
+    q1 = q[:, 0].contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = pa.paged_decode_attention.launches
+    dec = pa.paged_decode_attention(q1, k, v, pt, lens, sliding_window=window)
+    assert pa.paged_decode_attention.launches == before + 1
+    assert _one_ulp(dec, pa.paged_decode_attention_plain(q1, k, v, pt, lens, window))
+    assert torch.equal(_ragged_one(q1, k, v, pt, lens, window), dec)
+
+
+@pytest.mark.parametrize("window", [None, 37])
+@pytest.mark.parametrize("Hq,Hkv,page", [(8, 2, 16), (32, 8, 64)])
+def test_cuda_short_spans_are_decode_position_by_position(dev, window, Hq, Hkv, page):
+    """Spans of 2..SHORT_SPAN tokens: position i of row b equals decoding
+    its query alone at length hist[b]+i+1, bitwise."""
+    q_lens = list(range(2, pa.SHORT_SPAN + 1))
+    B, Qmax = len(q_lens), 16
+    hist_l = [3 * page + 5 * b for b in range(B)]
+    Pmax = -(-(max(hist_l) + Qmax) // page) + 1
+    q, k, v, pt = _inputs(dev, B, Qmax, Hq, Hkv, page, Pmax, seed=Hq * page)
+    hist = torch.tensor(hist_l, dtype=torch.int32, device=dev)
+    ql = torch.tensor(q_lens, dtype=torch.int32, device=dev)
+    rag = pa.ragged_paged_attention(q, k, v, pt, hist, ql, sliding_window=window)
+    assert _one_ulp(rag, pa.ragged_paged_attention_plain(q, k, v, pt, hist, ql, window))
+    for i in range(pa.SHORT_SPAN):
+        rows = [b for b in range(B) if i < q_lens[b]]
+        dec = pa.paged_decode_attention(q[rows, i].contiguous(), k, v, pt[rows].contiguous(),
+                                        hist[rows] + i + 1, sliding_window=window)
+        assert torch.equal(rag[rows, i], dec)
+    for b in range(B):
+        assert bool((rag[b, q_lens[b]:] == 0).all())
+
+
+@pytest.mark.parametrize("window", [None, 45])
+@pytest.mark.parametrize("Hq,Hkv,page", [(8, 2, 16), (32, 8, 64)])
+def test_cuda_chunk_row_independent_of_span_start(dev, window, Hq, Hkv, page):
+    """One query at absolute position 150 of a row, inside a span that
+    starts at 100 (60 tokens), 120 (45) or 142 (9, just past the short-span
+    route): the same bits each time."""
+    pos, Pmax = 150, 256 // page
+    q, k, v, pt = _inputs(dev, 2, 64, Hq, Hkv, page, Pmax, seed=7)
+    pt = pt[:1].contiguous()
+    outs = []
+    for start, qlen in [(100, 60), (120, 45), (142, 9)]:
+        assert qlen > pa.SHORT_SPAN and start <= pos < start + qlen
+        qs = torch.randn((1, 64, Hq, 128), device=dev).to(torch.bfloat16)
+        qs[0, pos - start] = q[0, 0]
+        hist = torch.tensor([start], dtype=torch.int32, device=dev)
+        ql = torch.tensor([qlen], dtype=torch.int32, device=dev)
+        out = pa.ragged_paged_attention(qs, k, v, pt, hist, ql, sliding_window=window)
+        ref = pa.ragged_paged_attention_plain(qs, k, v, pt, hist, ql, window)
+        assert _one_ulp(out, ref)
+        assert bool((out[0, qlen:] == 0).all())
+        outs.append(out[0, pos - start])
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
 
 
 def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(dev):

@@ -39,10 +39,13 @@ def _t(*arrays):
 
 
 # (B, Hq, Hkv, D, page, Pmax, window, lengths): GQA G=2 with a page crossing,
-# and a windowed case with shared pages
+# and a windowed case with shared pages; then lengths on either side of a
+# 4-page boundary (where the card's decode path splits at page 8) under a
+# window that leaves the first split empty
 DECODE_CASES = [
     (3, 4, 2, 16, 8, 4, None, [1, 9, 30]),
     (3, 4, 2, 16, 8, 5, 11, [5, 17, 40]),
+    (3, 4, 2, 16, 8, 6, 9, [31, 32, 33]),
 ]
 
 
@@ -62,10 +65,15 @@ def test_decode_plain_matches_jax_kernel(case):
 
 
 # (B, Qmax, Hq, Hkv, D, page, Pmax, window, hist, q_lens): an idle row, a
-# chunk crossing pages, a decode row; then a window with aliased pages
+# chunk crossing pages, a decode row; then a window with aliased pages; then
+# spans on both sides of the card's short-span route (q_len <= 8 decodes
+# position by position, longer spans take the chunk path), without and with
+# a window
 RAGGED_CASES = [
     (4, 16, 4, 2, 16, 8, 5, None, [0, 5, 20, 7], [0, 13, 1, 16]),
     (3, 8, 4, 2, 16, 8, 6, 6, [9, 0, 30], [8, 3, 1]),
+    (5, 24, 4, 2, 16, 8, 8, None, [0, 10, 20, 31, 40], [1, 3, 8, 9, 17]),
+    (5, 24, 4, 2, 16, 8, 8, 13, [0, 10, 20, 31, 40], [1, 3, 8, 9, 17]),
 ]
 
 
@@ -162,6 +170,31 @@ def test_ragged_q_len_one_is_bitwise_decode(window):
                                      torch.ones(B, dtype=torch.int32),
                                      sliding_window=window)
     assert torch.equal(rag[:, 0], dec)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_ragged_short_span_positions_are_bitwise_decode(window):
+    """Each position hist+i of a span decodes as its token alone would:
+    ragged row i equals decode at length hist+i+1 exactly (the card keeps
+    this for spans of up to SHORT_SPAN positions by routing them through the
+    decode path)."""
+    B, Hq, Hkv, D, page, Pmax = 3, 4, 2, 16, 8, 6
+    N = B * Pmax + 2
+    k, v = _pools(11, N, page, Hkv, D)
+    pt = _table(11, B, Pmax, N)
+    q = np.random.default_rng(12).standard_normal((B, 8, Hq, D)).astype(np.float32)
+    hist = np.asarray([0, 13, 30], np.int32)
+    q_lens = np.asarray([2, 5, tpa.SHORT_SPAN], np.int32)
+    kt, vt, ptt = _t(k, v, pt)
+    rag = tpa.ragged_paged_attention(torch.from_numpy(q), kt, vt, ptt,
+                                     torch.from_numpy(hist), torch.from_numpy(q_lens),
+                                     sliding_window=window)
+    for i in range(tpa.SHORT_SPAN):
+        rows = [b for b in range(B) if i < q_lens[b]]
+        dec = tpa.paged_decode_attention(
+            torch.from_numpy(q[rows, i]), kt, vt, ptt[rows],
+            torch.from_numpy(hist[rows] + i + 1), sliding_window=window)
+        assert torch.equal(rag[rows, i], dec)
 
 
 def test_paged_gather_dense_matches_jax():
