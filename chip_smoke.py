@@ -17,10 +17,11 @@ fatal on failure:
    up to SHORT_SPAN tokens bitwise equal to decoding it alone, a prompt-chunk
    row's bits independent of where its span starts; flash rows past the
    length exactly zero; device times (CUDA-graph replay) of each kernel and
-   of one PyTorch SDPA call over dense inputs prepared outside the timed call
-   (a yardstick only, never used by the port), CUDA-event times of the plain
-   version, beside each kernel's bound, with the paged kernels' blocks,
-   splits and achieved rates;
+   of PyTorch SDPA calls over dense inputs prepared outside the timed call
+   (yardsticks only, never used by the port: masked SDPA, and for flash
+   also ``is_causal``; the faster is ``library_ms``), CUDA-event times of
+   the plain version, beside each kernel's bound, with the kernels' blocks,
+   splits or walked tiles and achieved rates;
 4. serving, three runs of ``ContinuousBatchingEngine`` at llama-3-8b full
    width (random weights from a seed, built once and shared), each from
    quickstart-shaped ``engine_options`` as the llm-gateway worker maps them:
@@ -200,22 +201,27 @@ def paged_geometry(Hq, Hkv, page, Pmax, B, Qmax, split_rows, chunks) -> dict:
     return geo
 
 
-def time_kernel(name, kern, plain, lib, nbytes, flops, err) -> dict:
-    """Times of the kernel and the library yardstick on the card (CUDA-graph
-    replay: device time, no host gaps) and of the plain version (CUDA
-    events), beside the bound; also back-to-back event times, the host's
-    enqueue time per call and the device time of each kernel the wrapper
-    launches. These launches are not the main path's: the serving phases
-    reset the counters before they run."""
+def time_kernel(name, kern, plain, libs, nbytes, flops, err) -> dict:
+    """Times of the kernel and of each library yardstick in ``libs`` ({label:
+    call}) on the card (CUDA-graph replay: device time, no host gaps) and of
+    the plain version (CUDA events), beside the bound; also back-to-back event
+    times, the host's enqueue time per call and the device time of each
+    kernel the wrapper launches. ``library_ms`` is the fastest yardstick.
+    These launches are not the main path's: the serving phases reset the
+    counters before they run."""
     ms = graph_ms(kern)
     plain_ms = cuda_ms(plain, 3, warmup=1)
-    library_ms = graph_ms(lib)
+    lib_ms = {label: graph_ms(lib) for label, lib in libs.items()}
+    library_ms = min(lib_ms.values())
     b_ms, b_by = bound(nbytes, flops)
     log(f"kernel {name} main shapes: ms={ms:.4f} plain_ms={plain_ms:.3f} "
         f"library_ms={library_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
         f"max_abs_err={err:.3e} (tolerance: one bf16 ulp of the plain value)")
+    log(f"kernel {name} library yardsticks (device ms): "
+        + ", ".join(f"{label} {t:.4f}" for label, t in lib_ms.items()))
+    first_lib = next(iter(libs.values()))
     log(f"kernel {name} main shapes, back-to-back calls: events {cuda_ms(kern, 50):.4f} "
-        f"ms a call (library {cuda_ms(lib, 50):.4f}), host enqueue {host_ms(kern):.4f} ms "
+        f"ms a call (library {cuda_ms(first_lib, 50):.4f}), host enqueue {host_ms(kern):.4f} ms "
         f"a call; device time by kernel: {device_breakdown(kern)}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms)
@@ -392,19 +398,19 @@ def kernel_main_shapes(dev, gen, cfg, page, Pmax, n_pages) -> dict[str, dict]:
                  + B * Qmax * Hq * D * 2 + B * (Pmax + 2) * 4)
     rag_flops = 4 * Hq * D * rag_pairs
 
-    for name, kern, plain, lib, nbytes, flops, err in [
+    for name, kern, plain, libs, nbytes, flops, err in [
         ("paged_decode_attention",
          lambda: pa.paged_decode_attention(q1, k, v, pt, lens),
          lambda: pa.paged_decode_attention_plain(q1, k, v, pt, lens),
-         lambda: sdpa(qd, kd, vd, attn_mask=mask_dec),
+         {"SDPA masked": lambda: sdpa(qd, kd, vd, attn_mask=mask_dec)},
          dec_bytes, dec_flops, err_dec),
         ("ragged_paged_attention",
          lambda: pa.ragged_paged_attention(q, k, v, pt, hist, q_lens),
          lambda: pa.ragged_paged_attention_plain(q, k, v, pt, hist, q_lens),
-         lambda: sdpa(qq, kd, vd, attn_mask=mask_rag),
+         {"SDPA masked": lambda: sdpa(qq, kd, vd, attn_mask=mask_rag)},
          rag_bytes, rag_flops, err_rag),
     ]:
-        results[name] = time_kernel(name, kern, plain, lib, nbytes, flops, err)
+        results[name] = time_kernel(name, kern, plain, libs, nbytes, flops, err)
         ms, geo = results[name]["ms"], geometry[name]
         rate = (f" (chunk path: {geo['chunk_tc_flops'] / 1e9:.2f} GFLOP of tensor-core "
                 f"work over {geo['chunk_tiles']} tiles, "
@@ -432,17 +438,45 @@ def flash_case(dev, gen, T, Hq, Hkv, lengths, window, D=128):
 
 
 def flash_small_shapes(dev, gen) -> None:
-    """G = 1, 2, 4, 8; windows; lengths below T; T not a multiple of the
-    64-key tile; a row of length 1."""
+    """G = 1, 2, 4, 8; windows, one shorter than a 64-key tile; lengths below
+    T; T not a multiple of the tile, also in the last batch row (its keys past
+    T arrive as TMA's zeros); rows of length 1, also the last batch row."""
     for T, Hq, Hkv, lengths, window in [(200, 4, 4, [200, 1], None),
                                         (130, 8, 4, [77, 130], 33),
                                         (64, 8, 2, [64, 40], None),
                                         (300, 32, 4, [299, 150], 100),
-                                        (97, 32, 8, [1, 96], 16)]:
+                                        (97, 32, 8, [1, 96], 16),
+                                        (100, 32, 8, [71, 100], None),
+                                        (256, 8, 2, [256, 200], 7),
+                                        (160, 16, 4, [150, 1], None)]:
         flash_case(dev, gen, T, Hq, Hkv, lengths, window)
     torch.cuda.synchronize()
     log("kernel flash small shapes: within one bf16 ulp of the plain version; "
         "rows past the length zero")
+
+
+def flash_geometry(T, Hq, Hkv, lengths, window=None) -> dict:
+    """What the flash kernel walks for one call, from its inputs as the kernel
+    reads them: blocks of 128 (position, head) rows (128/G positions), those
+    that load (first position below the length), the 64-key K/V tiles they
+    load, and the (64-row warpgroup, 64-key tile) products they compute: Q.K
+    once and P.V three times (P as three bf16 terms) on the tensor cores."""
+    G = Hq // Hkv
+    P, PW = 128 // G, 64 // G
+
+    def tiles(p0, n, L):   # tiles of positions p0..p0+n-1 that see a key
+        first = max(0, p0 - window + 1) if window else 0
+        return min(p0 + n - 1, L - 1) // 64 - first // 64 + 1
+
+    working = loaded = wg_tiles = 0
+    for L in lengths:
+        for p0 in range(0, min(L, T), P):
+            working += 1
+            loaded += tiles(p0, P, L)
+            wg_tiles += sum(tiles(p0 + w * PW, PW, L) for w in range(2) if p0 + w * PW < L)
+    return {"blocks": -(-T // P) * Hkv * len(lengths), "working": working * Hkv,
+            "kv_tiles": loaded * Hkv, "wg_tiles": wg_tiles * Hkv,
+            "tc_flops": wg_tiles * Hkv * 64 * 64 * 128 * 2 * 4}
 
 
 def flash_main_shape(dev, gen, cfg) -> dict:
@@ -451,26 +485,49 @@ def flash_main_shape(dev, gen, cfg) -> dict:
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lengths, T = [1300, 1500], 2048
     (q, k, v, lens), err = flash_case(dev, gen, T, Hq, Hkv, lengths, None)
-    # library yardstick: SDPA on [B, H, T, D] with GQA expanded and the mask
-    # (k <= q) & (k < len) built outside the timed call
+    # library yardsticks on [B, H, T, D]: (a) GQA expanded and the mask
+    # (k <= q) & (k < len) built outside the timed call; (b) is_causal, which
+    # computes the same rows below each length (their visible keys all lie
+    # below it) and may take PyTorch's flash backend, with GQA inside the call
+    # where the installed PyTorch takes enable_gqa, else expanded outside
     qq = q.permute(0, 2, 1, 3).contiguous()
     kk = k.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1).contiguous()
     vv = v.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1).contiguous()
+    kg, vg = k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()
     pos = torch.arange(T, device=dev)
     mask = ((pos[None, :] <= pos[:, None])[None] & (pos[None, None, :] < lens[:, None, None]))[:, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        causal_out = sdpa(qq, kg, vg, is_causal=True, enable_gqa=True)
+        causal, causal_label = (lambda: sdpa(qq, kg, vg, is_causal=True, enable_gqa=True),
+                                "SDPA is_causal enable_gqa")
+    except TypeError:
+        causal_out = sdpa(qq, kk, vv, is_causal=True)
+        causal, causal_label = (lambda: sdpa(qq, kk, vv, is_causal=True),
+                                "SDPA is_causal (heads expanded)")
+    out = fa.flash_self_attention(q, k, v, lens).permute(0, 2, 1, 3)
+    diff = max(float((causal_out[b, :, :L] - out[b, :, :L]).float().abs().max())
+               for b, L in enumerate(lengths))
+    log(f"kernel flash_self_attention main shapes: {causal_label} agrees with the kernel "
+        f"below each length within {diff:.3e} (a yardstick's own bf16 arithmetic)")
     pairs = sum(n * (n + 1) // 2 for n in lengths)
     tokens = sum(lengths)
     # q read at valid positions, K+V of the valid tokens, the whole output
     # written (rows past the length are zeros by contract), the lengths
     nbytes = (tokens * Hq * D * 2 + tokens * Hkv * D * 2 * 2
               + len(lengths) * T * Hq * D * 2 + len(lengths) * 4)
-    return time_kernel(
+    result = time_kernel(
         "flash_self_attention",
         lambda: fa.flash_self_attention(q, k, v, lens),
         lambda: fa.flash_self_attention_plain(q, k, v, lens),
-        lambda: sdpa(qq, kk, vv, attn_mask=mask),
+        {"SDPA masked": lambda: sdpa(qq, kk, vv, attn_mask=mask), causal_label: causal},
         nbytes, 4 * Hq * D * pairs, err)
+    geo, ms = flash_geometry(T, Hq, Hkv, lengths), result["ms"]
+    log(f"kernel flash_self_attention main shapes: blocks {geo}; "
+        f"{geo['tc_flops'] / 1e9:.2f} GFLOP of tensor-core work over {geo['wg_tiles']} "
+        f"(64-row, 64-key) tiles, {geo['tc_flops'] / ms / 1e9:.1f} TFLOP/s; "
+        f"{4 * Hq * D * pairs / ms / 1e9:.2f} TFLOP/s of the counted work")
+    return result
 
 
 # ------------------------------------------------------------------ serving phase

@@ -6,266 +6,363 @@
 // What bounds it: operations. A prompt of length n costs ~4*Hq*D*n(n+1)/2
 // flops (Q.K and P.V over the causal triangle) against ~n*(Hq+2*Hkv)*D*2 bytes
 // in and n*Hq*D*2 bytes out; at n = 2048 that is ~470 flops per byte, above
-// the H100's ~295 bf16 flops/byte ridge. So the products run on the tensor
-// cores (mma.sync m16n8k16, bf16 in, f32 accumulate).
+// the H100's ~295 bf16 flops/byte ridge. So both products run on wgmma, the
+// only way to the tensor cores' full rate, fed by TMA.
 //
 // What the design does about it:
-//   * One block per (batch row, kv head, tile of query rows). The block's 64
-//     rows are (position, head) pairs: 64/G positions times the G query
-//     heads of its kv head, so each K/V tile is read from device memory once
-//     per GQA group rather than once per query head.
+//   * One block per (batch row, kv head, tile of 128 query rows). The rows
+//     are (position, head) pairs: 128/G positions times the G query heads of
+//     the kv head, so each K/V tile is read from device memory once per GQA
+//     group rather than once per query head. Two consumer warpgroups own 64
+//     rows each; one thread of a third, producer warpgroup does all the
+//     loading (warp specialisation: the consumers spend no instruction on
+//     addresses or copies, and setmaxnreg hands the producer's registers to
+//     them).
+//   * Loads by TMA (cp.async.bulk.tensor) into the 128-byte swizzle that
+//     wgmma's descriptors read. The tensor maps are 4-D over (D, heads, T, B),
+//     encoded on the host per call and passed as __grid_constant__
+//     parameters. A box is 64 dims wide (the swizzle's 128 bytes), so a
+//     128-dim row takes two boxes. Keys or positions at or past T arrive as
+//     zeros, and no box reaches into the next batch row. The block's Q rows
+//     are one box per half (positions x the G heads, adjacent in
+//     [B, T, Hq, D]); a K or V tile is [64 keys, 64 dims] per half.
+//   * The producer keeps a ring of kStages K/V stages full. K and V each
+//     complete on an mbarrier of their own, so Q.K starts before V has
+//     landed; each consumer warp frees a stage on a third after its last
+//     product that reads it.
+//   * S = Q K^T is wgmma m64n64k16 with Q and K from shared memory (both
+//     K-major). O += P V is wgmma m64n128k16, with P from registers (the S
+//     accumulator layout is the A fragment's) and V from shared memory read
+//     MN-major. Softmax and the masks run on the CUDA cores, on the S
+//     accumulator in registers; O (64 rows x 128) and the TPU's m/l scratch
+//     are registers too. Within a warpgroup the tiles are pipelined: Q.K of
+//     tile t is issued with P.V of tile t-1, and its softmax runs while that
+//     P.V finishes.
 //   * The TPU's sequential kv-block grid axis becomes a loop over 64-key tiles
 //     inside the block, from the window's first visible key to the block's
 //     last visible key (min of its last position and len-1); tiles wholly in
-//     the future, past the length or before the window are never read. A
-//     block whose first position is at or past the length reads nothing and
-//     writes zeros. Blocks are launched heaviest (latest positions) first.
-//   * K and V tiles are double-buffered in shared memory with cp.async, so
-//     the next tile loads while this one is multiplied. Rows are padded by
-//     16 bytes: fragment reads of K and the transposing ldmatrix of V hit 32
-//     distinct banks.
-//   * The block's Q rows sit in shared memory (read by ldmatrix per 16-dim
-//     step). Each of the 4 warps owns 16 rows; the TPU's m/l/acc VMEM scratch
-//     is registers: S (16x64) and O (16x128) in the mma accumulator layout.
+//     the future, past the length or before the window are never loaded. A
+//     warpgroup multiplies only the tiles its own rows can see (a tile no
+//     row of it can see is an exact no-op of the update) but takes part in
+//     every stage's barriers. A block whose first position is at or past the
+//     length loads nothing and writes zeros. Blocks are launched heaviest
+//     (latest positions) first.
 //
 // Numerics follow the JAX kernel: Q.K in f32 from bf16 operands, the 1/sqrt(D)
 // scale applied to the f32 scores, masked scores at -1e30, p zeroed where
 // masked, acc * exp(m_prev - m_new) + P.V, denominator floored at 1e-30. P.V
-// takes the f32 P as three bf16 terms (hi = bf16(p), mid = bf16(p - hi),
-// lo = bf16(p - hi - mid)), which carry its 24 bits: with one term P would
-// keep 8 bits, with two 16, and every small difference in p would then jump
-// the output by a rounding step of the last term. Tensor-core accumulation
-// truncates relative to the running sum, so every 16-deep product starts from
-// zero and partial sums are added in IEEE f32 (see the comment at S).
-// Positions at or past the length are exact zeros.
-// Not yet done (later work): wgmma and TMA, a persistent schedule.
+// takes the f32 P as three bf16 terms that sum to it exactly: hi = p cut to
+// its top 16 bits (a bf16), mid = (p - hi) cut the same way, lo = p - hi -
+// mid (at most 8 significant bits, so a bf16 too); cutting is integer work,
+// not a conversion. With one term P would keep 8 bits, with two 16, and every
+// small difference in p would then jump the output by a rounding step of the
+// last term. Both products chain their 16-deep steps in the tensor cores:
+// Q.K over all of D, and P.V's terms (lo, mid, hi of each 16 keys) straight
+// into O. The tensor cores' accumulation truncates relative to the running
+// sum; with P in three exact terms that meets the one-ulp bar at every shape
+// the checks use, as ops/flash_sweep.py measures. Positions at or past the
+// length are exact zeros.
+//
+// Diagnostic build (not what the port loads; ops/flash_sweep.py times it):
+// -DFLASH_P_TERMS=1 takes P as one bf16 term, rounded to nearest as the JAX
+// kernel's p.astype(v.dtype) does.
+
+#include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled
 
 #include "sm90_common.cuh"
 
+#ifndef FLASH_P_TERMS
+#define FLASH_P_TERMS 3
+#endif
+static_assert(FLASH_P_TERMS == 1 || FLASH_P_TERMS == 3, "P is one or three bf16 terms");
+
 namespace {
 
-constexpr int kD = 128;               // head dim
-constexpr int kRows = 64;             // (position, head) rows per block
-constexpr int kWarps = kRows / 16;    // one m16 tile of rows per warp
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBK = 64;               // keys per tile
-constexpr int kStride = kD + 8;       // padded K/V row in shared memory (bf16)
-constexpr int kTileElems = kBK * kStride;
-constexpr int kQElems = kRows * kStride;
-constexpr int kSmemBytes = (kQElems + 2 * 2 * kTileElems) * 2;  // Q + 2 stages x (K, V)
+constexpr int kD = 128;                          // head dim
+constexpr int kHalfD = 64;                       // dims per 128-byte swizzled box
+constexpr int kWgRows = 64;                      // rows per consumer warpgroup (wgmma M)
+constexpr int kConsumers = 2;                    // consumer warpgroups
+constexpr int kRows = kWgRows * kConsumers;      // (position, head) rows per block
+constexpr int kConsumerThreads = 128 * kConsumers;
+constexpr int kThreads = kConsumerThreads + 128;  // + the producer warpgroup
+// registers a thread after setmaxnreg: the block holds 168 a thread at entry
+// (384 threads, one block an SM), and 2 x 128 x 240 + 128 x 24 is the same sum
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+constexpr int kBK = 64;                          // keys per tile
+constexpr int kStages = 3;                       // K/V ring depth
+constexpr uint32_t kRowBytes = kHalfD * 2;       // one swizzled row: 128 bytes
+constexpr uint32_t kQHalfBytes = kRows * kRowBytes;
+constexpr uint32_t kQBytes = 2 * kQHalfBytes;
+constexpr uint32_t kTileHalfBytes = kBK * kRowBytes;
+constexpr uint32_t kTileBytes = 2 * kTileHalfBytes;  // one K or V tile
+constexpr uint32_t kAtomBytes = 8 * kRowBytes;       // 8 swizzled rows
+constexpr int kSmemBytes = 1024 /* alignment */ + kQBytes + 2 * kStages * kTileBytes +
+                           8 * (1 + 3 * kStages) /* mbarriers */;
 constexpr float kNegInf = -1e30f;
 
-using sm90::bf16_round;
-using sm90::cp_async16;
-using sm90::cp_async_commit;
-using sm90::cp_async_wait_one;
-using sm90::ldmatrix_x4;
-using sm90::ldmatrix_x4_trans;
-using sm90::mma_bf16;
+using sm90::mbar_arrive;
+using sm90::mbar_expect_tx;
+using sm90::mbar_wait;
 using sm90::pack_bf16;
+using sm90::reg_fence;
+using sm90::wgmma_commit;
+using sm90::wgmma_desc_sw128;
+using sm90::wgmma_fence;
+using sm90::wgmma_wait;
 
-// grid: (ceil(T / (64/G)), Hkv, B); block: 128 threads.
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
-    __nv_bfloat16* __restrict__ out, int T, int Hq, int Hkv, int window,
-    float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* tiles = qs + kQElems;
+// The block's mbarriers, 8 bytes each from ``base``: the Q rows landed; the
+// K and the V tile of each stage landed; each stage freed by every consumer
+// warp.
+struct Barriers {
+  uint32_t base;
+  __device__ uint32_t q_full() const { return base; }
+  __device__ uint32_t k_full(int st) const { return base + 8u * (1 + st); }
+  __device__ uint32_t v_full(int st) const { return base + 8u * (1 + kStages + st); }
+  __device__ uint32_t freed(int st) const { return base + 8u * (1 + 2 * kStages + st); }
+};
 
-  const int G = Hq / Hkv;
-  const int P = kRows / G;  // positions per block
-  const int b = blockIdx.z;
-  const int kvh = blockIdx.y;
-  const int pos0 = (gridDim.x - 1 - blockIdx.x) * P;  // heaviest blocks first
-  const int len = min(lengths[b], T);
+// x cut to its top 16 bits: a bf16 value, x - cut(x) exact in f32.
+__device__ __forceinline__ float cut16(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffff0000u);
+}
+
+// The top halves of two f32 that are bf16 values, as a bf16 pair (lo first).
+__device__ __forceinline__ uint32_t pack_top(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// P's bf16 terms for keys 16j..16j+15 as A fragments, in the order they are
+// multiplied (lo, mid, hi): the S accumulator's n-tiles 2j and 2j+1 are the
+// A fragment's k halves.
+__device__ __forceinline__ void split_p(const float (&p)[32], int j,
+                                        uint32_t (&a)[FLASH_P_TERMS][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {    // n-tile 2j + h: keys 16j + 8h ..
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // rows grp, grp + 8
+      const float p0 = p[(2 * j + h) * 4 + 2 * i];
+      const float p1 = p[(2 * j + h) * 4 + 2 * i + 1];
+#if FLASH_P_TERMS == 3
+      const float h0 = cut16(p0), h1 = cut16(p1);
+      const float r0 = p0 - h0, r1 = p1 - h1;
+      const float m0 = cut16(r0), m1 = cut16(r1);
+      a[0][2 * h + i] = pack_top(r0 - m0, r1 - m1);
+      a[1][2 * h + i] = pack_top(m0, m1);
+      a[2][2 * h + i] = pack_top(h0, h1);
+#else
+      a[0][2 * h + i] = pack_bf16(p0, p1);
+#endif
+    }
+  }
+}
+
+// S = Q K^T for one 64-key tile, issued (not waited for): 8 steps of 16
+// dims chained in the tensor cores. Q and K are K-major: a 16-dim step is 32
+// bytes along a swizzled row, and dims 64.. are the second box.
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t q_tile, uint32_t k_tile) {
+  const uint64_t q_desc = wgmma_desc_sw128(q_tile, 16, kAtomBytes);
+  const uint64_t k_desc = wgmma_desc_sw128(k_tile, 16, kAtomBytes);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const uint32_t off = ((kk >> 2) * kTileHalfBytes + (kk & 3) * 32) >> 4;  // 16-byte units
+    const uint32_t q_off = ((kk >> 2) * kQHalfBytes + (kk & 3) * 32) >> 4;
+    sm90::wgmma_m64n64k16_ss(s, q_desc + q_off, k_desc + off, kk);
+  }
+  wgmma_commit();
+}
+
+// O += P V for one 64-key tile, issued (not waited for): P's terms for keys
+// 16j.. (lo, mid, hi) chained into O. V is MN-major: keys 16j.. start 16 rows
+// in, and dims 64.. are the second box, kTileHalfBytes on (the lbo). The
+// fragments must stay untouched until the product has completed.
+__device__ __forceinline__ void issue_pv(float (&o)[64], const float (&p)[32],
+                                         uint32_t (&a)[kBK / 16][FLASH_P_TERMS][4],
+                                         uint32_t v_tile) {
+#pragma unroll
+  for (int j = 0; j < kBK / 16; ++j) split_p(p, j, a[j]);
+  const uint64_t v_desc = wgmma_desc_sw128(v_tile, kTileHalfBytes, kAtomBytes);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < kBK / 16; ++j)
+#pragma unroll
+    for (int u = 0; u < FLASH_P_TERMS; ++u)
+      sm90::wgmma_m64n128k16_rs_mn(o, a[j][u], v_desc + ((j * 16 * kRowBytes) >> 4), 1);
+  wgmma_commit();
+}
+
+// The online-softmax update of one tile on the S accumulator, in place: s
+// becomes p, m and l move on, and corr is what O must be scaled by before
+// this tile's P V is added. Row i of this thread sees keys kt0 + c with
+// lo_key[i] < c - 2 * tig <= hi_key[i]; kMask false: the caller knows that
+// every row of the warpgroup sees every key of the tile.
+template <bool kMask>
+__device__ __forceinline__ void softmax(float (&s)[32], float (&m)[2], float (&l)[2],
+                                        float (&corr)[2], const int (&qpos)[2], int kt0,
+                                        int len, int window, float scale, int tig) {
+  int hi_key[2], lo_key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    hi_key[i] = min(qpos[i], len - 1) - kt0 - tig * 2;
+    lo_key[i] = (window > 0 ? qpos[i] - window : -1) - kt0 - tig * 2;
+  }
+  // scale, mask, row max (a row's 64 keys lie on the 4 threads of its quad)
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int i = (e >> 1) & 1;
+    const int key = (e >> 2) * 8 + (e & 1);
+    s[e] = !kMask || (key <= hi_key[i] && key > lo_key[i]) ? s[e] * scale : kNegInf;
+    mx[i] = fmaxf(mx[i], s[e]);
+  }
+  // a row that sees no key yet keeps m = -1e30; p = exp(s - m_use) is then
+  // 0 for every masked score, and the row's own update an exact no-op
+  float m_use[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    corr[i] = expf(m[i] - m_new);
+    m[i] = m_new;
+    m_use[i] = m_new == kNegInf ? 0.f : m_new;
+  }
+  float ls[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    s[e] = expf(s[e] - m_use[(e >> 1) & 1]);
+    ls[(e >> 1) & 1] += s[e];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 1);
+    ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 2);
+    l[i] = l[i] * corr[i] + ls[i];
+  }
+}
+
+// A consumer thread: its warpgroup's tiles, then the epilogue. The tiles are
+// pipelined within the warpgroup: tile t's Q.K runs while P.V of tile t-1
+// runs, and the softmax of tile t while P.V of tile t-1 finishes. Stages the
+// warpgroup does not multiply are waited for and freed all the same.
+__device__ __forceinline__ void consumer(uint32_t q_s, uint32_t k_s, uint32_t v_s, Barriers bars,
+                                         __nv_bfloat16* __restrict__ out, int pos0, int len,
+                                         int b, int kvh, int G, int T, int Hq, int t_lo,
+                                         int t_hi, int window, float scale) {
   const int tid = threadIdx.x;
+  // warpgroup wg, and this thread's two rows of the warp's 16
+  const int wg = tid >> 7;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int grp = lane >> 2;   // mma row group
-  const int tig = lane & 3;    // thread in group
-
-  // this thread's two rows of the warp's m16 tile: r = warp*16 + grp (+8)
+  const int grp = lane >> 2;  // accumulator row group
+  const int tig = lane & 3;   // thread in group
   int qpos[2];
   int64_t qoff[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + grp + 8 * i;
+    const int r = wg * kWgRows + ((tid >> 5) & 3) * 16 + grp + 8 * i;
     qpos[i] = pos0 + r / G;
     const int head = kvh * G + r % G;
     qoff[i] = ((static_cast<int64_t>(b) * T + qpos[i]) * Hq + head) * kD;
   }
 
-  float o[kD / 8][4];
+  float o[64];
 #pragma unroll
-  for (int n = 0; n < kD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  for (int e = 0; e < 64; ++e) o[e] = 0.f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
 
   if (pos0 < len) {
-    // the block's Q rows into shared memory (their cp.async copies join the
-    // first K/V tile's group)
-    for (int c = tid; c < kRows * (kD / 8); c += kThreads) {
-      const int r = c / (kD / 8);
-      const int dc = (c % (kD / 8)) * 8;
-      const int pos = pos0 + r / G;
-      const bool valid = pos < T;
-      const int64_t off = valid
-          ? ((static_cast<int64_t>(b) * T + pos) * Hq + kvh * G + r % G) * kD + dc : 0;
-      cp_async16(qs + r * kStride + dc, q + off, valid);
-    }
-    // this lane's row address for the A-fragment ldmatrix of the warp's rows
-    const __nv_bfloat16* qrow = qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride
-                                + (lane >> 4) * 8;
-
-    const int last_key = min(pos0 + P - 1, len - 1);
-    const int first_key = window > 0 ? max(0, pos0 - window + 1) : 0;
-    const int t_lo = first_key / kBK;
-    const int t_hi = last_key / kBK;
-
-    auto load_tile = [&](int stage, int t) {
-      __nv_bfloat16* ks = tiles + stage * 2 * kTileElems;
-      __nv_bfloat16* vs = ks + kTileElems;
+    // the tiles this warpgroup's rows can see, [w_lo, w_hi] (none when all
+    // its rows lie at or past the length)
+    const int wpos0 = pos0 + wg * (kWgRows / G);
+    const int w_last = min(wpos0 + kWgRows / G - 1, len - 1);
+    const int w_first = window > 0 ? max(0, wpos0 - window + 1) : 0;
+    const int w_lo = wpos0 < len ? max(t_lo, w_first / kBK) : t_hi + 1;
+    const int w_hi = w_last / kBK;
+    const uint32_t q_tile = q_s + wg * kWgRows * kRowBytes;
+    // tile t needs no mask when every row of the warpgroup sees all its keys
+    const int interior_hi = min(wpos0, len - 1) - (kBK - 1);
+    const int interior_lo = window > 0 ? wpos0 + kWgRows / G - 1 - window : -1;
+    const auto update = [&](float (&sc)[32], float (&cr)[2], int t) {
       const int kt0 = t * kBK;
-      for (int c = tid; c < kBK * (kD / 8); c += kThreads) {
-        const int key = c / (kD / 8);
-        const int dc = (c % (kD / 8)) * 8;
-        const bool valid = kt0 + key < T;
-        const int64_t off = valid
-            ? ((static_cast<int64_t>(b) * T + kt0 + key) * Hkv + kvh) * kD + dc : 0;
-        cp_async16(ks + key * kStride + dc, k + off, valid);
-        cp_async16(vs + key * kStride + dc, v + off, valid);
-      }
-      cp_async_commit();
-    };
-
-    load_tile(0, t_lo);
-    for (int t = t_lo; t <= t_hi; ++t) {
-      const int stage = (t - t_lo) & 1;
-      if (t < t_hi) {
-        load_tile(stage ^ 1, t + 1);
+      if (kt0 <= interior_hi && kt0 > interior_lo) {
+        softmax<false>(sc, m, l, cr, qpos, kt0, len, window, scale, tig);
       } else {
-        cp_async_commit();  // empty group: wait_group 1 then waits for tile t
+        softmax<true>(sc, m, l, cr, qpos, kt0, len, window, scale, tig);
       }
-      cp_async_wait_one();
-      __syncthreads();
-      const __nv_bfloat16* ks = tiles + stage * 2 * kTileElems;
-      const __nv_bfloat16* vs = ks + kTileElems;
-      const int kt0 = t * kBK;
-
-      // S = Q K^T: 8 n-tiles of 8 keys. Each 16-dim product starts from a
-      // zero accumulator and is added in IEEE f32: the tensor cores' own
-      // accumulation truncates relative to the running sum, so chaining all
-      // 8 steps through it would bias large scores by several f32 ulps.
-      float s[kBK / 8][4];
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        uint32_t qa[4];
-        ldmatrix_x4(qa, qrow + kk * 16);
-#pragma unroll
-        for (int n = 0; n < kBK / 8; ++n) {
-          const __nv_bfloat16* kp = ks + (n * 8 + grp) * kStride + kk * 16 + tig * 2;
-          float t4[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_bf16(t4, qa, *reinterpret_cast<const uint32_t*>(kp),
-                   *reinterpret_cast<const uint32_t*>(kp + 8));
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] += t4[e];
-        }
+    };
+    int st = 0;
+    uint32_t parity = 0;
+    const auto advance = [&]() {
+      if (++st == kStages) {
+        st = 0;
+        parity ^= 1u;
       }
-
-      // scale, mask, row max
-      uint32_t vis = 0u;
-      float mx[2] = {kNegInf, kNegInf};
+    };
+    const auto release = [&](int stage) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars.freed(stage));
+    };
+    const auto skip = [&]() {
+      mbar_wait(bars.k_full(st), parity);
+      mbar_wait(bars.v_full(st), parity);
+      release(st);
+      advance();
+    };
+    int t = t_lo;
+    for (; t < w_lo && t <= t_hi; ++t) skip();
+    if (t <= w_hi) {
+      float s[32], corr[2];
+      uint32_t a[kBK / 16][FLASH_P_TERMS][4];
+      mbar_wait(bars.q_full(), 0);
+      mbar_wait(bars.k_full(st), parity);
+      __syncwarp();
+      issue_qk(s, q_tile, k_s + st * kTileBytes);
+      wgmma_wait<0>();
+      reg_fence(s);
+      update(s, corr, t);
+      int prev = st;
+      uint32_t prev_parity = parity;
+      advance();
+      for (++t; t <= w_hi; ++t) {
+        float sn[32];
+        mbar_wait(bars.k_full(st), parity);
+        mbar_wait(bars.v_full(prev), prev_parity);
+        __syncwarp();
+        issue_qk(sn, q_tile, k_s + st * kTileBytes);
+        issue_pv(o, s, a, v_s + prev * kTileBytes);
+        wgmma_wait<1>();  // Q.K of tile t
+        reg_fence(sn);
+        float cn[2];
+        update(sn, cn, t);
+        wgmma_wait<0>();  // P.V of tile t-1
+        reg_fence(o);
 #pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
+        for (int j = 0; j < kBK / 16; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const int key = kt0 + n * 8 + tig * 2 + (e & 1);
-          const bool ok = key <= qpos[i] && key < len &&
-                          (window <= 0 || key > qpos[i] - window);
-          s[n][e] = ok ? s[n][e] * scale : kNegInf;
-          vis |= static_cast<uint32_t>(ok) << (n * 4 + e);
-          mx[i] = fmaxf(mx[i], s[n][e]);
-        }
+          for (int u = 0; u < FLASH_P_TERMS; ++u) reg_fence(a[j][u]);
+        release(prev);
+#pragma unroll
+        for (int e = 0; e < 64; ++e) o[e] *= cn[(e >> 1) & 1];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) s[e] = sn[e];
+        prev = st;
+        prev_parity = parity;
+        advance();
       }
-      float corr[2], m_new[2];
+      mbar_wait(bars.v_full(prev), prev_parity);
+      __syncwarp();
+      issue_pv(o, s, a, v_s + prev * kTileBytes);
+      wgmma_wait<0>();
+      reg_fence(o);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        m_new[i] = fmaxf(m[i], mx[i]);
-        corr[i] = expf(m[i] - m_new[i]);
-        m[i] = m_new[i];
-      }
-      float ls[2] = {0.f, 0.f};
+      for (int j = 0; j < kBK / 16; ++j)
 #pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          s[n][e] = (vis >> (n * 4 + e)) & 1u ? expf(s[n][e] - m_new[i]) : 0.f;
-          ls[i] += s[n][e];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 1);
-        ls[i] += __shfl_xor_sync(0xffffffffu, ls[i], 2);
-        l[i] = l[i] * corr[i] + ls[i];
-      }
-      // O = O * corr + P V, P as hi + mid + lo bf16 terms, in 4 steps of 16
-      // keys. As for S, each 16-key product starts from zero and is added
-      // in IEEE f32.
-#pragma unroll
-      for (int n = 0; n < kD / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
-      // V rows of the tile through a transposing ldmatrix: lane supplies the
-      // row address of matrix lane/8, keys + (mat & 1) * 8, dims + (mat >> 1) * 8
-      const int mat = lane >> 3;
-      const __nv_bfloat16* vrow =
-          vs + ((lane & 7) + (mat & 1) * 8) * kStride + (mat >> 1) * 8;
-#pragma unroll
-      for (int j = 0; j < kBK / 16; ++j) {
-        uint32_t a_hi[4], a_mid[4], a_lo[4];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {      // n-tile 2j + h: keys 16j + 8h ..
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {    // rows grp, grp+8
-            const float p0 = s[2 * j + h][2 * i];
-            const float p1 = s[2 * j + h][2 * i + 1];
-            const float h0 = bf16_round(p0), h1 = bf16_round(p1);
-            const float m0 = bf16_round(p0 - h0), m1 = bf16_round(p1 - h1);
-            a_hi[2 * h + i] = pack_bf16(h0, h1);
-            a_mid[2 * h + i] = pack_bf16(m0, m1);
-            a_lo[2 * h + i] = pack_bf16(p0 - h0 - m0, p1 - h1 - m1);
-          }
-        }
-#pragma unroll
-        for (int dn = 0; dn < kD / 8; dn += 2) {
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, vrow + j * 16 * kStride + dn * 8);
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            float t4[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_bf16(t4, a_lo, bv[2 * u], bv[2 * u + 1]);
-            mma_bf16(t4, a_mid, bv[2 * u], bv[2 * u + 1]);
-            mma_bf16(t4, a_hi, bv[2 * u], bv[2 * u + 1]);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) o[dn + u][e] += t4[e];
-          }
-        }
-      }
-      __syncthreads();  // this stage is consumed before it is refilled
+        for (int u = 0; u < FLASH_P_TERMS; ++u) reg_fence(a[j][u]);
+      release(prev);
     }
+    for (; t <= t_hi; ++t) skip();
   }
 
   // epilogue: rows at or past the length are zeros; rows past T are not written
@@ -276,25 +373,145 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int n = 0; n < kD / 8; ++n) {
-      const float x0 = valid ? o[n][2 * i] / denom : 0.f;
-      const float x1 = valid ? o[n][2 * i + 1] / denom : 0.f;
+      const float x0 = valid ? o[n * 4 + 2 * i] / denom : 0.f;
+      const float x1 = valid ? o[n * 4 + 2 * i + 1] / denom : 0.f;
       *reinterpret_cast<uint32_t*>(out + qoff[i] + n * 8 + tig * 2) = pack_bf16(x0, x1);
     }
   }
+}
+
+// grid: (ceil(T / (128/G)), Hkv, B); block: 2 consumer warpgroups, then the
+// producer warpgroup (one of its threads issues the loads).
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const int* __restrict__ lengths,
+    __nv_bfloat16* __restrict__ out, int T, int Hq, int Hkv, int window, float scale) {
+  extern __shared__ unsigned char smem[];
+  // the swizzle's 8-row atoms must sit on 1024-byte boundaries
+  const uint32_t q_s = (sm90::smem_addr(smem) + 1023u) & ~1023u;
+  const uint32_t k_s = q_s + kQBytes;
+  const uint32_t v_s = k_s + kStages * kTileBytes;
+  const Barriers bars{v_s + kStages * kTileBytes};
+
+  const int G = Hq / Hkv;
+  const int P = kRows / G;  // positions per block
+  const int b = blockIdx.z;
+  const int kvh = blockIdx.y;
+  const int pos0 = (gridDim.x - 1 - blockIdx.x) * P;  // heaviest blocks first
+  const int len = min(lengths[b], T);
+  const int tid = threadIdx.x;
+  const bool work = pos0 < len;
+  const int last_key = min(pos0 + P - 1, len - 1);
+  const int first_key = window > 0 ? max(0, pos0 - window + 1) : 0;
+  const int t_lo = first_key / kBK;
+  const int t_hi = last_key / kBK;
+
+  if (work && tid == 0) {
+    sm90::mbar_init(bars.q_full(), 1);
+    for (int st = 0; st < kStages; ++st) {
+      sm90::mbar_init(bars.k_full(st), 1);
+      sm90::mbar_init(bars.v_full(st), 1);
+      sm90::mbar_init(bars.freed(st), kConsumerThreads / 32);  // one arrival per consumer warp
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumerThreads) {  // the producer warpgroup
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (work && tid == kConsumerThreads) {
+      mbar_expect_tx(bars.q_full(), kQBytes);
+      sm90::tma_load_4d(q_s, &q_map, bars.q_full(), 0, kvh * G, pos0, b);
+      sm90::tma_load_4d(q_s + kQHalfBytes, &q_map, bars.q_full(), kHalfD, kvh * G, pos0, b);
+      int st = 0;
+      uint32_t parity = 0;
+      for (int t = t_lo; t <= t_hi; ++t) {
+        if (t - t_lo >= kStages) mbar_wait(bars.freed(st), parity ^ 1u);  // its last use freed
+        const uint32_t ks = k_s + st * kTileBytes, vs = v_s + st * kTileBytes;
+        mbar_expect_tx(bars.k_full(st), kTileBytes);
+        sm90::tma_load_4d(ks, &k_map, bars.k_full(st), 0, kvh, t * kBK, b);
+        sm90::tma_load_4d(ks + kTileHalfBytes, &k_map, bars.k_full(st), kHalfD, kvh, t * kBK, b);
+        mbar_expect_tx(bars.v_full(st), kTileBytes);
+        sm90::tma_load_4d(vs, &v_map, bars.v_full(st), 0, kvh, t * kBK, b);
+        sm90::tma_load_4d(vs + kTileHalfBytes, &v_map, bars.v_full(st), kHalfD, kvh, t * kBK, b);
+        if (++st == kStages) {
+          st = 0;
+          parity ^= 1u;
+        }
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    consumer(q_s, k_s, v_s, bars, out, pos0, len, b, kvh, G, T, Hq, t_lo, t_hi, window,
+             scale);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda: it is looked up through the
+// runtime's entry-point query, so the library needs no link against libcuda.
+// It runs on the host only and enqueues nothing, so a CUDA graph may capture
+// the launch it prepares.
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess && p != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [B, T, H, 128] bf16 as a 4-D map over (128, H, T, B), boxes of
+// (64, box_h, box_t, 1) in the 128-byte swizzle, zeros outside.
+CUresult encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int T, int H,
+                    int box_h, int box_t) {
+  const cuuint64_t dims[4] = {kD, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {kD * 2, static_cast<cuuint64_t>(H) * kD * 2,
+                                 static_cast<cuuint64_t>(T) * H * kD * 2};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {kHalfD, static_cast<cuuint32_t>(box_h),
+                             static_cast<cuuint32_t>(box_t), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q/out [B, T, Hq, 128] bf16; k/v [B, T, Hkv, 128] bf16; lengths [B] int32.
-// window 0 = none. Returns a cudaError_t.
+// q/out [B, T, Hq, 128] bf16; k/v [B, T, Hkv, 128] bf16, all 16-byte aligned;
+// lengths [B] int32. window 0 = none. Returns a cudaError_t, or minus the
+// CUresult when a tensor map cannot be made.
 int flash_self_attention_bf16(const void* q, const void* k, const void* v,
                               const int* lengths, void* out, int B, int T, int Hq,
                               int Hkv, int window, float scale, void* stream) {
   if (B <= 0 || T <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || kRows % (Hq / Hkv) != 0 || Hq / Hkv > 8)
+  if (Hkv <= 0 || Hq % Hkv != 0 || kWgRows % (Hq / Hkv) != 0 || Hq / Hkv > 8)
     return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const int G = Hq / Hkv;
+  const int P = kRows / G;
+  CUtensorMap q_map, k_map, v_map;
+  CUresult r = encode_map(encode, &q_map, q, B, T, Hq, G, P);
+  if (r == CUDA_SUCCESS) r = encode_map(encode, &k_map, k, B, T, Hkv, 1, kBK);
+  if (r == CUDA_SUCCESS) r = encode_map(encode, &v_map, v, B, T, Hkv, 1, kBK);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -302,12 +519,9 @@ int flash_self_attention_bf16(const void* q, const void* k, const void* v,
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
-  const int P = kRows / (Hq / Hkv);
   const dim3 grid((T + P - 1) / P, Hkv, B);
   flash_attention_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out),
-      T, Hq, Hkv, window, scale);
+      q_map, k_map, v_map, lengths, static_cast<__nv_bfloat16*>(out), T, Hq, Hkv, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

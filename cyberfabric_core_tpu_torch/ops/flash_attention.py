@@ -165,6 +165,9 @@ def flash_self_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         B, T, Hq, k.shape[2], int(sliding_window or 0), 1.0 / D ** 0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
+    if rc < 0:
+        raise RuntimeError(f"flash_self_attention: a TMA tensor map could not be made "
+                           f"(CUresult {-rc})")
     if rc != 0:
         raise RuntimeError(f"flash_self_attention: kernel launch failed with "
                            f"cudaError {rc}")

@@ -172,6 +172,11 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(dev):
     (130, 8, 4, [77, 130], 33),       # G=2, window
     (64, 8, 2, [64, 40], None),       # G=4
     (300, 32, 4, [299, 150], 100),    # G=8, window
+    (2048, 32, 8, [1300, 1500], None),  # the main path's coalesced prefill (llama-3-8b heads)
+    (100, 32, 8, [71, 100], None),    # T not a tile multiple, B > 1: the last row's keys
+                                      # past T arrive as TMA's zeros
+    (256, 8, 2, [256, 200], 7),       # a window shorter than one tile
+    (160, 16, 4, [150, 1], None),     # a length-1 row in the last batch row
 ])
 def test_cuda_flash_matches_plain(dev, T, Hq, Hkv, lengths, window):
     g = torch.Generator(device=dev)
