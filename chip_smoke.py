@@ -22,27 +22,39 @@ fatal on failure:
    also ``is_causal``; the faster is ``library_ms``), CUDA-event times of
    the plain version, beside each kernel's bound, with the kernels' blocks,
    splits or walked tiles and achieved rates;
-4. serving, three runs of ``ContinuousBatchingEngine`` at llama-3-8b full
-   width (random weights from a seed, built once and shared), each from
+4. serving, runs of ``ContinuousBatchingEngine`` at llama-3-8b full width
+   (random weights from a seed, built once and shared), each from
    quickstart-shaped ``engine_options`` as the llm-gateway worker maps them:
-   (a) mixed batching (the default path), 8 requests from 3 threads;
-   (b) phase-separated (``mixed_batch`` off, ``prefill_coalesce`` 4), the
-   same 8 requests; (c) dense mode (``prefix_cache_pages`` 0), 4 greedy
-   requests. Every stream gets one terminal event with the right reason, the
-   path's kernels were launched (and, phase-separated, the ragged kernel
-   never), no page leaks, and every greedy token lies within a bf16 margin
-   of the max of the dense forward's logits (teacher-forced);
+   (a) mixed batching (the default path, lookahead ring at the worker's
+   depth 2), 8 requests from 3 threads, with no synchronising CUDA call
+   flagged by ``torch.cuda.set_sync_debug_mode`` besides each round's one
+   event wait, and the ring used; (b) the same storm at
+   ``decode_lookahead`` 0; (c) phase-separated (``mixed_batch`` off,
+   ``prefill_coalesce`` 4), the same 8 requests; (d) dense mode
+   (``prefix_cache_pages`` 0), 4 greedy requests; (e, f) prefix reuse,
+   mixed and phase-separated: a 1024-token head (16 pages), request 0 the
+   head + 200 tokens served alone, then 7 requests behind the head from 3
+   threads — 7 hits saving 1024 tokens each, only suffixes chunked (mixed),
+   7 suffix prefills and flash only for request 0 (phase-separated), two
+   live chains sharing the 16 head pages. Every stream gets one terminal
+   event with the right reason, the path's kernels were launched (and,
+   phase-separated, the ragged kernel never), the pool conserves its pages
+   (nothing referenced or orphaned, every page free or cached), and every
+   greedy token lies within a bf16 margin of the max of the dense forward's
+   logits (teacher-forced);
 5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -550,6 +562,7 @@ def engine_config_from_options(opts: dict) -> EngineConfig:
         prefix_page_size=page,
         prefill_budget_tokens=int(opts.pop("prefill_budget_tokens", 512)),
         prefill_coalesce=int(opts.pop("prefill_coalesce", 4)),
+        decode_lookahead=int(opts.pop("decode_lookahead", 2)),
         mixed_batch=str(opts.pop("mixed_batch", True)).lower()
         not in ("0", "false", "no", "off"))
 
@@ -655,37 +668,18 @@ def storm_requests(engine, ecfg) -> list:
     return requests
 
 
-def serving_phase(card: str, label: str, engine, ecfg, requests,
-                  launched: tuple, never: tuple = ()) -> dict[str, int]:
-    """Serve ``requests`` with every kernel count set to 0 just before and
-    read just after; the kernels in ``launched`` must have run and those in
-    ``never`` must not. Checks streams, pages and the dense oracle; prints
-    ttft and tokens/s. Returns this run's launch counts."""
-    cfg = engine.model_config
-    try:
-        pages_total = engine.stats()["pages_total"]
-        for _, _, wrapper in KERNELS.values():
-            wrapper.launches = 0
-        t0 = time.perf_counter()
-        recs = serve(engine, requests)
-        wall = time.perf_counter() - t0
-        launches = {name: wrapper.launches for name, (_, _, wrapper) in KERNELS.items()}
-        stats = engine.stats()
-    finally:
-        engine.shutdown()
-    check_streams(recs, requests, lambda sp: set(sp.stop_token_ids) | set(ecfg.eos_token_ids))
-    if any(launches[n] <= 0 for n in launched) or any(launches[n] for n in never):
-        raise AssertionError(f"[{label}] launches {launches}: expected {launched} "
-                             f"to run and {never} never")
-    if stats["pages_in_use"] != 0 or stats["pages_free"] != pages_total:
-        raise AssertionError(f"[{label}] pages leaked: {stats}")
-    log(f"serving [{label}]: {len(requests)} requests done, reasons "
-        f"{[r['fins'][-1] for r in recs]}, rounds {stats['rounds']}, prefill chunks "
-        f"{stats['prefill_chunks']}, prefill dispatches {stats['prefill_dispatches']} "
-        f"(coalesced {stats['coalesced_prefills']}), launches {launches}, pages leaked 0")
-    log(f"serving [{label}] wall ms by round kind (engine lifetime): {stats['round_ms']}; "
-        f"phase-separated prefill ms {stats['prefill_ms']:.1f}")
+def check_pool(label: str, stats: dict) -> None:
+    """The pool's conservation invariant (I1) once every stream is done:
+    nothing referenced or orphaned, every page free or held by the tree."""
+    if (stats["pages_referenced"] or stats["orphan_pages"]
+            or stats["pages_free"] + stats["cached_pages"] != stats["pages_total"]):
+        raise AssertionError(f"[{label}] pages not conserved: {stats}")
 
+
+def oracle(label: str, engine, recs, requests) -> None:
+    """Every greedy token within LOGIT_MARGIN of the dense forward's max
+    logit (teacher-forced), and the margin able to see a wrong token."""
+    cfg = engine.model_config
     with torch.inference_mode():
         worst, runner_up = 0.0, []
         for i, (r, (prompt, sp)) in enumerate(zip(recs, requests)):
@@ -710,34 +704,206 @@ def serving_phase(card: str, label: str, engine, ecfg, requests,
         raise AssertionError(f"[{label}] the margin {LOGIT_MARGIN} admits the runner-up "
                              f"token at {1 - caught:.3f} of rows: the oracle cannot see "
                              "a wrong token")
+
+
+def pipeline_line(card: str, label: str, stats: dict) -> None:
+    """The ring's use and each round kind's mean dispatch, sync-wait and
+    host-emit ms (engine lifetime)."""
+    pipe = stats["pipeline"]
+    kinds = "; ".join(
+        f"{kind} x{v['count']}: dispatch {v['dispatch_ms'] / v['count']:.2f} "
+        f"sync-wait {v['sync_wait_ms'] / v['count']:.2f} "
+        f"host-emit {v['host_emit_ms'] / v['count']:.2f}"
+        for kind, v in pipe["ms_by_kind"].items() if v["count"])
+    log(f"info [{card}] serving [{label}] pipeline: depth {pipe['depth']}, lookahead "
+        f"{pipe['lookahead']}, depth at drain {pipe['depth_hist']}; mean ms a round: {kinds}")
+    # each round in order: kind, ring entries left at its drain (a mixed
+    # round: chunks it chained), dispatch / sync-wait / host-emit ms
+    timeline = " ".join(f"{t['kind'][0]}{t['depth']}:{t['dispatch_ms']:.0f}/"
+                        f"{t['sync_wait_ms']:.0f}/{t['host_emit_ms']:.1f}"
+                        for t in stats["round_timings"][-40:])
+    log(f"info [{card}] serving [{label}] rounds (last 40, engine lifetime): {timeline}")
+
+
+@contextlib.contextmanager
+def watch_syncs():
+    """PyTorch's sync debug mode set to warn while the block runs; yields a
+    list that receives, by the line of Python that made it, every flagged
+    call (a blocking copy, ``.item()``, a stream sync; an event wait is not
+    one of them) from every thread."""
+    flagged: list[str] = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield flagged
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            flagged += [f"{w.filename}:{w.lineno}" for w in caught
+                        if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def serving_phase(card: str, label: str, engine, ecfg, requests,
+                  launched: tuple, never: tuple = (), sync_free: bool = False
+                  ) -> tuple[dict[str, int], dict]:
+    """Serve ``requests`` with every kernel count set to 0 just before and
+    read just after; the kernels in ``launched`` must have run and those in
+    ``never`` must not. Checks streams, pages and the dense oracle; prints
+    ttft, tokens/s and the pipeline split. ``sync_free``: no synchronising
+    CUDA call may be flagged while it serves. Returns this run's launch
+    counts and the engine's stats."""
+    try:
+        for _, _, wrapper in KERNELS.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        with watch_syncs() if sync_free else contextlib.nullcontext() as flagged:
+            recs = serve(engine, requests)
+        wall = time.perf_counter() - t0
+    finally:
+        engine.shutdown()
+    # read once the scheduler thread has stopped (its last round included)
+    launches = {name: wrapper.launches for name, (_, _, wrapper) in KERNELS.items()}
+    stats = engine.stats()
+    check_streams(recs, requests, lambda sp: set(sp.stop_token_ids) | set(ecfg.eos_token_ids))
+    if any(launches[n] <= 0 for n in launched) or any(launches[n] for n in never):
+        raise AssertionError(f"[{label}] launches {launches}: expected {launched} "
+                             f"to run and {never} never")
+    check_pool(label, stats)
+    log(f"serving [{label}]: {len(requests)} requests done, reasons "
+        f"{[r['fins'][-1] for r in recs]}, rounds {stats['rounds']}, prefill chunks "
+        f"{stats['prefill_chunks']}, prefill dispatches {stats['prefill_dispatches']} "
+        f"(coalesced {stats['coalesced_prefills']}), launches {launches}, pages "
+        f"conserved ({stats['pages_free']} free + {stats['cached_pages']} cached of "
+        f"{stats['pages_total']})")
+    log(f"serving [{label}] wall ms by round kind (engine lifetime): {stats['round_ms']}; "
+        f"phase-separated prefill ms {stats['prefill_ms']:.1f}")
+    if sync_free:
+        log(f"serving [{label}] synchronising CUDA calls flagged while serving: "
+            f"{len(flagged)} {sorted(set(flagged))}")
+        if flagged:
+            raise AssertionError(f"[{label}] a round waited on the device outside its "
+                                 f"drain: {sorted(set(flagged))}")
+    oracle(label, engine, recs, requests)
+    pipeline_line(card, label, stats)
     ttft = sorted((r["t1"] - r["t0"]) * 1e3 for r in recs)
     n_tok = sum(len(r["toks"]) for r in recs)
     log(f"info [{card}] serving [{label}]: ttft_ms p50={ttft[len(ttft) // 2]:.1f} "
         f"max={ttft[-1]:.1f}; {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s")
+    return launches, stats
+
+
+HEAD, HEAD_SUFFIXES = 1024, [200, 16, 64, 128, 200, 256, 333, 400]
+
+
+def prefix_requests(vocab: int) -> list:
+    """Requests behind one 1024-token head (16 pages of 64): request 0 the
+    head + 200 tokens, then the head + 16..400 tokens; 32 output tokens
+    each, request 5 sampled with a seed."""
+    rng = np.random.default_rng(11)
+    head = rng.integers(3, vocab, HEAD).tolist()
+    requests = [(head + rng.integers(3, vocab, n).tolist(), SamplingParams(max_tokens=32))
+                for n in HEAD_SUFFIXES]
+    requests[5] = (requests[5][0], SamplingParams(max_tokens=32, temperature=0.8, seed=42))
+    return requests
+
+
+def prefix_phase(card: str, label: str, engine, ecfg, mixed: bool) -> dict[str, int]:
+    """Serve request 0 alone (its prompt's full pages reach the radix tree
+    when its prefill is done), then requests 1-7 from 3 threads, with every
+    kernel count set to 0 before request 0 and read after the last. Gates:
+    7 hits saving 1024 tokens each; mixed: only the suffixes chunked;
+    phase-separated: 7 suffix prefills and flash launched for request 0
+    alone; two live chains sharing the 16 head pages; the decode kernel
+    launched; streams, pages and the oracle."""
+    requests = prefix_requests(engine.model_config.vocab_size)
+    head_pages = HEAD // ecfg.prefix_page_size
+    try:
+        for _, _, wrapper in KERNELS.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        recs = serve(engine, requests[:1], n_threads=1)
+        flash_cold = fa.flash_self_attention.launches
+        recs += serve(engine, requests[1:])
+        wall = time.perf_counter() - t0
+    finally:
+        engine.shutdown()
+    launches = {name: wrapper.launches for name, (_, _, wrapper) in KERNELS.items()}
+    stats = engine.stats()
+    check_streams(recs, requests, lambda sp: set(sp.stop_token_ids) | set(ecfg.eos_token_ids))
+    check_pool(label, stats)
+    pc = stats["prefix_cache"]
+    hits = len(requests) - 1
+    failures = []
+    if pc["hits"] < hits or pc["prefill_tokens_saved"] < hits * HEAD:
+        failures.append(f"hits {pc['hits']}, tokens saved {pc['prefill_tokens_saved']}")
+    if stats["max_shared_chain_pages"] < head_pages:
+        failures.append(f"max shared chain pages {stats['max_shared_chain_pages']}")
+    if launches["paged_decode_attention"] <= 0:
+        failures.append("the decode kernel never ran")
+    if mixed:
+        suffix_only = len(requests[0][0]) + sum(len(p) - HEAD for p, _ in requests[1:])
+        if stats["chunked_prefill_tokens"] > suffix_only or launches["ragged_paged_attention"] <= 0:
+            failures.append(f"chunked prefill tokens {stats['chunked_prefill_tokens']} "
+                            f"(suffixes only: {suffix_only}), launches {launches}")
+    elif (stats["suffix_prefills"] != hits or flash_cold <= 0
+          or launches["flash_self_attention"] != flash_cold
+          or launches["ragged_paged_attention"]):
+        failures.append(f"suffix prefills {stats['suffix_prefills']}, flash launches "
+                        f"{flash_cold} for request 0 and {launches['flash_self_attention']} "
+                        f"in all, launches {launches}")
+    if failures:
+        raise AssertionError(f"[{label}] " + "; ".join(failures) + f": {stats}")
+    log(f"serving [{label}]: {len(requests)} requests done, reasons "
+        f"{[r['fins'][-1] for r in recs]}; prefix cache {pc}; max shared chain pages "
+        f"{stats['max_shared_chain_pages']}; chunked prefill tokens "
+        f"{stats['chunked_prefill_tokens']}, suffix prefills {stats['suffix_prefills']}, "
+        f"launches {launches} (flash {flash_cold} for request 0)")
+    oracle(label, engine, recs, requests)
+    pipeline_line(card, label, stats)
+    ttft = [(r["t1"] - r["t0"]) * 1e3 for r in recs]
+    hit_ttft = sorted(ttft[1:])
+    n_tok = sum(len(r["toks"]) for r in recs)
+    log(f"info [{card}] serving [{label}]: ttft_ms request 0 (cold, {len(requests[0][0])} "
+        f"tokens)={ttft[0]:.1f}; hits p50={hit_ttft[len(hit_ttft) // 2]:.1f} "
+        f"max={hit_ttft[-1]:.1f} (suffixes {HEAD_SUFFIXES[1:]}); {n_tok} tokens in "
+        f"{wall:.2f} s = {n_tok / wall:.1f} tokens/s")
     return launches
 
 
 def serving_phases(card: str) -> dict[str, int]:
-    """The three serving runs on one set of weights. Returns the kernels'
-    main-path launch counts: the paged kernels from the mixed run, flash from
-    the phase-separated run."""
+    """The serving runs on one set of weights. Returns the kernels'
+    main-path launch counts: the paged kernels from the mixed run, flash
+    from the phase-separated run."""
     engine, ecfg = build_engine("mixed", QUICKSTART)
     requests = storm_requests(engine, ecfg)
-    mixed = serving_phase(card, "mixed", engine, ecfg, requests,
-                          launched=("ragged_paged_attention", "paged_decode_attention"),
-                          never=("flash_self_attention",))
+    mixed, stats = serving_phase(card, "mixed", engine, ecfg, requests,
+                                 launched=("ragged_paged_attention", "paged_decode_attention"),
+                                 never=("flash_self_attention",), sync_free=True)
+    if stats["pipeline"]["lookahead_rounds"] <= 0:
+        raise AssertionError(f"[mixed] the lookahead ring was never used: {stats['pipeline']}")
     params = engine.params
+    del engine
+    torch.cuda.empty_cache()
+
+    # the same storm with the ring off; the probe request of storm_requests
+    # warms this engine the same way (and caches the same prompt)
+    engine, ecfg = build_engine("mixed, depth 0", dict(QUICKSTART, decode_lookahead=0), params)
+    serve(engine, [(requests[3][0], SamplingParams(max_tokens=12))], 1)
+    serving_phase(card, "mixed, depth 0", engine, ecfg, requests,
+                  launched=("ragged_paged_attention", "paged_decode_attention"),
+                  never=("flash_self_attention",))
     del engine
     torch.cuda.empty_cache()
 
     # an unbounded round budget lets the storm's same-bucket prompts (700 and
     # 1000 at 1024, 1300 and 1500 at 2048) meet in one admission pass and
     # coalesce; at 512 the budget admits each long prompt alone
-    opts = dict(QUICKSTART, mixed_batch=False, prefill_coalesce=4, prefill_budget_tokens=0)
-    engine, ecfg = build_engine("phase-separated", opts, params)
-    phase = serving_phase(card, "phase-separated", engine, ecfg, requests,
-                          launched=("flash_self_attention", "paged_decode_attention"),
-                          never=("ragged_paged_attention",))
+    phase_opts = dict(QUICKSTART, mixed_batch=False, prefill_coalesce=4,
+                      prefill_budget_tokens=0)
+    engine, ecfg = build_engine("phase-separated", phase_opts, params)
+    phase, _ = serving_phase(card, "phase-separated", engine, ecfg, requests,
+                             launched=("flash_self_attention", "paged_decode_attention"),
+                             never=("ragged_paged_attention",))
     del engine
     torch.cuda.empty_cache()
 
@@ -748,6 +914,13 @@ def serving_phases(card: str) -> dict[str, int]:
                   never=("ragged_paged_attention", "paged_decode_attention"))
     del engine
     torch.cuda.empty_cache()
+
+    for label, opts, is_mixed in [("prefix-mixed", QUICKSTART, True),
+                                  ("prefix-phase-separated", phase_opts, False)]:
+        engine, ecfg = build_engine(label, opts, params)
+        prefix_phase(card, label, engine, ecfg, is_mixed)
+        del engine
+        torch.cuda.empty_cache()
     return {"ragged_paged_attention": mixed["ragged_paged_attention"],
             "paged_decode_attention": mixed["paged_decode_attention"],
             "flash_self_attention": phase["flash_self_attention"]}

@@ -28,3 +28,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise RuntimeError(f"unsupported device {dev!s}: use 'cuda' or 'cpu'")
     return dev
+
+
+def to_device(host, device: torch.device) -> torch.Tensor:
+    """Copy a host array (numpy array, CPU tensor or list) to ``device``
+    without blocking the host. On CUDA the bytes go through a pinned staging
+    buffer of their own, so the caller may change its array at once and the
+    copy waits for nothing queued before it; PyTorch's pinned allocator
+    keeps the buffer until the copy has run. On the CPU this is a plain
+    tensor view of ``host``."""
+    t = host if isinstance(host, torch.Tensor) else torch.as_tensor(host)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -5,58 +5,77 @@ The JAX ``ContinuousBatchingEngine`` on one CUDA device, on three paths:
 
 - **Mixed** (the default: paged pool, ``mixed_batch=True``). ``submit``
   enqueues a request from any thread; a scheduler thread admits it into a
-  free slot in PREFILL phase with no device work (``_admit_mixed``). Every
-  round that carries prompt chunks is a ragged MIXED round
+  free slot in PREFILL phase with no device work (``_admit_mixed``): the
+  prompt is matched against the radix prefix cache and the slot's chain
+  starts with the matched pages, so only the uncached suffix is prefilled.
+  Every round that carries prompt chunks is a ragged MIXED round
   (``_decode_round_mixed``): prompt chunks, FIFO across prefilling slots and
   within ``prefill_budget_tokens``, ride in the same forward as the decode
-  rows (q_len 1) through :func:`ops.paged_attention.ragged_paged_attention`.
-  The span width ``q_max`` is the prefill bucket of the largest chunk
-  rounded up to 8, as in JAX. A request's first token is sampled in the
-  dispatch that runs its final chunk, and the slot flips to decode.
+  rows (q_len 1) through :func:`ops.paged_attention.ragged_paged_attention`,
+  which reads a hit's cached history through the shared pages. The span
+  width ``q_max`` is the prefill bucket of the largest chunk rounded up to
+  8, as in JAX. A request's first token is sampled in the dispatch that
+  runs its final chunk; the slot flips to decode and its prompt's full
+  pages are published to the tree (``PrefixKVPool.commit_chain``).
 - **Phase-separated** (paged pool, ``mixed_batch=False``). Admission
   (``_admit_phase_separated``) takes pending requests FIFO, paced by
   ``prefill_budget_tokens`` (at least one per round), and prefills them
-  before the next decode round: same-bucket requests coalesce into one
+  before the next decode round. With ``prefill_coalesce`` > 1 each request
+  is matched once up front: cold requests of one bucket coalesce into one
   ``batch_prefill`` dispatch of up to ``prefill_coalesce`` rows (padded to a
-  power of two), the rest prefill alone. Prefill is
+  power of two), prefix hits and the rest prefill alone. A cold prefill is
   :func:`models.llama.prefill_collect` (flash kernel when
-  ``resolve_use_flash``); the collected KV goes into fresh pool pages
-  (``PrefixKVPool.admit_slot``) and the first token is sampled in the same
-  dispatch from the slot's own generator. A prefix hit would take the
-  ``suffix_prefill`` program, which comes with the radix prefix cache: until
-  then every prompt is cold.
-- **Dense** (``prefix_cache_pages=0``). The same prefill, one request per
-  dispatch, into a dense cache ``[L, max_batch, max_seq_len, Hkv, D]``
+  ``resolve_use_flash``); a hit runs :func:`suffix_prefill` over the cached
+  pages gathered into a fresh cache (plain attention, as the JAX program
+  does). The collected KV goes into pool pages (``PrefixKVPool.admit_slot``)
+  and the first token is sampled in the same dispatch from the slot's own
+  generator.
+- **Dense** (``prefix_cache_pages=0``). The same cold prefill, one request
+  per dispatch, into a dense cache ``[L, max_batch, max_seq_len, Hkv, D]``
   (:func:`models.llama.insert_slot_kv`); decode rounds run
-  :func:`.engine.build_decode_chunk_fn` over it. Sampling shares one stream
-  across the batch, so ``submit`` rejects a per-request seed.
+  :func:`.engine.build_decode_chunk_fn` over it, synchronously, as in JAX.
+  Sampling shares one stream across the batch, so ``submit`` rejects a
+  per-request seed.
 
 On the paged paths, rounds with no prompt chunks run ``decode_chunk`` fused
-decode steps (``_decode_round_chunk``) through
-:func:`ops.paged_attention.paged_decode_attention`.
+decode steps through :func:`ops.paged_attention.paged_decode_attention`,
+through the **lookahead ring** (``decode_lookahead`` deep): a round drains
+the oldest in-flight chunk while up to ``depth`` later chunks, each chained
+off the device outputs of the one before, are already queued, so the host's
+emit loop overlaps the device. Dispatch commits nothing: a chunk's outputs
+become the engine's state only when it is drained. An admission, an
+activation or a stop the device could not see bumps the epoch and the
+stale ring suffix is discarded; since a ``torch.Generator`` advances when a
+draw is enqueued, a discard also puts back each drawing slot's generator
+state recorded before the oldest discarded chunk. Streams are therefore the
+same at every depth. When a mixed round consumes the last prompt chunks,
+the ring chains straight off its outputs (``_mixed_ring_span``).
 
 Termination is decided on the device as in JAX: per-slot stop-id rows,
 ``limit_lens`` (the max-tokens bound) and the window bound fold into a
 finished mask, and a finished row freezes (its KV writes park on scratch page
 0 or an unread position, its length and last token stop advancing, it emits
 -1). The host mirrors the same rules to close each stream with one terminal
-event. Each round (and each phase-separated prefill dispatch) ends with ONE
-device→host read: its sampled tokens.
+event. Each round (and each phase-separated prefill dispatch) makes ONE
+blocking device→host read: on CUDA each dispatch copies its tokens into a
+pinned buffer of its own without blocking and records an event, and the
+round waits on the event of the chunk it drains. Host→device patches go
+through pinned staging buffers of their own (:func:`device.to_device`), so
+nothing else in a round waits for the device.
 
 Randomness on the paged paths: each sampling slot draws from its own
 ``torch.Generator`` on the engine's device, seeded from
 ``SamplingParams.seed`` or else from the engine seed and the request's
 admission number, and advanced once per sampled token — a seed reproduces
-its tokens whatever shares the batch, and whether its prompt was chunked,
-coalesced or prefilled alone.
+its tokens whatever shares the batch, whichever path prefills it, and at
+every lookahead depth.
 
-Options that only change speed (``decode_lookahead``, tenant fairness, and
-``prefill_coalesce`` where no phase-separated paged prefill runs) are
-accepted and ignored — the engine runs synchronously, one round at a time,
-admitting FIFO; the JAX contract makes streams identical across those
-settings. Options that change what is computed or which path runs and are
-not ported raise ``NotImplementedError`` naming the slice that brings them
-(see :func:`_reject_unported`).
+Options that only change speed (tenant fairness, and ``prefill_coalesce``
+where no phase-separated paged prefill runs) are accepted and ignored; the
+JAX contract makes streams identical across those settings. Options that
+change what is computed or which path runs and are not ported raise
+``NotImplementedError`` naming the slice that brings them (see
+:func:`_reject_unported`).
 """
 
 from __future__ import annotations
@@ -66,13 +85,13 @@ import threading
 import time
 import uuid
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, to_device
 from ..models import llama
 from ..models.configs import ModelConfig, get_config
 from ..ops import flash_attention as fa
@@ -88,6 +107,7 @@ from .weights import model_from_state_dict
 logger = logging.getLogger("scheduler")
 
 _SEED_MASK = 0x7FFF_FFFF_FFFF_FFFF
+_ROUND_KINDS = ("mixed", "prefill", "decode")
 
 
 def _reject_unported(config: EngineConfig, cfg: ModelConfig) -> None:
@@ -116,9 +136,6 @@ def _ignored_options(config: EngineConfig) -> list[str]:
     """Speed-only options this engine accepts and does not act on."""
     out = []
     paged = config.prefix_cache_pages > 0
-    if config.resolve_lookahead_depth() > 0:
-        out.append(f"decode_lookahead={config.decode_lookahead} (rounds run "
-                   "synchronously)")
     if config.prefill_coalesce > 1 and paged and config.mixed_batch:
         out.append(f"prefill_coalesce={config.prefill_coalesce} (mixed rounds "
                    "chunk prompts instead)")
@@ -132,6 +149,37 @@ def _ignored_options(config: EngineConfig) -> list[str]:
     return out
 
 
+def _snapshot(read: Callable[[], list]) -> list:
+    """``read()`` of a collection the scheduler thread may be resizing (an
+    advisory metric: retried, empty if it keeps changing)."""
+    for _ in range(8):
+        try:
+            return read()
+        except RuntimeError:
+            continue
+    return []
+
+
+def suffix_prefill(params: llama.LlamaModel, cfg: ModelConfig, ids: torch.Tensor,
+                   suffix_len: torch.Tensor, cached_len: int, cache: llama.KVCache,
+                   rope_tables: tuple[torch.Tensor, torch.Tensor]
+                   ) -> tuple[torch.Tensor, llama.KVCache]:
+    """Prefill only the uncached suffix ``ids`` [B, T] (real lengths
+    ``suffix_len``) at positions ``cached_len ..`` against the history
+    gathered at the head of ``cache`` [L, B, S, Hkv, D], which the suffix's
+    KV is written into. Plain attention over the cache (the JAX program's
+    ``attention_with_cache``; flash sees no history). Returns (the last
+    suffix position's logits [B, V], the cache)."""
+    B, T = ids.shape
+    dev = ids.device
+    positions = (cached_len + torch.arange(T, dtype=torch.int32, device=dev))[None, :]
+    start = torch.full((B,), cached_len, dtype=torch.int32, device=dev)
+    hidden, kv = llama.forward(params, cfg, ids, positions.expand(B, T), cache, start,
+                               rope_tables, use_flash=False)
+    logits = llama.lm_head_logits(params, cfg, llama.gather_last_hidden(hidden, suffix_len))
+    return logits, kv
+
+
 @dataclass
 class _SlotState:
     request_id: str
@@ -143,6 +191,7 @@ class _SlotState:
     generator: Optional[torch.Generator]
     emitted: int = 0
     prefill_pos: int = 0  # prompt tokens already in the chain
+    cached_len: int = 0   # of those, taken from the prefix cache
 
 
 @dataclass
@@ -151,6 +200,28 @@ class _Pending:
     prompt_ids: list[int]
     sampling: SamplingParams
     emit: Callable[[StepEvent], None]
+
+
+@dataclass
+class _InflightChunk:
+    """A dispatched, not yet drained dispatch: one entry of the lookahead
+    ring (or a mixed round's own record). Its device tensors are outputs the
+    engine adopts only at the drain. ``active_dev`` is the mask it was
+    dispatched with; a chained chunk reuses it, and it is never committed
+    from a decode chunk (the host's finishes since must stand). ``host`` and
+    ``ready`` are the tokens' pinned readback buffer and the event that
+    marks the copy done (None on the CPU); ``gen_states`` the drawing
+    slots' generator states before this dispatch, put back on a discard."""
+
+    chunk_dev: torch.Tensor   # [N, k] tokens, -1 for frozen rows ([N] for mixed)
+    last: torch.Tensor        # [N] last tokens after the dispatch
+    lengths_dev: torch.Tensor
+    finished_dev: torch.Tensor
+    active_dev: torch.Tensor
+    epoch: int
+    host: torch.Tensor
+    ready: Optional[torch.cuda.Event]
+    gen_states: list = field(default_factory=list)
 
 
 class ContinuousBatchingEngine:
@@ -194,7 +265,8 @@ class ContinuousBatchingEngine:
         self.pool: Optional[PrefixKVPool] = None
         self.cache: Optional[llama.KVCache] = None
         if self.paged:
-            # every slot must be able to hold a full-window chain
+            # every slot must be able to hold a full-window chain; tree pages
+            # past that are evicted on demand
             num_pages = max(config.prefix_cache_pages, n * self.pmax + 1)
             self.pool = PrefixKVPool(cfg, num_pages=num_pages, page_size=page,
                                      dtype=self.dtype, device=self.device)
@@ -215,6 +287,9 @@ class ContinuousBatchingEngine:
         self._pt_dirty = True
         self._free_slots: deque[int] = deque(range(n))
         self._prefill_slots: deque[int] = deque()
+        #: per slot: its whole stop set fits the device stop row, so the
+        #: device freezes the row on a stop (else the host alone sees it)
+        self._dev_term = [True] * n
 
         # device-resident per-slot rows, patched row-wise on change
         dev = self.device
@@ -231,6 +306,12 @@ class ContinuousBatchingEngine:
         self._top_p_dev = torch.ones(n, dtype=torch.float32, device=dev)
         self._top_k_dev = torch.zeros(n, dtype=torch.int32, device=dev)
 
+        # the lookahead ring (paged decode rounds)
+        self._depth = config.resolve_lookahead_depth() if self.paged else 0
+        self._ring: deque[_InflightChunk] = deque()
+        #: bumped by every change the in-flight ring cannot have seen
+        self._epoch = 0
+
         self._pending: deque[_Pending] = deque()
         #: phase-separated admissions taken off the queue and not yet in a
         #: slot (a failing prefill must still close their streams)
@@ -243,17 +324,27 @@ class ContinuousBatchingEngine:
         self._broken: Optional[str] = None
         self._admitted = 0
 
-        self.rounds = {"mixed": 0, "prefill": 0, "decode": 0}
-        #: host wall time per round kind; every round ends in its one
-        #: device→host read, so this is device-inclusive time
-        self.round_ms = {"mixed": 0.0, "prefill": 0.0, "decode": 0.0}
+        self.rounds = {kind: 0 for kind in _ROUND_KINDS}
+        #: host wall time per round kind (dispatch, wait and emit)
+        self.round_ms = {kind: 0.0 for kind in _ROUND_KINDS}
+        #: per round kind: summed dispatch, sync-wait and host-emit ms (the
+        #: JAX ``_record_round`` split); the newest rounds one by one
+        self.round_split_ms = {kind: {"dispatch_ms": 0.0, "sync_wait_ms": 0.0,
+                                      "host_emit_ms": 0.0} for kind in _ROUND_KINDS}
+        self.round_timings: deque[dict] = deque(maxlen=4096)
+        self.lookahead = {"used": 0, "dispatched": 0, "discarded": 0}
+        self.depth_hist: dict[int, int] = {}
         self.prefill_chunks = 0
         self.chunked_prefill_tokens = 0
         #: phase-separated prefill dispatches, those with more than one
-        #: request, and their host wall time (each ends in its one read)
+        #: request, those over a prefix hit, and their host wall time (each
+        #: ends in its one read)
         self.prefill_dispatches = 0
         self.coalesced_prefills = 0
+        self.suffix_prefills = 0
         self.prefill_ms = 0.0
+        #: the most pages two live chains shared at a dispatch
+        self.max_shared_chain_pages = 0
         self.tokens_emitted = 0
         self.requests_completed = 0
         self.rejected_saturated = 0
@@ -307,27 +398,60 @@ class ContinuousBatchingEngine:
         return int(self.active.sum())
 
     def stats(self) -> dict[str, Any]:
-        pool = self.pool.stats() if self.pool is not None else \
-            {"pages_in_use": 0, "pages_free": 0, "pages_total": 0}
+        pool = self.pool.stats() if self.pool is not None else None
+        la = dict(self.lookahead)
+        n_rounds = sum(self.rounds.values())
+        timings = _snapshot(lambda: list(self.round_timings))
+        depth_hist = _snapshot(lambda: sorted(self.depth_hist.items()))
+
+        def p50(key: str) -> float:
+            vals = sorted(t[key] for t in timings)
+            return vals[len(vals) // 2] if vals else 0.0
+
+        pipeline = {
+            "depth": self._depth,
+            "rounds": n_rounds,
+            "mixed_rounds": self.rounds["mixed"] + self.rounds["prefill"],
+            "lookahead_rounds": la["used"],
+            "overlap_ratio": round(la["used"] / max(1, n_rounds), 3),
+            "lookahead": la,
+            "discard_ratio": round(la["discarded"] / max(1, la["dispatched"]), 3),
+            "depth_hist": {str(d): c for d, c in depth_hist},
+            "prefill_chunks": self.prefill_chunks,
+            "chunked_prefill_tokens": self.chunked_prefill_tokens,
+            "dispatch_ms_p50": p50("dispatch_ms"),
+            "sync_wait_ms_p50": p50("sync_wait_ms"),
+            "host_emit_ms_p50": p50("host_emit_ms"),
+            "ms_by_kind": {kind: {"count": self.rounds[kind], **self.round_split_ms[kind]}
+                           for kind in _ROUND_KINDS},
+        }
         return {
             "mode": "mixed" if self.mixed else
                     "phase_separated" if self.paged else "dense",
             "use_flash": self.use_flash,
             "rounds": dict(self.rounds),
             "round_ms": dict(self.round_ms),
+            "pipeline": pipeline,
+            "prefix_cache": pool,
+            "max_shared_chain_pages": self.max_shared_chain_pages,
             "prefill_chunks": self.prefill_chunks,
             "chunked_prefill_tokens": self.chunked_prefill_tokens,
             "prefill_dispatches": self.prefill_dispatches,
             "coalesced_prefills": self.coalesced_prefills,
+            "suffix_prefills": self.suffix_prefills,
             "prefill_ms": self.prefill_ms,
             "tokens_emitted": self.tokens_emitted,
             "requests_completed": self.requests_completed,
             "rejected_saturated": self.rejected_saturated,
+            "round_timings": timings,
             "active_slots": self.active_slots,
             "pending": len(self._pending),
-            "pages_in_use": pool["pages_in_use"],
-            "pages_free": pool["pages_free"],
-            "pages_total": pool["pages_total"],
+            "pages_in_use": pool["pages_in_use"] if pool else 0,
+            "pages_free": pool["pages_free"] if pool else 0,
+            "pages_total": pool["pages_total"] if pool else 0,
+            "pages_referenced": pool["pages_referenced"] if pool else 0,
+            "orphan_pages": pool["orphan_pages"] if pool else 0,
+            "cached_pages": pool["cached_pages"] if pool else 0,
             "kernel_launches": {
                 "ragged_paged_attention": pa.ragged_paged_attention.launches,
                 "paged_decode_attention": pa.paged_decode_attention.launches,
@@ -339,8 +463,8 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------------ loop
     def _run_loop(self) -> None:
-        logger.info("continuous scheduler up on %s: %d slots, chunk %d",
-                    self.device, self.n_slots, self._k_steps)
+        logger.info("continuous scheduler up on %s: %d slots, chunk %d, lookahead %d",
+                    self.device, self.n_slots, self._k_steps, self._depth)
         with torch.inference_mode():
             while not self._stop.is_set():
                 try:
@@ -358,6 +482,7 @@ class ContinuousBatchingEngine:
                     return
 
     def _fail_all_inflight(self) -> None:
+        self._ring.clear()
         for slot, state in enumerate(self.slots):
             if state is not None:
                 self.slots[slot] = None
@@ -397,7 +522,7 @@ class ContinuousBatchingEngine:
     def _admit_mixed(self) -> int:
         """Claim free slots for pending requests, FIFO, in prefill phase: no
         device work here — the round loop consumes their prompts chunk by
-        chunk."""
+        chunk, from the end of the prefix-cache match on."""
         admitted = 0
         while self._free_slots:
             req = self._pop_pending()
@@ -405,24 +530,35 @@ class ContinuousBatchingEngine:
                 break
             slot = self._free_slots.popleft()
             state = self._new_state(req)
-            state.chain = self.pool.admit_chain(req.prompt_ids)
+            cached_pages, cached_len = self.pool.match_prefix(req.prompt_ids)
+            if cached_pages:
+                # references, not the radix pin, hold the pages from here on
+                self.pool.ref_pages(cached_pages)
+            # load-bearing also when the match was trimmed to empty (a fully
+            # cached prompt): this is the only unpin of the matched nodes
+            self.pool.release(req.prompt_ids)
+            state.chain = list(cached_pages)
+            state.prefill_pos = state.cached_len = cached_len
             self.slots[slot] = state
             self.lengths[slot] = 0
             self.page_table[slot, :] = 0
+            self.page_table[slot, :len(state.chain)] = state.chain
             self._pt_dirty = True
             self._patch_slot_device(slot, state, length=0, active=False,
                                     limit=len(state.prompt_ids) + req.sampling.max_tokens - 1)
             self._prefill_slots.append(slot)
+            self._epoch += 1
             admitted += 1
         return admitted
 
     def _admit_phase_separated(self) -> int:
         """Take pending requests FIFO while slots are free and this round's
         ``prefill_budget_tokens`` are not spent (always at least one), then
-        prefill them: same-bucket requests in groups of up to
-        ``prefill_coalesce`` share one dispatch (paged mode), the others
-        prefill alone. Each request is in its slot, first token emitted,
-        when this returns."""
+        prefill them. With coalescing (paged mode) each request is matched
+        once here, its pin held until its prefill: cold requests of one
+        bucket share a dispatch in groups of up to ``prefill_coalesce``,
+        prefix hits and the rest prefill alone. Each request is in its slot,
+        first token emitted, when this returns."""
         budget = self.config.prefill_budget_tokens
         spent = 0
         while len(self._admitting) < len(self._free_slots):
@@ -435,24 +571,71 @@ class ContinuousBatchingEngine:
             spent += len(req.prompt_ids)
         taken = list(self._admitting)
         coalesce = max(1, self.config.prefill_coalesce) if self.paged else 1
+        singles: list[tuple[_SlotState, Optional[tuple[list[int], int]]]] = []
         groups: dict[int, list[_SlotState]] = {}
         for state in taken:
-            groups.setdefault(self.config.bucket_for(len(state.prompt_ids)), []).append(state)
-        singles = []
+            if coalesce > 1:
+                match = self.pool.match_prefix(state.prompt_ids)
+                if match[0]:
+                    singles.append((state, match))
+                    continue
+                # load-bearing: a fully cached prompt pinned nodes its trimmed
+                # match does not return; the cold path never releases them
+                self.pool.release(state.prompt_ids)
+                groups.setdefault(self.config.bucket_for(len(state.prompt_ids)),
+                                  []).append(state)
+            else:
+                singles.append((state, None))
         for bucket in sorted(groups):
             group = groups[bucket]
             while group:
                 batch, group = group[:coalesce], group[coalesce:]
                 if len(batch) == 1:
-                    singles.append((bucket, batch))
+                    singles.append((batch[0], ([], 0)))
                 else:
                     self._prefill(batch, bucket)
-        for bucket, batch in singles:
-            self._prefill(batch, bucket)
+        for state, match in singles:
+            self._prefill_single(state, match)
         return len(taken)
 
+    def _prefill_single(self, state: _SlotState,
+                        prematched: Optional[tuple[list[int], int]]) -> None:
+        """Prefill one request: over its cached prefix when it has one (JAX
+        ``_prefill_into_slot``). ``prematched`` is the admission's match
+        (its pin still held on a hit); None matches here. Exactly one
+        release per held pin."""
+        T = len(state.prompt_ids)
+        bucket = self.config.bucket_for(T)
+        if self.pool is None:
+            self._prefill([state], bucket)
+            return
+        if prematched is None:
+            cached_pages, cached_len = self.pool.match_prefix(state.prompt_ids)
+            pin_held = True
+        else:
+            (cached_pages, cached_len), pin_held = prematched, bool(prematched[0])
+        if cached_pages:
+            # the suffix lands at cached_len in a fresh cache, which must hold
+            # it whole: grow the bucket, or prefill cold near the window edge
+            suf_bucket = self.config.bucket_for(T - cached_len)
+            if cached_len + suf_bucket <= self.config.max_seq_len:
+                bucket = max(bucket, next(b for b in self.config.buckets()
+                                          if b >= cached_len + suf_bucket))
+                try:
+                    self._prefill_hit(state, cached_pages, cached_len, bucket, suf_bucket)
+                finally:
+                    self.pool.release(state.prompt_ids)
+                return
+            self.pool.release(state.prompt_ids)
+            pin_held = False
+        try:
+            self._prefill([state], bucket)
+        finally:
+            if pin_held:
+                self.pool.release(state.prompt_ids)
+
     def _prefill(self, states: list[_SlotState], bucket: int) -> None:
-        """One prefill dispatch (JAX ``prefill`` for one request,
+        """One cold prefill dispatch (JAX ``prefill`` for one request,
         ``batch_prefill`` for a coalesced group): rows pad to a power-of-two
         batch that replays row 0; the first token of each request is sampled
         in the same dispatch, and each request is placed into a free slot."""
@@ -462,41 +645,66 @@ class ContinuousBatchingEngine:
         Bp = 1 << (B - 1).bit_length()
         ids = np.zeros((Bp, bucket), np.int32)
         lengths = np.zeros(Bp, np.int32)
-        temp = np.zeros(Bp, np.float32)
-        top_p = np.ones(Bp, np.float32)
-        top_k = np.zeros(Bp, np.int32)
         for i, st in enumerate(states):
             T = len(st.prompt_ids)
             ids[i, :T] = st.prompt_ids
             lengths[i] = T
-            temp[i], top_p[i], top_k[i] = (st.sampling.temperature, st.sampling.top_p,
-                                           st.sampling.top_k)
         ids[B:], lengths[B:] = ids[0], lengths[0]
-        up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-        last_h, kv = llama.prefill_collect(self.params, cfg, up(ids), up(lengths),
-                                           self.rope_tables, use_flash=self.use_flash)
+        last_h, kv = llama.prefill_collect(self.params, cfg, to_device(ids, dev),
+                                           to_device(lengths, dev), self.rope_tables,
+                                           use_flash=self.use_flash)
         logits = llama.lm_head_logits(self.params, cfg, last_h)
-        all_greedy = not any(st.sampling.temperature > 0 for st in states)
         if self.paged:  # each request's own stream: one draw
-            gens = [st.generator for st in states] + [None] * (Bp - B)
-            first = self._sample(logits, gens, all_greedy,
-                                 (up(temp), up(top_p), up(top_k)))
+            first = self._sample_rows(logits, states + [None] * (Bp - B))
         else:
-            first = sample_token(logits, self._generator, up(temp), up(top_p), up(top_k),
-                                 all_greedy=all_greedy)
-        first_host = first.cpu().numpy()  # the dispatch's one sync
-        self.prefill_dispatches += 1
+            st = states[0]
+            warp = self._warp_rows([st])
+            first = sample_token(logits, self._generator, *warp,
+                                 all_greedy=not st.sampling.temperature > 0)
+        self._place_prefilled(states, kv, [[] for _ in states], first)
         self.coalesced_prefills += int(B > 1)
+        self.prefill_ms += (time.perf_counter() - t0) * 1e3
+
+    def _prefill_hit(self, state: _SlotState, cached_pages: list[int], cached_len: int,
+                     bucket: int, suf_bucket: int) -> None:
+        """Prefill a prefix hit: gather the cached pages into a fresh cache of
+        ``bucket`` positions, run :func:`suffix_prefill` over the suffix,
+        sample the first token, and place the request (JAX's hit branch of
+        ``_prefill_into_slot``). The caller holds the radix pin."""
+        t0 = time.perf_counter()
+        dev = self.device
+        suffix = state.prompt_ids[cached_len:]
+        ids = np.zeros((1, suf_bucket), np.int32)
+        ids[0, :len(suffix)] = suffix
+        cache = llama.init_cache(self.model_config, 1, bucket, self.dtype, device=dev)
+        cache = self.pool.gather_for_prefill(cached_pages, bucket, cache)
+        logits, kv = suffix_prefill(self.params, self.model_config, to_device(ids, dev),
+                                    to_device(np.asarray([len(suffix)], np.int32), dev),
+                                    cached_len, cache, self.rope_tables)
+        state.cached_len = cached_len
+        self._place_prefilled([state], kv, [cached_pages], self._sample_rows(logits, [state]))
+        self.suffix_prefills += 1
+        self.prefill_ms += (time.perf_counter() - t0) * 1e3
+
+    def _place_prefilled(self, states: list[_SlotState], kv: llama.KVCache,
+                         cached: list[list[int]], first: torch.Tensor) -> None:
+        """Put each prefilled request's KV row into its pool pages (or dense
+        cache row), read the first tokens — the dispatch's one sync — and
+        activate the slots."""
+        slots = []
         for i, st in enumerate(states):
             slot = self._free_slots.popleft()
             row = (kv[0][:, i:i + 1], kv[1][:, i:i + 1])
             if self.paged:
-                st.chain = self.pool.admit_slot(st.prompt_ids, row)
+                st.chain = self.pool.admit_slot(st.prompt_ids, cached[i], row)
             else:
                 llama.insert_slot_kv(self.cache, row, slot)
+            slots.append(slot)
+        first_host = first.cpu().numpy()  # sync-point: the prefill dispatch's one read
+        self.prefill_dispatches += 1
+        for i, (st, slot) in enumerate(zip(states, slots)):
             self._admitting.remove(st)
             self._activate_slot(slot, st, int(first_host[i]))
-        self.prefill_ms += (time.perf_counter() - t0) * 1e3
 
     def _activate_slot(self, slot: int, state: _SlotState, tok: int) -> None:
         """Commit a prefilled request into its slot (host mirrors, device rows,
@@ -511,38 +719,43 @@ class ContinuousBatchingEngine:
         self.active[slot] = True
         self._patch_slot_device(slot, state, length=T, active=True,
                                 limit=T + state.sampling.max_tokens - 1)
-        self._last_dev[slot] = tok
+        self._last_dev[slot].fill_(tok)
+        self._epoch += 1
         self._emit_token(slot, tok, force_length=T + self._k_steps > self.config.max_seq_len)
 
     def _patch_slot_device(self, slot: int, state: _SlotState, length: int,
                            active: bool, limit: int) -> None:
+        """Write one slot's device rows, in place (queued after every
+        in-flight dispatch, so none of them sees it). Scalars go in as
+        ``fill_`` arguments: ``t[slot] = x`` would copy a host scalar and
+        wait for the device."""
         s = state.sampling
-        self._temp_dev[slot] = float(s.temperature)
-        self._top_p_dev[slot] = float(s.top_p)
-        self._top_k_dev[slot] = int(s.top_k)
-        self._lengths_dev[slot] = length
-        self._active_dev[slot] = active
-        self._finished_dev[slot] = False
+        for t, value in ((self._temp_dev, float(s.temperature)),
+                         (self._top_p_dev, float(s.top_p)), (self._top_k_dev, int(s.top_k)),
+                         (self._lengths_dev, length), (self._active_dev, active),
+                         (self._finished_dev, False), (self._limit_dev, max(0, limit))):
+            t[slot].fill_(value)
         row = np.full((self._stop_width,), -1, np.int32)
         ids = sorted(state.stops)[: self._stop_width]
         row[: len(ids)] = ids
-        self._stops_dev[slot] = torch.from_numpy(row).to(self.device)
-        self._limit_dev[slot] = max(0, limit)
+        self._stops_dev[slot].copy_(to_device(row, self.device))
+        self._dev_term[slot] = len(state.stops) <= self._stop_width
 
     def _deactivate_slot_device(self, slot: int) -> None:
-        self._lengths_dev[slot] = 0
-        self._active_dev[slot] = False
-        self._finished_dev[slot] = True
+        self._lengths_dev[slot].fill_(0)
+        self._active_dev[slot].fill_(False)
+        self._finished_dev[slot].fill_(True)
 
     def _flush_page_table(self) -> None:
         if self._pt_dirty:
-            self._page_table_dev.copy_(torch.from_numpy(self.page_table))
+            self._page_table_dev.copy_(to_device(self.page_table, self.device))
             self._pt_dirty = False
 
     def _grow_chain(self, slot: int, state: _SlotState, needed: int) -> None:
         """Extend a slot's chain to cover ``needed`` tokens. The pool holds a
-        full-window chain for every slot, so this cannot run dry; preemption
-        to host comes with a later slice."""
+        full-window chain for every slot beside what only the tree holds, so
+        the horizon of the current chunk cannot run dry; a MemoryError past
+        it caps the ring (preemption to host comes with a later slice)."""
         before = len(state.chain)
         if self.pool.pages_for(needed) <= before:
             return
@@ -550,12 +763,30 @@ class ContinuousBatchingEngine:
         self.page_table[slot, before: len(state.chain)] = state.chain[before:]
         self._pt_dirty = True
 
-    def _ensure_chunk_capacity(self) -> None:
+    def _ensure_chunk_capacity(self, horizon: int) -> None:
         for slot in np.flatnonzero(self.active):
-            state = self.slots[slot]
-            self._grow_chain(int(slot), state,
-                             min(int(self.lengths[slot]) + self._k_steps,
-                                 self.config.max_seq_len))
+            self._grow_chain(int(slot), self.slots[slot],
+                             min(int(self.lengths[slot]) + horizon, self.config.max_seq_len))
+
+    def _warp_rows(self, states: list) -> tuple[torch.Tensor, ...]:
+        """(temperature, top_p, top_k) device rows for prefill rows."""
+        temp = np.zeros(len(states), np.float32)
+        top_p = np.ones(len(states), np.float32)
+        top_k = np.zeros(len(states), np.int32)
+        for i, st in enumerate(states):
+            if st is not None:
+                temp[i], top_p[i], top_k[i] = (st.sampling.temperature,
+                                               st.sampling.top_p, st.sampling.top_k)
+        return tuple(to_device(a, self.device) for a in (temp, top_p, top_k))
+
+    def _sample_rows(self, logits: torch.Tensor, states: list) -> torch.Tensor:
+        """A prefill dispatch's first tokens: one draw from each sampling
+        row's own generator (None rows are padding)."""
+        gens = [st.generator if st is not None else None for st in states]
+        all_greedy = not any(st is not None and st.sampling.temperature > 0
+                             for st in states)
+        return self._sample(logits, gens, all_greedy,
+                            None if all_greedy else self._warp_rows(states))
 
     def _sampling_rows(self, mask: np.ndarray) -> tuple[list, bool]:
         """Per-row generators for rows in ``mask`` that sample (paged mode),
@@ -595,6 +826,10 @@ class ContinuousBatchingEngine:
             self.slots[slot] = None
             self.requests_completed += 1
             self._free_slots.append(slot)
+            if fin == "stop" and not self._dev_term[slot]:
+                # a stop outside the device's stop row: the device ran the
+                # row on, so every in-flight chunk is stale
+                self._epoch += 1
             self._deactivate_slot_device(slot)
             if self.paged:
                 self.pool.release_slot(state.chain)
@@ -611,8 +846,157 @@ class ContinuousBatchingEngine:
             kind = self._decode_round_mixed()
         else:
             kind = self._decode_round_chunk()
-        self.rounds[kind] += 1
         self.round_ms[kind] += (time.perf_counter() - t0) * 1e3
+
+    def _record_round(self, kind: str, dispatch_ms: float, sync_wait_ms: float,
+                      host_emit_ms: float, lookahead: bool, depth: int) -> None:
+        """Count a finished round (with ``lookahead``: served by the ring)
+        and its dispatch / sync-wait / host-emit split."""
+        self.rounds[kind] += 1
+        if lookahead:
+            self.lookahead["used"] += 1
+        split = self.round_split_ms[kind]
+        split["dispatch_ms"] += dispatch_ms
+        split["sync_wait_ms"] += sync_wait_ms
+        split["host_emit_ms"] += host_emit_ms
+        self.round_timings.append({"kind": kind, "dispatch_ms": dispatch_ms,
+                                   "sync_wait_ms": sync_wait_ms,
+                                   "host_emit_ms": host_emit_ms,
+                                   "lookahead": lookahead, "depth": depth})
+
+    def _note_sharing(self) -> None:
+        """Track the most pages two live chains share (read at dispatch, on
+        this thread, so the reading does not depend on when another thread
+        looks)."""
+        chains = [set(st.chain) for st in self.slots if st is not None and st.chain]
+        for i, a in enumerate(chains):
+            for b in chains[i + 1:]:
+                shared = len(a & b)
+                if shared > self.max_shared_chain_pages:
+                    self.max_shared_chain_pages = shared
+
+    def _readback(self, tokens: torch.Tensor) -> tuple[torch.Tensor, Optional[Any]]:
+        """Start the tokens' copy to the host without blocking: on CUDA into
+        a pinned buffer of their own, marked done by an event."""
+        if self.device.type != "cuda":
+            return tokens, None
+        host = torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True)
+        host.copy_(tokens, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return host, ready
+
+    def _discard_ring(self) -> None:
+        """Drop every undrained ring entry and put back the generator states
+        recorded before the oldest of them: their draws were enqueued but
+        never committed. Their KV writes lie past every committed length and
+        are rewritten before anything reads them."""
+        for rec in reversed(self._ring):
+            for gen, saved in rec.gen_states:
+                gen.set_state(saved)
+        self.lookahead["discarded"] += len(self._ring)
+        self._ring.clear()
+
+    def _commit_chunk(self, rec: _InflightChunk) -> np.ndarray:
+        """Adopt a drained chunk's outputs as the engine's state (the active
+        mask excepted) and advance the host lengths; returns the lengths
+        before the chunk."""
+        self._last_dev = rec.last
+        self._lengths_dev = rec.lengths_dev
+        self._finished_dev = rec.finished_dev
+        old_lengths = self.lengths.copy()
+        self.lengths = np.where(self.active, self.lengths + self._k_steps, 0).astype(np.int32)
+        return old_lengths
+
+    def _dispatch_chunk(self, after: Optional[_InflightChunk],
+                        draw_mask: np.ndarray) -> _InflightChunk:
+        """Enqueue ``decode_chunk`` fused decode steps over all slots, from
+        the committed state or chained off ``after``'s outputs; rows that hit
+        a stop id, their limit or the window bound freeze on the device.
+        ``draw_mask``: the rows whose generators draw. Commits nothing."""
+        k, cfg = self._k_steps, self.model_config
+        self._flush_page_table()
+        self._note_sharing()
+        if after is None:
+            toks, lens, fin, active = (self._last_dev, self._lengths_dev,
+                                       self._finished_dev, self._active_dev)
+        else:
+            toks, lens, fin, active = after.last, after.lengths_dev, after.finished_dev, \
+                after.active_dev
+        gens, all_greedy = self._sampling_rows(draw_mask)
+        saved = [(g, g.get_state()) for g in gens if g is not None]
+        emits = []
+        for j in range(k):
+            run = active & ~fin
+            hidden, _ = llama.forward_paged_decode(
+                self.params, cfg, toks[:, None], (self.pool.k_pool, self.pool.v_pool),
+                self._page_table_dev, lens, self.rope_tables, write_mask=run)
+            logits = llama.lm_head_logits(self.params, cfg, hidden[:, 0])
+            nxt = self._sample(logits, gens, all_greedy)
+            new_lens = lens + 1
+            is_stop = (nxt[:, None] == self._stops_dev).any(dim=1)
+            hit = new_lens >= self._limit_dev
+            if j == k - 1:
+                hit = hit | (new_lens + k > self.config.max_seq_len)
+            emits.append(torch.where(run, nxt, torch.full_like(nxt, -1)))
+            toks = torch.where(run, nxt, toks)
+            lens = torch.where(run, new_lens, lens)
+            fin = fin | (run & (is_stop | hit))
+        chunk = torch.stack(emits, dim=1)
+        host, ready = self._readback(chunk)
+        return _InflightChunk(chunk, toks, torch.where(active, lens, torch.zeros_like(lens)),
+                              fin, active, self._epoch, host, ready, saved)
+
+    def _can_extend_ring(self) -> bool:
+        """Chain one more chunk off the ring's tail only while it is likely to
+        be used: nothing changed since the ring's dispatches, no prompt chunk
+        is waiting (the next round would be mixed), no admission is due, and
+        every active chain covers the deeper horizon (a MemoryError only
+        caps the ring)."""
+        if self._stop.is_set() or not self._ring or self._ring[-1].epoch != self._epoch:
+            return False
+        if self._prefill_slots or (self._free_slots and self._pending):
+            return False
+        horizon = (len(self._ring) + 1) * self._k_steps
+        try:
+            self._ensure_chunk_capacity(horizon)
+        except MemoryError:
+            return False
+        return True
+
+    def _drain(self, rec: _InflightChunk) -> np.ndarray:
+        if rec.ready is not None:
+            rec.ready.synchronize()  # sync-point: the round's one blocking read
+        return rec.host.numpy()
+
+    def _decode_round_chunk(self) -> str:
+        """A pure-decode round through the ring: drop a stale ring, dispatch
+        from committed state if the ring is empty, top the ring up to
+        ``depth`` chunks beyond the one drained, drain the oldest, commit it
+        and emit its tokens."""
+        t0 = time.perf_counter()
+        k, depth = self._k_steps, self._depth
+        if self._ring and self._ring[0].epoch != self._epoch:
+            self._discard_ring()
+        used = bool(self._ring)
+        if not used:
+            self._ensure_chunk_capacity(k * (depth + 1))
+            self._ring.append(self._dispatch_chunk(None, self.active))
+        while len(self._ring) <= depth and self._can_extend_ring():
+            self._ring.append(self._dispatch_chunk(self._ring[-1], self.active))
+            self.lookahead["dispatched"] += 1
+        t1 = time.perf_counter()
+        rec = self._ring.popleft()
+        ring_depth = len(self._ring)
+        chunk = self._drain(rec)
+        t2 = time.perf_counter()
+        self.depth_hist[ring_depth] = self.depth_hist.get(ring_depth, 0) + 1
+        self._emit_chunk(chunk, self._commit_chunk(rec))
+        if self._ring and self._ring[0].epoch != self._epoch:
+            self._discard_ring()
+        self._record_round("decode", (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                           (time.perf_counter() - t2) * 1e3, used, ring_depth)
+        return "decode"
 
     def _plan_prefill_chunks(self) -> list[tuple[int, _SlotState, int]]:
         """This round's prompt chunks: ``prefill_budget_tokens`` filled FIFO
@@ -634,9 +1018,15 @@ class ContinuousBatchingEngine:
 
     def _decode_round_mixed(self) -> str:
         """One ragged mixed round: decode rows take their next token while
-        this round's prompt chunks run in the same forward."""
+        this round's prompt chunks run in the same forward. A ring in flight
+        is stale (the admission bumped the epoch) and is discarded; when this
+        round consumes the last prompt chunks, the ring chains straight off
+        its outputs (:meth:`_mixed_ring_span`)."""
+        t0 = time.perf_counter()
         n, dev, k = self.n_slots, self.device, self._k_steps
-        self._ensure_chunk_capacity()
+        if self._ring:
+            self._discard_ring()
+        self._ensure_chunk_capacity(k)
         plan = self._plan_prefill_chunks()
         for slot, state, chunk in plan:
             self._grow_chain(slot, state, state.prefill_pos + chunk)
@@ -660,9 +1050,9 @@ class ContinuousBatchingEngine:
                 sample[slot] = final_mask[slot] = True
                 final_lens[slot] = len(state.prompt_ids)
         self._flush_page_table()
-        up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-        q_ids_d, q_lens_d, hist_d = up(q_ids), up(q_lens), up(hist)
-        sample_d, final_d, final_lens_d = up(sample), up(final_mask), up(final_lens)
+        self._note_sharing()
+        q_ids_d, q_lens_d, hist_d, sample_d, final_d, final_lens_d = (
+            to_device(a, dev) for a in (q_ids, q_lens, hist, sample, final_mask, final_lens))
         active, fin, lengths = self._active_dev, self._finished_dev, self._lengths_dev
 
         run = active & ~fin
@@ -682,11 +1072,19 @@ class ContinuousBatchingEngine:
                                                        torch.zeros_like(lengths))))
         is_stop = (nxt[:, None] == self._stops_dev).any(dim=1)
         hit = (new_lens >= self._limit_dev) | (new_lens + k > self.config.max_seq_len)
-        self._finished_dev = fin | (sampled & (is_stop | hit))
-        self._last_dev = torch.where(sampled, nxt, self._last_dev)
-        self._lengths_dev = new_lens.to(torch.int32)
-        self._active_dev = active | final_d
-        toks = torch.where(sampled, nxt, torch.full_like(nxt, -1)).cpu().numpy()  # the round's one sync
+        toks = torch.where(sampled, nxt, torch.full_like(nxt, -1))
+        host, ready = self._readback(toks)
+        rec = _InflightChunk(toks, torch.where(sampled, nxt, self._last_dev),
+                             new_lens.to(torch.int32), fin | (sampled & (is_stop | hit)),
+                             active | final_d, self._epoch, host, ready)
+        spanned = self._mixed_ring_span(rec, finals)
+        t1 = time.perf_counter()
+        toks_host = self._drain(rec)
+        t2 = time.perf_counter()
+        # the mixed dispatch flipped its final rows on the device: adopt its
+        # active mask with the rest
+        self._last_dev, self._lengths_dev = rec.last, rec.lengths_dev
+        self._finished_dev, self._active_dev = rec.finished_dev, rec.active_dev
 
         decode_rows = [s for s in range(n) if self.active[s]]
         old_lengths = self.lengths.copy()
@@ -696,75 +1094,91 @@ class ContinuousBatchingEngine:
             self.prefill_chunks += 1
             self.chunked_prefill_tokens += chunk
         for slot, state in finals:
-            self._finish_prefill(slot, state, int(toks[slot]))
+            self._finish_prefill(slot, state, int(toks_host[slot]), bump_epoch=spanned == 0)
         for slot in decode_rows:
             if self.active[slot]:
                 no_room = int(old_lengths[slot]) + 1 + k > self.config.max_seq_len
-                self._emit_token(slot, int(toks[slot]), force_length=no_room)
-        return "mixed" if decode_rows else "prefill"
+                self._emit_token(slot, int(toks_host[slot]), force_length=no_room)
+        if self._ring and self._ring[0].epoch != self._epoch:
+            self._discard_ring()
+        kind = "mixed" if decode_rows else "prefill"
+        self._record_round(kind, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                           (time.perf_counter() - t2) * 1e3, False, spanned)
+        return kind
 
-    def _finish_prefill(self, slot: int, state: _SlotState, tok: int) -> None:
+    def _mixed_ring_span(self, rec: _InflightChunk,
+                         finals: list[tuple[int, _SlotState]]) -> int:
+        """When this mixed dispatch consumes the last prompt chunks, its
+        outputs already hold the flipped state (active mask, first tokens,
+        lengths), so decode chunks chain straight off it instead of waiting
+        for a synchronous round. Chains grow first; a MemoryError caps the
+        span. Returns the chunks chained."""
+        if (self._depth <= 0 or len(finals) != len(self._prefill_slots)
+                or self._pending or self._stop.is_set()):
+            return 0
+        k, max_seq = self._k_steps, self.config.max_seq_len
+        flipping = np.zeros(self.n_slots, bool)
+        for slot, _ in finals:
+            flipping[slot] = True
+        draw = self.active | flipping
+        tail, chained = rec, 0
+        for h in range(self._depth):
+            horizon = 1 + (h + 1) * k  # the mixed token, then h+1 chunks
+            try:
+                for slot in np.flatnonzero(draw):
+                    state = self.slots[slot]
+                    L = int(self.lengths[slot]) if self.active[slot] else len(state.prompt_ids)
+                    self._grow_chain(int(slot), state, min(L + horizon, max_seq))
+            except MemoryError:
+                break
+            tail = self._dispatch_chunk(tail, draw)
+            self._ring.append(tail)
+            self.lookahead["dispatched"] += 1
+            chained += 1
+        return chained
+
+    def _finish_prefill(self, slot: int, state: _SlotState, tok: int,
+                        bump_epoch: bool = True) -> None:
         """Flip a fully prefilled slot to decode (the device flipped its rows
-        in the same dispatch) and emit its first token."""
+        in the same dispatch), publish its prompt's full pages to the radix
+        tree and emit its first token. ``bump_epoch=False`` when the ring
+        chained off that dispatch and so already holds the flip."""
         T = len(state.prompt_ids)
         self.pool.commit_chain(state.prompt_ids, state.chain)
         self._prefill_slots.remove(slot)
         self.lengths[slot] = T
         self.active[slot] = True
+        if bump_epoch:
+            self._epoch += 1
         self._emit_token(slot, tok, force_length=T + self._k_steps > self.config.max_seq_len)
-
-    def _decode_round_chunk(self) -> str:
-        """``decode_chunk`` fused decode steps over all slots; rows that hit
-        a stop id, their limit or the window bound freeze on the device."""
-        k, cfg = self._k_steps, self.model_config
-        self._ensure_chunk_capacity()
-        self._flush_page_table()
-        gens, all_greedy = self._sampling_rows(self.active)
-        active = self._active_dev
-        toks, lens, fin = self._last_dev, self._lengths_dev, self._finished_dev
-        emits = []
-        for j in range(k):
-            run = active & ~fin
-            hidden, _ = llama.forward_paged_decode(
-                self.params, cfg, toks[:, None], (self.pool.k_pool, self.pool.v_pool),
-                self._page_table_dev, lens, self.rope_tables, write_mask=run)
-            logits = llama.lm_head_logits(self.params, cfg, hidden[:, 0])
-            nxt = self._sample(logits, gens, all_greedy)
-            new_lens = lens + 1
-            is_stop = (nxt[:, None] == self._stops_dev).any(dim=1)
-            hit = new_lens >= self._limit_dev
-            if j == k - 1:
-                hit = hit | (new_lens + k > self.config.max_seq_len)
-            emits.append(torch.where(run, nxt, torch.full_like(nxt, -1)))
-            toks = torch.where(run, nxt, toks)
-            lens = torch.where(run, new_lens, lens)
-            fin = fin | (run & (is_stop | hit))
-        self._last_dev = toks
-        self._lengths_dev = torch.where(active, lens, torch.zeros_like(lens))
-        self._finished_dev = fin
-        self._emit_chunk(torch.stack(emits, dim=1).cpu().numpy())  # the round's one sync
-        return "decode"
 
     def _decode_round_dense(self) -> str:
         """``decode_chunk`` fused decode steps over the dense cache
-        (:func:`.engine.build_decode_chunk_fn`, device-side termination)."""
+        (:func:`.engine.build_decode_chunk_fn`, device-side termination);
+        synchronous, as in JAX."""
+        t0 = time.perf_counter()
         _, all_greedy = self._sampling_rows(self.active)
         chunk, k_cache, v_cache, last, _, lens, fin = self._dense_decode_fn(
             self.params, self.cache[0], self.cache[1], self._last_dev,
             self._lengths_dev, self._generator, self._temp_dev, self._top_p_dev,
             self._top_k_dev, self._active_dev, self._finished_dev, self._stops_dev,
             self._limit_dev, all_greedy=all_greedy)
+        t1 = time.perf_counter()
+        chunk_host = chunk.cpu().numpy()  # sync-point: the dense round's one read
+        t2 = time.perf_counter()
         self.cache = (k_cache, v_cache)
         self._last_dev, self._lengths_dev, self._finished_dev = last, lens, fin
-        self._emit_chunk(chunk.cpu().numpy())  # the round's one sync
+        old_lengths = self.lengths.copy()
+        self.lengths = np.where(self.active, self.lengths + self._k_steps, 0).astype(np.int32)
+        self._emit_chunk(chunk_host, old_lengths)
+        self._record_round("decode", (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                           (time.perf_counter() - t2) * 1e3, False, 0)
         return "decode"
 
-    def _emit_chunk(self, chunk: np.ndarray) -> None:
+    def _emit_chunk(self, chunk: np.ndarray, old_lengths: np.ndarray) -> None:
         """Emit a fused chunk's tokens [n_slots, k] step by step; a stream
         that cannot fit the next chunk ends with 'length' at this one's end."""
         k = self._k_steps
-        old_lengths = self.lengths.copy()
-        self.lengths = np.where(self.active, self.lengths + k, 0).astype(np.int32)
         for j in range(k):
             last_of_chunk = j == k - 1
             for slot in range(self.n_slots):

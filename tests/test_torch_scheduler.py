@@ -150,8 +150,10 @@ def test_greedy_streams_match_jax_reference(jax_model, path):
         assert fins[:-1] == [None] * (len(fins) - 1)
         assert fins[-1] == ("stop" if i == 1 else "length")
     stats = engine.stats()
-    assert stats["pages_in_use"] == 0
-    assert stats["pages_free"] == stats["pages_total"]
+    # the pool's conservation invariant (I1): nothing referenced or orphaned,
+    # every page free or held by the prefix tree
+    assert stats["pages_referenced"] == 0 and stats["orphan_pages"] == 0
+    assert stats["pages_free"] + stats["cached_pages"] == stats["pages_total"]
     assert stats["requests_completed"] == len(prompts)
     assert stats["rounds"]["decode"] > 0
     if path == "mixed":
@@ -207,7 +209,8 @@ def test_phase_separated_coalesces_same_bucket_prompts(jax_model):
     assert [toks for toks, _ in out] == ref
     stats = engine.stats()
     assert stats["prefill_dispatches"] == 2 and stats["coalesced_prefills"] == 2
-    assert stats["pages_in_use"] == 0
+    assert stats["pages_referenced"] == 0 and stats["orphan_pages"] == 0
+    assert stats["pages_free"] + stats["cached_pages"] == stats["pages_total"]
 
 
 def test_seeded_stream_is_the_same_mixed_or_phase_separated():
@@ -285,7 +288,8 @@ def test_path_changing_options_name_their_later_slice(override):
 def test_pool_admit_slot_places_prompt_kv_in_fresh_pages(T):
     """A phase-separated prefill's collected KV lands in ceil(T/page) fresh
     pages in order (full pages, then the tail), the prefill bucket padded
-    where it is shorter than the pages; release returns them all."""
+    where it is shorter than the pages; release returns the private tail
+    page and leaves the full pages cached in the prefix tree."""
     from cyberfabric_core_tpu_torch.runtime.paged import PrefixKVPool
 
     cfg = get_config("tiny-llama")
@@ -295,12 +299,14 @@ def test_pool_admit_slot_places_prompt_kv_in_fresh_pages(T):
     shape = (cfg.num_layers, 1, bucket, cfg.num_kv_heads, cfg.head_dim)
     g = torch.Generator().manual_seed(T)
     kv = (torch.randn(shape, generator=g), torch.randn(shape, generator=g))
-    chain = pool.admit_slot(list(range(T)), kv)
+    chain = pool.admit_slot(list(range(T)), [], kv)
     assert len(chain) == -(-T // 8) and 0 not in chain and len(set(chain)) == len(chain)
     for pool_t, new in ((pool.k_pool, kv[0]), (pool.v_pool, kv[1])):
         placed = pool_t[:, chain].reshape(cfg.num_layers, -1, cfg.num_kv_heads,
                                           cfg.head_dim)
         assert torch.equal(placed[:, :T], new[:, 0, :T])
-    assert pool.stats()["pages_in_use"] == len(chain)
+    assert pool.stats()["pages_in_use"] == pool.stats()["pages_referenced"] == len(chain)
     pool.release_slot(chain)
-    assert pool.stats()["pages_in_use"] == 0
+    stats = pool.stats()
+    assert stats["pages_referenced"] == 0 and stats["cached_pages"] == T // 8
+    assert stats["pages_free"] + stats["cached_pages"] == stats["pages_total"]
