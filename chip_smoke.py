@@ -12,33 +12,46 @@ fatal on failure:
 3. kernels: each kernel held against its plain PyTorch version on the card,
    at small shapes (window, idle rows, shared pages, GQA groups, rows of
    length 1; decode lengths on both sides of split boundaries, windows that
-   empty whole splits) and at the llama-3-8b main-path shapes in bf16;
-   ragged at q_len=1 bitwise equal to decode, every position of a span of
-   up to SHORT_SPAN tokens bitwise equal to decoding it alone, a prompt-chunk
-   row's bits independent of where its span starts; flash rows past the
-   length exactly zero; device times (CUDA-graph replay) of each kernel and
-   of PyTorch SDPA calls over dense inputs prepared outside the timed call
-   (yardsticks only, never used by the port: masked SDPA, and for flash
-   also ``is_causal``; the faster is ``library_ms``), CUDA-event times of
-   the plain version, beside each kernel's bound, with the kernels' blocks,
-   splits or walked tiles and achieved rates;
+   empty whole splits) at every head dim the kernels are built for (16, 64,
+   96, 128, 256), flash also at every group size 1..8, and at the
+   llama-3-8b main-path shapes in bf16: one bf16 ulp of the float64 plain
+   value; ragged at q_len=1 bitwise equal to decode, every position of a
+   span of up to SHORT_SPAN tokens bitwise equal to decoding it alone, a
+   prompt-chunk row's bits independent of where its span starts, at every
+   head dim; flash rows past the length exactly zero; the f32 entry points
+   of all three at every head dim within rtol = atol = 2e-5; device times
+   (CUDA-graph replay) of each kernel and of PyTorch SDPA calls over dense
+   inputs prepared outside the timed call (yardsticks only, never used by
+   the port: masked SDPA, and for flash also ``is_causal``; the faster is
+   ``library_ms``), CUDA-event times of the plain version, beside each
+   kernel's bound, with the kernels' blocks, splits or walked tiles and
+   achieved rates; the same timings at tiny-llama's (D 16), phi-3-mini's
+   (D 96) and gemma-7b's (D 256) heads;
 4. serving, runs of ``ContinuousBatchingEngine`` at llama-3-8b full width
    (random weights from a seed, built once and shared), each from
-   quickstart-shaped ``engine_options`` as the llm-gateway worker maps them:
-   (a) mixed batching (the default path, lookahead ring at the worker's
-   depth 2), 8 requests from 3 threads, with no synchronising CUDA call
-   flagged by ``torch.cuda.set_sync_debug_mode`` besides each round's one
-   event wait, and the ring used; (b) the same storm at
-   ``decode_lookahead`` 0; (c) phase-separated (``mixed_batch`` off,
-   ``prefill_coalesce`` 4), the same 8 requests; (d) dense mode
-   (``prefix_cache_pages`` 0), 4 greedy requests; (e, f) prefix reuse,
-   mixed and phase-separated: a 1024-token head (16 pages), request 0 the
-   head + 200 tokens served alone, then 7 requests behind the head from 3
-   threads — 7 hits saving 1024 tokens each, only suffixes chunked (mixed),
-   7 suffix prefills and flash only for request 0 (phase-separated), two
-   live chains sharing the 16 head pages. Every stream gets one terminal
-   event with the right reason, the path's kernels were launched (and,
-   phase-separated, the ragged kernel never), the pool conserves its pages
+   quickstart-shaped ``engine_options`` as the llm-gateway worker maps them,
+   paged decode chunks replayed as CUDA graphs: (a) mixed batching (the
+   default path, lookahead ring at the worker's depth 2), 8 requests from 3
+   threads, with no synchronising CUDA call flagged by
+   ``torch.cuda.set_sync_debug_mode`` besides each round's one event wait,
+   and the ring used; then the cost of keeping f32 at the reference's three
+   points (decode step and mixed round, device time, against the bf16
+   products widened after); (b) the same storm at ``decode_lookahead`` 0;
+   (c) at depths 2 and 0, the storm on an engine replaying graphs and on
+   one with the private eager switch, every request pending before the
+   first admission: the same streams, greedy and seeded; (d)
+   phase-separated (``mixed_batch`` off, ``prefill_coalesce`` 4), the same
+   8 requests; (e) dense mode (``prefix_cache_pages`` 0), 4 greedy
+   requests; (f, g) prefix reuse, mixed and phase-separated: a 1024-token
+   head (16 pages), request 0 the head + 200 tokens served alone, then 7
+   requests behind the head from 3 threads — 7 hits saving 1024 tokens
+   each, only suffixes chunked (mixed), 7 suffix prefills and flash only
+   for request 0 (phase-separated), two live chains sharing the 16 head
+   pages; (h) the quickstart's default-chat model, tiny-llama, with the
+   quickstart's engine options. Every stream gets one terminal event with
+   the right reason, the path's kernels were launched (and,
+   phase-separated, the ragged kernel never), decode chunks ran as graph
+   replays (or eagerly, with the switch), the pool conserves its pages
    (nothing referenced or orphaned, every page free or cached), and every
    greedy token lies within a bf16 margin of the max of the dense forward's
    logits (teacher-forced);
@@ -114,6 +127,22 @@ def bf16_ulp_close(out: torch.Tensor, ref: torch.Tensor) -> float:
     return float(err.max())
 
 
+#: f32 kernels against their float64 plain versions: rtol = atol = 2e-5 (the
+#: JAX flash kernel's own f32 bar); the f32 kernels round only in f32
+F32_TOL = 2e-5
+
+
+def f32_close(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Max |out - ref|; raises unless every element is within F32_TOL *
+    (1 + |ref|)."""
+    err = (out.double() - ref.double()).abs()
+    bad = int((err > F32_TOL + F32_TOL * ref.double().abs()).sum())
+    if bad or not torch.isfinite(out).all():
+        raise AssertionError(f"{bad} f32 elements beyond rtol = atol = {F32_TOL} "
+                             f"(max abs err {float(err.max()):.3e})")
+    return float(err.max())
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """CUDA-event time per call of ``iters`` back-to-back calls. Where the
     host enqueues a call more slowly than the card runs it, this reads the
@@ -159,9 +188,9 @@ def device_breakdown(fn, iters: int = 20) -> str:
     return ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(rows, key=lambda r: -r[1]))
 
 
-def make_pools(gen, N, page, Hkv, D, dev):
-    k = torch.randn((N, page, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((N, page, Hkv, D), generator=gen, device=dev).to(torch.bfloat16)
+def make_pools(gen, N, page, Hkv, D, dev, dtype=torch.bfloat16):
+    k = torch.randn((N, page, Hkv, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((N, page, Hkv, D), generator=gen, device=dev).to(dtype)
     return k, v
 
 
@@ -184,7 +213,7 @@ def bound(nbytes, flops):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def paged_geometry(Hq, Hkv, page, Pmax, B, Qmax, split_rows, chunks) -> dict:
+def paged_geometry(Hq, Hkv, page, Pmax, B, Qmax, split_rows, chunks, D=128) -> dict:
     """What the paged kernels launch for one call of B rows, from its inputs
     as the kernels read them (no window). ``split_rows``: for each row that
     takes the decode path, the key counts of its positions (a decode row's
@@ -209,7 +238,7 @@ def paged_geometry(Hq, Hkv, page, Pmax, B, Qmax, split_rows, chunks) -> dict:
         geo.update(chunk_blocks=-(-Qmax // P) * Hkv * B,
                    chunk_working=sum(-(-ql // P) for _, ql in chunks) * Hkv,
                    chunk_tiles=tiles * Hkv,
-                   chunk_tc_flops=tiles * Hkv * 64 * 64 * 128 * 2 * 4)
+                   chunk_tc_flops=tiles * Hkv * 64 * 64 * D * 2 * 4)
     return geo
 
 
@@ -250,11 +279,11 @@ def ragged_one(q1, k, v, pt, lens, window):
                                      sliding_window=window)[:, 0]
 
 
-def kernel_small_shapes(dev, gen) -> None:
-    """Window, idle rows, shared pages, G=2 and G=4, page 16 and 64."""
+def kernel_small_shapes(dev, gen, D=128) -> None:
+    """Window, idle rows, shared pages, G=2, 4 and 7, page 16 and 64."""
     for Hq, Hkv, page, Pmax, window in [(4, 2, 16, 6, None), (8, 2, 16, 6, 21),
-                                        (32, 8, 64, 4, None)]:
-        B, D = 4, 128
+                                        (32, 8, 64, 4, None), (28, 4, 64, 4, 19)]:
+        B = 4
         N = B * Pmax + 2
         k, v = make_pools(gen, N, page, Hkv, D, dev)
         pt = make_table(B, Pmax, N, 1, dev, share=True)
@@ -278,11 +307,11 @@ def kernel_small_shapes(dev, gen) -> None:
         if not torch.equal(ragged_one(q1, k, v, pt, lens1, window), dec1):
             raise AssertionError("ragged q_len=1 differs from decode")
     torch.cuda.synchronize()
-    log("kernels small shapes: decode and ragged within one bf16 ulp of their "
+    log(f"kernels small shapes, D {D}: decode and ragged within one bf16 ulp of their "
         "plain versions; padding rows zero; ragged q_len=1 == decode bitwise")
 
 
-def kernel_split_cases(dev, gen) -> None:
+def kernel_split_cases(dev, gen, D=128) -> None:
     """The decode path's splits, short spans and chunk rows, at G=2 with
     16-token pages and at the llama-3-8b head shape with 64-token pages."""
     S = pa.split_pages()
@@ -293,10 +322,10 @@ def kernel_split_cases(dev, gen) -> None:
         lengths = [span - 1, span, span + 1, 2 * span + 1, 3 * span - 1, 1]
         B, Pmax = len(lengths), 3 * span // page + 1
         N = (pa.SHORT_SPAN + 1) * Pmax + 2  # room for the short-span rows' tables
-        k, v = make_pools(gen, N, page, Hkv, 128, dev)
+        k, v = make_pools(gen, N, page, Hkv, D, dev)
         pt = make_table(B, Pmax, N, 3, dev, share=True)
         lens = i32(lengths, dev)
-        q1 = torch.randn((B, Hq, 128), generator=gen, device=dev).to(torch.bfloat16)
+        q1 = torch.randn((B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
         for window in (None, span - page // 2, 2 * span - page // 2):
             dec = pa.paged_decode_attention(q1, k, v, pt, lens, sliding_window=window)
             bf16_ulp_close(dec, pa.paged_decode_attention_plain(q1, k, v, pt, lens, window))
@@ -310,7 +339,7 @@ def kernel_split_cases(dev, gen) -> None:
         hist_l = [span - 3 + 5 * b for b in range(Bs)]
         pts = make_table(Bs, Pmax, N, 4, dev)
         hist, q_lens = i32(hist_l, dev), i32(q_lens_l, dev)
-        q = torch.randn((Bs, Qmax, Hq, 128), generator=gen, device=dev).to(torch.bfloat16)
+        q = torch.randn((Bs, Qmax, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
         for window in (None, page + 5):
             rag = pa.ragged_paged_attention(q, k, v, pts, hist, q_lens, sliding_window=window)
             bf16_ulp_close(rag, pa.ragged_paged_attention_plain(q, k, v, pts, hist,
@@ -329,12 +358,12 @@ def kernel_split_cases(dev, gen) -> None:
         # one chunk row at absolute position pos, inside spans that start
         # elsewhere and are cut at other boundaries: the same bits
         pos = span + 22
-        qrow = torch.randn((Hq, 128), generator=gen, device=dev).to(torch.bfloat16)
+        qrow = torch.randn((Hq, D), generator=gen, device=dev).to(torch.bfloat16)
         for window in (None, 45):
             outs = []
             for start, qlen in [(pos - 50, 60), (pos - 30, 45),
                                 (pos - pa.SHORT_SPAN, pa.SHORT_SPAN + 1)]:
-                qc = torch.randn((1, 64, Hq, 128), generator=gen, device=dev).to(torch.bfloat16)
+                qc = torch.randn((1, 64, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
                 qc[0, pos - start] = qrow
                 hist, q_lens = i32([start], dev), i32([qlen], dev)
                 out = pa.ragged_paged_attention(qc, k, v, pt[:1].contiguous(), hist, q_lens,
@@ -345,14 +374,15 @@ def kernel_split_cases(dev, gen) -> None:
             if not all(torch.equal(o, outs[0]) for o in outs[1:]):
                 raise AssertionError(f"chunk row at {pos} depends on its span's start")
     torch.cuda.synchronize()
-    log(f"kernels split cases ({S} pages per split): decode across split boundaries "
+    log(f"kernels split cases, D {D} ({S} pages per split): decode across split boundaries "
         "and emptying windows within one bf16 ulp, ragged q_len=1 == decode; spans of "
         f"2..{pa.SHORT_SPAN} == decode position by position; a chunk row's bits "
         "independent of its span's start")
 
 
 def kernel_main_shapes(dev, gen, cfg, page, Pmax, n_pages) -> dict[str, dict]:
-    """llama-3-8b serving shapes: 8 rows, lengths 128..2048, 64-token pages."""
+    """Serving shapes of ``cfg``'s heads (the main path's: llama-3-8b): 8
+    rows, lengths 128..2048, 64-token pages."""
     B, Hq, Hkv, D = 8, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     k, v = make_pools(gen, n_pages, page, Hkv, D, dev)
     pt = make_table(B, Pmax, n_pages, 2, dev)
@@ -370,12 +400,12 @@ def kernel_main_shapes(dev, gen, cfg, page, Pmax, n_pages) -> dict[str, dict]:
     short = pa.SHORT_SPAN
     geometry = {
         "paged_decode_attention": paged_geometry(Hq, Hkv, page, Pmax, B, 1,
-                                                 [[L] for L in lengths], None),
+                                                 [[L] for L in lengths], None, D),
         "ragged_paged_attention": paged_geometry(
             Hq, Hkv, page, Pmax, B, Qmax,
             [[h + i + 1 for i in range(ql)] for h, ql in zip(hist_l, qlen_l)
              if 0 < ql <= short],
-            [(h, ql) for h, ql in zip(hist_l, qlen_l) if ql > short]),
+            [(h, ql) for h, ql in zip(hist_l, qlen_l) if ql > short], D),
     }
     dec = pa.paged_decode_attention(q1, k, v, pt, lens)
     err_dec = bf16_ulp_close(dec, pa.paged_decode_attention_plain(q1, k, v, pt, lens))
@@ -422,27 +452,28 @@ def kernel_main_shapes(dev, gen, cfg, page, Pmax, n_pages) -> dict[str, dict]:
          {"SDPA masked": lambda: sdpa(qq, kd, vd, attn_mask=mask_rag)},
          rag_bytes, rag_flops, err_rag),
     ]:
-        results[name] = time_kernel(name, kern, plain, libs, nbytes, flops, err)
+        results[name] = time_kernel(f"{name} [{cfg.name}]", kern, plain, libs, nbytes, flops,
+                                    err)
         ms, geo = results[name]["ms"], geometry[name]
         rate = (f" (chunk path: {geo['chunk_tc_flops'] / 1e9:.2f} GFLOP of tensor-core "
                 f"work over {geo['chunk_tiles']} tiles, "
                 f"{geo['chunk_tc_flops'] / ms / 1e9:.1f} TFLOP/s if it took the whole call)"
                 if "chunk_tiles" in geo else "")
-        log(f"kernel {name} main shapes: blocks {geo}; achieved "
+        log(f"kernel {name} [{cfg.name}] main shapes: blocks {geo}; achieved "
             f"{nbytes / ms / 1e6:.1f} GB/s and {flops / ms / 1e9:.2f} TFLOP/s of the "
             f"counted work against bound {results[name]['bound_ms']:.4f} ms and library "
             f"{results[name]['library_ms']:.4f} ms{rate}")
     return results
 
 
-def flash_case(dev, gen, T, Hq, Hkv, lengths, window, D=128):
+def flash_case(dev, gen, T, Hq, Hkv, lengths, window, D=128, dtype=torch.bfloat16):
     B = len(lengths)
-    q, k, v = (torch.randn((B, T, h, D), generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = (torch.randn((B, T, h, D), generator=gen, device=dev).to(dtype)
                for h in (Hq, Hkv, Hkv))
     lens = i32(lengths, dev)
     out = fa.flash_self_attention(q, k, v, lens, sliding_window=window)
-    err = bf16_ulp_close(out, fa.flash_self_attention_plain(q, k, v, lens,
-                                                            sliding_window=window))
+    close = f32_close if dtype == torch.float32 else bf16_ulp_close
+    err = close(out, fa.flash_self_attention_plain(q, k, v, lens, sliding_window=window))
     for b, L in enumerate(lengths):
         if not bool((out[b, L:] == 0).all()):
             raise AssertionError(f"flash rows past length {L} of row {b} are not zero")
@@ -467,36 +498,84 @@ def flash_small_shapes(dev, gen) -> None:
         "rows past the length zero")
 
 
-def flash_geometry(T, Hq, Hkv, lengths, window=None) -> dict:
-    """What the flash kernel walks for one call, from its inputs as the kernel
-    reads them: blocks of 128 (position, head) rows (128/G positions), those
-    that load (first position below the length), the 64-key K/V tiles they
-    load, and the (64-row warpgroup, 64-key tile) products they compute: Q.K
-    once and P.V three times (P as three bf16 terms) on the tensor cores."""
-    G = Hq // Hkv
-    P, PW = 128 // G, 64 // G
+def flash_groups_and_dims(dev, gen) -> None:
+    """Every group size 1..8 at every head dim: 2 kv heads, T = 150 (not a
+    multiple of a block's 128 // G positions), a 41-token row, a window at
+    odd G."""
+    for D in fa.HEAD_DIMS:
+        for G in range(1, 9):
+            flash_case(dev, gen, 150, 2 * G, 2, [150, 41], 37 if G % 2 else None, D)
+    torch.cuda.synchronize()
+    log(f"kernel flash at D {fa.HEAD_DIMS} x G 1..8: within one bf16 ulp of the plain "
+        "version; rows past the length zero")
 
-    def tiles(p0, n, L):   # tiles of positions p0..p0+n-1 that see a key
+
+def kernel_f32(dev, gen) -> None:
+    """The f32 entry points of the three kernels at every head dim, G=2 and
+    G=7, a window, an idle ragged row's padding, flash rows past the length:
+    within rtol = atol = F32_TOL of the float64 plain versions."""
+    worst = 0.0
+    for D in pa.HEAD_DIMS:
+        for Hq, Hkv in ((4, 2), (7, 1)):
+            B, Qmax, page, Pmax = 3, 16, 16, 4
+            N = B * Pmax + 2
+            k, v = make_pools(gen, N, page, Hkv, D, dev, torch.float32)
+            pt = make_table(B, Pmax, N, 5, dev, share=True)
+            q = torch.randn((B, Qmax, Hq, D), generator=gen, device=dev)
+            hist, q_lens, lens = i32([0, 5, 30], dev), i32([16, 3, 0], dev), i32([1, 17, 64], dev)
+            for window in (None, 11):
+                rag = pa.ragged_paged_attention(q, k, v, pt, hist, q_lens, sliding_window=window)
+                worst = max(worst, f32_close(rag, pa.ragged_paged_attention_plain(
+                    q, k, v, pt, hist, q_lens, window)))
+                if not bool((rag[1, 3:] == 0).all() and (rag[2] == 0).all()):
+                    raise AssertionError(f"f32 ragged padding rows are not zero (D {D})")
+                q1 = q[:, 0].contiguous()
+                dec = pa.paged_decode_attention(q1, k, v, pt, lens, sliding_window=window)
+                worst = max(worst, f32_close(dec, pa.paged_decode_attention_plain(
+                    q1, k, v, pt, lens, window)))
+                _, err = flash_case(dev, gen, 80, Hq, Hkv, [80, 33], window, D, torch.float32)
+                worst = max(worst, err)
+    torch.cuda.synchronize()
+    log(f"kernels f32 at D {pa.HEAD_DIMS}, G 2 and 7: decode, ragged and flash within "
+        f"rtol = atol = {F32_TOL} of their float64 plain versions (max abs err {worst:.3e})")
+
+
+def flash_geometry(T, Hq, Hkv, lengths, window=None, D=128) -> dict:
+    """What the flash kernel walks for one call, from its inputs as the kernel
+    reads them: blocks of 128 (position, head) rows (128 // G positions),
+    those that load (first position below the length), the K/V tiles of bk
+    keys they load (64, or 32 at D 256), and the (64-row warpgroup, tile)
+    products they compute: Q.K once and P.V three times (P as three bf16
+    terms) on the tensor cores."""
+    G = Hq // Hkv
+    P, bk = 128 // G, (32 if D > 128 else 64)
+    R = P * G
+
+    def tiles(p0, p1, L):   # tiles of positions p0..p1 that see a key
         first = max(0, p0 - window + 1) if window else 0
-        return min(p0 + n - 1, L - 1) // 64 - first // 64 + 1
+        return min(p1, L - 1) // bk - first // bk + 1
 
     working = loaded = wg_tiles = 0
     for L in lengths:
         for p0 in range(0, min(L, T), P):
             working += 1
-            loaded += tiles(p0, P, L)
-            wg_tiles += sum(tiles(p0 + w * PW, PW, L) for w in range(2) if p0 + w * PW < L)
+            loaded += tiles(p0, p0 + P - 1, L)
+            for w in range(2):
+                w0, w1 = p0 + w * 64 // G, p0 + min(w * 64 + 63, R - 1) // G
+                if w0 < L:
+                    wg_tiles += tiles(w0, w1, L)
     return {"blocks": -(-T // P) * Hkv * len(lengths), "working": working * Hkv,
-            "kv_tiles": loaded * Hkv, "wg_tiles": wg_tiles * Hkv,
-            "tc_flops": wg_tiles * Hkv * 64 * 64 * 128 * 2 * 4}
+            "kv_tiles": loaded * Hkv, "wg_tiles": wg_tiles * Hkv, "bk": bk,
+            "tc_flops": wg_tiles * Hkv * 64 * bk * D * 2 * 4}
 
 
 def flash_main_shape(dev, gen, cfg) -> dict:
     """The coalesced batch_prefill group of the serving storm's two longest
-    prompts at bucket 2048: B=2, T=2048, lengths [1300, 1500]."""
+    prompts at bucket 2048: B=2, T=2048, lengths [1300, 1500], at ``cfg``'s
+    heads."""
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lengths, T = [1300, 1500], 2048
-    (q, k, v, lens), err = flash_case(dev, gen, T, Hq, Hkv, lengths, None)
+    (q, k, v, lens), err = flash_case(dev, gen, T, Hq, Hkv, lengths, None, D)
     # library yardsticks on [B, H, T, D]: (a) GQA expanded and the mask
     # (k <= q) & (k < len) built outside the timed call; (b) is_causal, which
     # computes the same rows below each length (their visible keys all lie
@@ -520,8 +599,8 @@ def flash_main_shape(dev, gen, cfg) -> dict:
     out = fa.flash_self_attention(q, k, v, lens).permute(0, 2, 1, 3)
     diff = max(float((causal_out[b, :, :L] - out[b, :, :L]).float().abs().max())
                for b, L in enumerate(lengths))
-    log(f"kernel flash_self_attention main shapes: {causal_label} agrees with the kernel "
-        f"below each length within {diff:.3e} (a yardstick's own bf16 arithmetic)")
+    log(f"kernel flash_self_attention [{cfg.name}] main shapes: {causal_label} agrees with "
+        f"the kernel below each length within {diff:.3e} (a yardstick's own bf16 arithmetic)")
     pairs = sum(n * (n + 1) // 2 for n in lengths)
     tokens = sum(lengths)
     # q read at valid positions, K+V of the valid tokens, the whole output
@@ -529,15 +608,15 @@ def flash_main_shape(dev, gen, cfg) -> dict:
     nbytes = (tokens * Hq * D * 2 + tokens * Hkv * D * 2 * 2
               + len(lengths) * T * Hq * D * 2 + len(lengths) * 4)
     result = time_kernel(
-        "flash_self_attention",
+        f"flash_self_attention [{cfg.name}]",
         lambda: fa.flash_self_attention(q, k, v, lens),
         lambda: fa.flash_self_attention_plain(q, k, v, lens),
         {"SDPA masked": lambda: sdpa(qq, kk, vv, attn_mask=mask), causal_label: causal},
         nbytes, 4 * Hq * D * pairs, err)
-    geo, ms = flash_geometry(T, Hq, Hkv, lengths), result["ms"]
-    log(f"kernel flash_self_attention main shapes: blocks {geo}; "
+    geo, ms = flash_geometry(T, Hq, Hkv, lengths, D=D), result["ms"]
+    log(f"kernel flash_self_attention [{cfg.name}] main shapes: blocks {geo}; "
         f"{geo['tc_flops'] / 1e9:.2f} GFLOP of tensor-core work over {geo['wg_tiles']} "
-        f"(64-row, 64-key) tiles, {geo['tc_flops'] / ms / 1e9:.1f} TFLOP/s; "
+        f"(64-row, {geo['bk']}-key) tiles, {geo['tc_flops'] / ms / 1e9:.1f} TFLOP/s; "
         f"{4 * Hq * D * pairs / ms / 1e9:.2f} TFLOP/s of the counted work")
     return result
 
@@ -567,10 +646,14 @@ def engine_config_from_options(opts: dict) -> EngineConfig:
         not in ("0", "false", "no", "off"))
 
 
-def serve(engine, requests, n_threads=3, timeout=600.0):
+def serve(engine, requests, n_threads=3, timeout=600.0, at_once=False):
     """Submit (prompt, SamplingParams) from ``n_threads`` threads; wait for
     every terminal event. Returns per request (tokens, reasons, submit_t,
-    first_t)."""
+    first_t). ``at_once``: one thread submits every request while the
+    engine's scheduler thread is stopped (a running one would admit them as
+    they arrive; ``submit`` restarts it, and that start is held back until
+    the last submit), so the first admission sees them all and two engines
+    run the same rounds."""
     recs = [{"toks": [], "fins": [], "t0": None, "t1": None} for _ in requests]
     lock, done, left = threading.Lock(), threading.Event(), [len(requests)]
 
@@ -593,8 +676,17 @@ def serve(engine, requests, n_threads=3, timeout=600.0):
             recs[i]["t0"] = time.perf_counter()
             engine.submit(requests[i][0], requests[i][1], emit_for(i))
 
-    threads = [threading.Thread(target=submitter, args=(range(t, len(requests), n_threads),))
-               for t in range(n_threads)]
+    if at_once:
+        engine.shutdown()  # the scheduler thread an earlier request started
+        engine.start = lambda: None  # shadows the method until every request is in
+        try:
+            submitter(range(len(requests)))
+        finally:
+            del engine.start
+        engine.start()
+    threads = [] if at_once else [
+        threading.Thread(target=submitter, args=(range(t, len(requests), n_threads),))
+        for t in range(n_threads)]
     for t in threads:
         t.start()
     for t in threads:
@@ -641,13 +733,18 @@ QUICKSTART = {"model_config": "llama-3-8b", "max_seq_len": 2048, "max_batch": 8,
               "prefill_budget_tokens": 512, "mixed_batch": True}
 
 
-def build_engine(label: str, opts: dict, params=None):
+def build_engine(label: str, opts: dict, params=None, eager_decode: bool = False):
+    """An engine on the card from worker-shaped ``opts``; ``eager_decode``
+    sets the engine's private switch (decode chunks enqueued launch by
+    launch, no CUDA graph) for a comparison run."""
     ecfg = engine_config_from_options(opts)
     t = time.perf_counter()
-    engine = ContinuousBatchingEngine(ecfg, params=params, seed=0)  # on the card
-    log(f"serving engine [{label}] built: llama-3-8b full width, "
-        f"{engine.stats()['mode']}, {engine.stats()['pages_total']} pages, "
-        f"use_flash={engine.use_flash}, {time.perf_counter() - t:.1f} s")
+    engine = ContinuousBatchingEngine(ecfg, params=params, seed=0,  # on the card
+                                      _eager_decode=eager_decode)
+    log(f"serving engine [{label}] built: {ecfg.model}, {engine.stats()['mode']}, "
+        f"{engine.stats()['pages_total']} pages, use_flash={engine.use_flash}, decode "
+        f"graphs={engine.stats()['pipeline']['decode_graphs']}, "
+        f"{time.perf_counter() - t:.1f} s (graph capture included)")
     return engine, ecfg
 
 
@@ -676,9 +773,10 @@ def check_pool(label: str, stats: dict) -> None:
         raise AssertionError(f"[{label}] pages not conserved: {stats}")
 
 
-def oracle(label: str, engine, recs, requests) -> None:
+def oracle(label: str, engine, recs, requests, min_caught=MIN_RUNNER_UP_CAUGHT) -> None:
     """Every greedy token within LOGIT_MARGIN of the dense forward's max
-    logit (teacher-forced), and the margin able to see a wrong token."""
+    logit (teacher-forced), and the margin able to see a wrong token at
+    ``min_caught`` of the greedy rows (None: printed, not required)."""
     cfg = engine.model_config
     with torch.inference_mode():
         worst, runner_up = 0.0, []
@@ -699,8 +797,8 @@ def oracle(label: str, engine, recs, requests) -> None:
     log(f"serving [{label}] oracle power: dense top-1/top-2 gap over {ru.numel()} greedy "
         f"rows min={float(ru.min()):.4f} p10={q[0]:.4f} p50={q[1]:.4f} p90={q[2]:.4f}; "
         f"the runner-up token would fail the margin at {caught:.3f} of rows "
-        f"(least allowed {MIN_RUNNER_UP_CAUGHT})")
-    if caught < MIN_RUNNER_UP_CAUGHT:
+        f"(least allowed {min_caught})")
+    if min_caught is not None and caught < min_caught:
         raise AssertionError(f"[{label}] the margin {LOGIT_MARGIN} admits the runner-up "
                              f"token at {1 - caught:.3f} of rows: the oracle cannot see "
                              "a wrong token")
@@ -744,20 +842,23 @@ def watch_syncs():
 
 
 def serving_phase(card: str, label: str, engine, ecfg, requests,
-                  launched: tuple, never: tuple = (), sync_free: bool = False
-                  ) -> tuple[dict[str, int], dict]:
+                  launched: tuple, never: tuple = (), sync_free: bool = False,
+                  at_once: bool = False, min_caught=MIN_RUNNER_UP_CAUGHT,
+                  check_oracle: bool = True) -> tuple[dict[str, int], dict, list]:
     """Serve ``requests`` with every kernel count set to 0 just before and
     read just after; the kernels in ``launched`` must have run and those in
     ``never`` must not. Checks streams, pages and the dense oracle; prints
     ttft, tokens/s and the pipeline split. ``sync_free``: no synchronising
-    CUDA call may be flagged while it serves. Returns this run's launch
-    counts and the engine's stats."""
+    CUDA call may be flagged while it serves. A paged engine's decode chunks
+    must have run as it was built to (graph replays, or eager with its
+    private switch). Returns this run's launch counts, the engine's stats
+    and the streams."""
     try:
         for _, _, wrapper in KERNELS.values():
             wrapper.launches = 0
         t0 = time.perf_counter()
         with watch_syncs() if sync_free else contextlib.nullcontext() as flagged:
-            recs = serve(engine, requests)
+            recs = serve(engine, requests, at_once=at_once)
         wall = time.perf_counter() - t0
     finally:
         engine.shutdown()
@@ -769,8 +870,19 @@ def serving_phase(card: str, label: str, engine, ecfg, requests,
         raise AssertionError(f"[{label}] launches {launches}: expected {launched} "
                              f"to run and {never} never")
     check_pool(label, stats)
+    pipe = stats["pipeline"]
+    if stats["mode"] != "dense":
+        graphs = pipe["decode_graphs"]
+        ran = pipe["decode_graph_replays"] if graphs else pipe["decode_eager_chunks"]
+        other = pipe["decode_eager_chunks"] if graphs else pipe["decode_graph_replays"]
+        if ran <= 0 or other:
+            raise AssertionError(f"[{label}] decode chunks: graphs={graphs}, replays "
+                                 f"{pipe['decode_graph_replays']}, eager "
+                                 f"{pipe['decode_eager_chunks']}")
     log(f"serving [{label}]: {len(requests)} requests done, reasons "
-        f"{[r['fins'][-1] for r in recs]}, rounds {stats['rounds']}, prefill chunks "
+        f"{[r['fins'][-1] for r in recs]}, rounds {stats['rounds']}, decode chunks: "
+        f"{pipe['decode_graph_replays']} graph replays, {pipe['decode_eager_chunks']} "
+        f"eager; prefill chunks "
         f"{stats['prefill_chunks']}, prefill dispatches {stats['prefill_dispatches']} "
         f"(coalesced {stats['coalesced_prefills']}), launches {launches}, pages "
         f"conserved ({stats['pages_free']} free + {stats['cached_pages']} cached of "
@@ -783,13 +895,14 @@ def serving_phase(card: str, label: str, engine, ecfg, requests,
         if flagged:
             raise AssertionError(f"[{label}] a round waited on the device outside its "
                                  f"drain: {sorted(set(flagged))}")
-    oracle(label, engine, recs, requests)
+    if check_oracle:
+        oracle(label, engine, recs, requests, min_caught)
     pipeline_line(card, label, stats)
     ttft = sorted((r["t1"] - r["t0"]) * 1e3 for r in recs)
     n_tok = sum(len(r["toks"]) for r in recs)
     log(f"info [{card}] serving [{label}]: ttft_ms p50={ttft[len(ttft) // 2]:.1f} "
         f"max={ttft[-1]:.1f}; {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s")
-    return launches, stats
+    return launches, stats, recs
 
 
 HEAD, HEAD_SUFFIXES = 1024, [200, 16, 64, 128, 200, 256, 333, 400]
@@ -870,18 +983,117 @@ def prefix_phase(card: str, label: str, engine, ecfg, mixed: bool) -> dict[str, 
     return launches
 
 
+def repair_a_cost(card: str, engine) -> None:
+    """Device time (CUDA-graph replay) at llama-3-8b of one decode step (8
+    rows: forward_paged_decode and the head) and of one mixed round's forward
+    (8 rows x 512 positions, a 512-token chunk beside six decode rows, and
+    the head on each row's last), with the f32 products the reference keeps
+    (this tree's ``_mm_f32``) and with the rounding before them (each product
+    in bf16, widened after; llama-3-8b has no q/k/v bias), in turns."""
+    params, cfg, pools = engine.params, engine.model_config, (engine.pool.k_pool,
+                                                              engine.pool.v_pool)
+    dev, rope = params.device, engine.rope_tables
+    B, Qmax, Pmax = 8, 512, engine.pmax
+    pt = make_table(B, Pmax, engine.pool.k_pool.shape[1], 9, dev)
+    rng = np.random.default_rng(9)
+    ids1 = torch.from_numpy(rng.integers(3, cfg.vocab_size, (B, 1)).astype(np.int32)).to(dev)
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, (B, Qmax)).astype(np.int32)).to(dev)
+    lens = i32([127, 383, 639, 895, 1151, 1407, 1663, 2046], dev)
+    hist, q_lens = i32([1024, 383, 639, 895, 0, 1407, 1663, 2046], dev), \
+        i32([512, 1, 1, 1, 0, 1, 1, 1], dev)
+
+    def decode():
+        h, _ = llama.forward_paged_decode(params, cfg, ids1, pools, pt, lens, rope)
+        llama.lm_head_logits(params, cfg, h[:, 0])
+
+    def mixed():
+        h, _ = llama.forward_paged_mixed(params, cfg, ids, pools, pt, hist, q_lens, rope)
+        llama.lm_head_logits(params, cfg, llama.gather_last_hidden(h, q_lens))
+
+    f32_points = llama._mm_f32
+    variants = {"f32 points": f32_points,
+                "bf16 products widened after": lambda x, w: (x @ w).float()}
+    times = {label: [] for label in variants}
+    try:
+        with torch.inference_mode():
+            for label in list(variants) + list(variants)[::-1]:
+                llama._mm_f32 = variants[label]
+                times[label].append((graph_ms(decode, iters=10, reps=5),
+                                     graph_ms(mixed, iters=2, reps=3)))
+    finally:
+        llama._mm_f32 = f32_points
+    for label, ts in times.items():
+        log(f"info [{card}] repair A cost [{label}]: decode step "
+            + ", ".join(f"{d:.4f}" for d, _ in ts) + " ms; mixed round forward "
+            + ", ".join(f"{m:.3f}" for _, m in ts) + " ms (device time, in turns)")
+
+
+def compare_streams(label: str, a: list, b: list) -> None:
+    """Two runs' streams, token for token and reason for reason."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x["toks"] != y["toks"] or x["fins"] != y["fins"]:
+            raise AssertionError(f"[{label}] request {i}: {x['toks']} {x['fins'][-1]} against "
+                                 f"{y['toks']} {y['fins'][-1]}")
+
+
+def graphs_against_eager(card: str, params, requests, depth: int) -> None:
+    """The storm at ``depth`` on two engines over the same weights, one
+    replaying its decode chunks as CUDA graphs, one with the private eager
+    switch, every request pending before the first admission (the same
+    rounds on both): greedy and seeded streams must be equal; the graph run
+    must make no synchronising call beside its drains."""
+    opts = dict(QUICKSTART, decode_lookahead=depth)
+    runs = {}
+    for eager in (False, True):
+        label = f"mixed, depth {depth}, {'eager' if eager else 'graphs'}, at once"
+        engine, ecfg = build_engine(label, opts, params, eager_decode=eager)
+        serve(engine, [(requests[3][0], SamplingParams(max_tokens=12))], 1)
+        _, _, runs[eager] = serving_phase(
+            card, label, engine, ecfg, requests,
+            launched=("ragged_paged_attention", "paged_decode_attention"),
+            never=("flash_self_attention",), sync_free=not eager, at_once=True,
+            check_oracle=not eager)
+        del engine
+        torch.cuda.empty_cache()
+    compare_streams(f"depth {depth}, graphs against eager", runs[False], runs[True])
+    log(f"serving [depth {depth}]: graph-replayed and eager decode chunks give the same "
+        f"{len(requests)} streams (greedy and seeded), token for token")
+
+
+TINY_QUICKSTART = {"model_config": "tiny-llama", "max_seq_len": 2048, "max_batch": 8}
+
+
+def tiny_quickstart_run(card: str) -> None:
+    """The quickstart's default-chat model, tiny-llama (D 16, G 2), with the
+    quickstart's engine options as the worker maps them (mixed, ring depth
+    2, decode graphs): 8 requests of 16..1500 tokens from 3 threads, one
+    sampled with a seed."""
+    engine, ecfg = build_engine("tiny-llama quickstart", TINY_QUICKSTART)
+    rng = np.random.default_rng(3)
+    vocab = engine.model_config.vocab_size
+    requests = [(rng.integers(3, vocab, n).tolist(), SamplingParams(max_tokens=32))
+                for n in (16, 96, 250, 511, 700, 1000, 1300, 1500)]
+    requests[5] = (requests[5][0], SamplingParams(max_tokens=32, temperature=0.8, seed=42))
+    serving_phase(card, "tiny-llama quickstart", engine, ecfg, requests,
+                  launched=("ragged_paged_attention", "paged_decode_attention"),
+                  never=("flash_self_attention",), min_caught=None)
+    del engine
+    torch.cuda.empty_cache()
+
+
 def serving_phases(card: str) -> dict[str, int]:
     """The serving runs on one set of weights. Returns the kernels'
     main-path launch counts: the paged kernels from the mixed run, flash
     from the phase-separated run."""
     engine, ecfg = build_engine("mixed", QUICKSTART)
     requests = storm_requests(engine, ecfg)
-    mixed, stats = serving_phase(card, "mixed", engine, ecfg, requests,
-                                 launched=("ragged_paged_attention", "paged_decode_attention"),
-                                 never=("flash_self_attention",), sync_free=True)
+    mixed, stats, _ = serving_phase(card, "mixed", engine, ecfg, requests,
+                                    launched=("ragged_paged_attention", "paged_decode_attention"),
+                                    never=("flash_self_attention",), sync_free=True)
     if stats["pipeline"]["lookahead_rounds"] <= 0:
         raise AssertionError(f"[mixed] the lookahead ring was never used: {stats['pipeline']}")
     params = engine.params
+    repair_a_cost(card, engine)
     del engine
     torch.cuda.empty_cache()
 
@@ -895,15 +1107,18 @@ def serving_phases(card: str) -> dict[str, int]:
     del engine
     torch.cuda.empty_cache()
 
+    for depth in (2, 0):
+        graphs_against_eager(card, params, requests, depth)
+
     # an unbounded round budget lets the storm's same-bucket prompts (700 and
     # 1000 at 1024, 1300 and 1500 at 2048) meet in one admission pass and
     # coalesce; at 512 the budget admits each long prompt alone
     phase_opts = dict(QUICKSTART, mixed_batch=False, prefill_coalesce=4,
                       prefill_budget_tokens=0)
     engine, ecfg = build_engine("phase-separated", phase_opts, params)
-    phase, _ = serving_phase(card, "phase-separated", engine, ecfg, requests,
-                             launched=("flash_self_attention", "paged_decode_attention"),
-                             never=("ragged_paged_attention",))
+    phase, _, _ = serving_phase(card, "phase-separated", engine, ecfg, requests,
+                                launched=("flash_self_attention", "paged_decode_attention"),
+                                never=("ragged_paged_attention",))
     del engine
     torch.cuda.empty_cache()
 
@@ -921,15 +1136,45 @@ def serving_phases(card: str) -> dict[str, int]:
         prefix_phase(card, label, engine, ecfg, is_mixed)
         del engine
         torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    tiny_quickstart_run(card)
     return {"ragged_paged_attention": mixed["ragged_paged_attention"],
             "paged_decode_attention": mixed["paged_decode_attention"],
             "flash_self_attention": phase["flash_self_attention"]}
+
+
+def profile_ring(card: str) -> None:
+    """``--profile-ring``: the mixed storm at depth 2 under torch.profiler
+    (CPU and CUDA activity): the host's CUDA runtime calls by total time (a
+    call that waits for the card shows here), then the round timeline. A
+    diagnosis, not a gate; prints no result line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine, ecfg = build_engine("mixed, profiled", QUICKSTART)
+    requests = storm_requests(engine, ecfg)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            serve(engine, requests)
+    finally:
+        engine.shutdown()
+    rows = sorted((e for e in prof.key_averages() if e.key.startswith("cuda")),
+                  key=lambda e: -e.cpu_time_total)[:15]
+    for e in rows:
+        log(f"info [{card}] profile-ring host call {e.key}: count {e.count}, total "
+            f"{e.cpu_time_total / 1e3:.2f} ms, max {e.cpu_time_total / max(1, e.count) / 1e3:.3f} "
+            "ms mean")
+    pipeline_line(card, "mixed, profiled", engine.stats())
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--profile-ring"]:
+        with torch.inference_mode():
+            profile_ring(torch.cuda.get_device_name(0))
+        return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
@@ -949,12 +1194,25 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     with torch.inference_mode():
-        kernel_small_shapes(dev, gen)
-        kernel_split_cases(dev, gen)
+        for D in pa.HEAD_DIMS:
+            kernel_small_shapes(dev, gen, D)
+            kernel_split_cases(dev, gen, D)
         flash_small_shapes(dev, gen)
+        flash_groups_and_dims(dev, gen)
+        kernel_f32(dev, gen)
         cfg = get_config("llama-3-8b")
         kern = kernel_main_shapes(dev, gen, cfg, page=64, Pmax=32, n_pages=321)
         kern["flash_self_attention"] = flash_main_shape(dev, gen, cfg)
+        # the main-path shapes at the registry's other head dims (timings only)
+        by_dim = {}
+        for other in ("tiny-llama", "phi-3-mini", "gemma-7b"):
+            ocfg = get_config(other)
+            res = kernel_main_shapes(dev, gen, ocfg, page=64, Pmax=32, n_pages=321)
+            res["flash_self_attention"] = flash_main_shape(dev, gen, ocfg)
+            heads = f"D {ocfg.head_dim}, Hq {ocfg.num_heads}, Hkv {ocfg.num_kv_heads}"
+            by_dim[f"{other} ({heads})"] = res
+            torch.cuda.empty_cache()
+    log("info kernels at the other head dims, main-path shapes: " + json.dumps(by_dim))
     torch.cuda.empty_cache()
 
     launches = serving_phases(card)

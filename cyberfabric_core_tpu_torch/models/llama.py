@@ -10,9 +10,12 @@ Paged forwards update the KV pools IN PLACE (``index_put_`` into the pool
 tensors) where the JAX package donates the pools to XLA; they return the same
 pool tensors for signature parity.
 
-Matrix products run in the activation dtype (bf16 on the card: the GEMM
-accumulates in f32 and rounds once), where the JAX package asks XLA for an
-f32 result and casts. In f32 (the CPU tests) the two agree to rounding.
+Matrix products follow the JAX package's ``preferred_element_type=f32``
+einsums. Where JAX casts the f32 product straight to the activation dtype
+(``wo``, ``down``), a product in the activation dtype computes the same (the
+GEMM accumulates in f32 and rounds once). Where JAX works on the f32 product
+first (the logits; ``act(gate) * up``; the qwen2 q/k/v bias), the port asks for
+an f32 result too (:func:`_mm_f32`) and rounds where JAX rounds.
 
 MoE configs and quantized leaves are not in this slice: they raise
 ``NotImplementedError``.
@@ -145,14 +148,35 @@ def embed_lookup(embed: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return embed[ids.long()]
 
 
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]`` as an f32 result that nothing has rounded:
+    JAX's einsum with ``preferred_element_type=f32``. On CUDA, bf16 operands
+    go to one GEMM that accumulates in f32 and writes f32
+    (``aten::mm.dtype``), so no f32 copy of the weight is made. That operator
+    has no CPU kernel: on the CPU the operands are widened first (a product
+    of two bf16 values is exact in f32), a transient copy at the CPU's test
+    sizes."""
+    if x.dtype == torch.float32:
+        return x @ w
+    flat = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cuda":
+        out = torch.mm(flat, w, out_dtype=torch.float32)
+    else:
+        out = flat.float() @ w.float()
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def _qkv_proj(lp: LlamaLayer, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, cos_t: torch.Tensor, sin_t: torch.Tensor):
-    """Shared q/k/v projection + reshape + rope for one layer (any T)."""
+    """Shared q/k/v projection + reshape + rope for one layer (any T). The
+    qwen2 bias is added to the f32 product and rounded once with it."""
     B, T = x.shape[0], x.shape[1]
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = x @ lp.wq, x @ lp.wk, x @ lp.wv
     if cfg.attention_bias:
-        q, k, v = q + lp.bq, k + lp.bk, v + lp.bv
+        q, k, v = ((_mm_f32(x, w) + b).to(x.dtype)
+                   for w, b in ((lp.wq, lp.bq), (lp.wk, lp.bk), (lp.wv, lp.bv)))
+    else:
+        q, k, v = x @ lp.wq, x @ lp.wk, x @ lp.wv
     q = apply_rope(q.reshape(B, T, Hq, D), positions, cos_t, sin_t)
     k = apply_rope(k.reshape(B, T, Hkv, D), positions, cos_t, sin_t)
     return q, k, v.reshape(B, T, Hkv, D)
@@ -163,9 +187,10 @@ def _attn_out(lp: LlamaLayer, h: torch.Tensor, attn_flat: torch.Tensor) -> torch
 
 
 def _mlp_residual(lp: LlamaLayer, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Post-attention norm + dense gated MLP + residual."""
+    """Post-attention norm + dense gated MLP + residual; gate and up stay
+    f32 until ``act(gate) * up`` is rounded."""
     x = rms_norm(h, lp.mlp_norm, cfg.rms_norm_eps, cfg.norm_weight_offset)
-    act = (_act((x @ lp.gate).float(), cfg) * (x @ lp.up).float()).to(h.dtype)
+    act = (_act(_mm_f32(x, lp.gate), cfg) * _mm_f32(x, lp.up)).to(h.dtype)
     return h + (act @ lp.down).to(h.dtype)
 
 
@@ -351,7 +376,7 @@ def lm_head_logits(params: LlamaModel, cfg: ModelConfig,
     """hidden [B, H] (or [B, T, H]) → logits in f32 (tied or untied head,
     gemma-2 softcap)."""
     head = params.embed.t() if cfg.tie_embeddings else params.lm_head
-    return _softcap((hidden @ head).float(), cfg)
+    return _softcap(_mm_f32(hidden, head), cfg)
 
 
 def gather_last_hidden(hidden: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

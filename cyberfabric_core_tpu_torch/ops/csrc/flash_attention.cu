@@ -2,6 +2,8 @@
 //
 // Replaces the Pallas TPU kernel of cyberfabric_core_tpu/ops/flash_attention.py:
 //   flash_self_attention (:125, body _flash_kernel :45) -> flash_self_attention_bf16
+//   (and, for f32 inputs, flash_self_attention_f32: the CUDA-core kernel of
+//   attention_f32.cuh, one block per (position, query head))
 //
 // What bounds it: operations. A prompt of length n costs ~4*Hq*D*n(n+1)/2
 // flops (Q.K and P.V over the causal triangle) against ~n*(Hq+2*Hkv)*D*2 bytes
@@ -11,34 +13,40 @@
 //
 // What the design does about it:
 //   * One block per (batch row, kv head, tile of 128 query rows). The rows
-//     are (position, head) pairs: 128/G positions times the G query heads of
-//     the kv head, so each K/V tile is read from device memory once per GQA
-//     group rather than once per query head. Two consumer warpgroups own 64
-//     rows each; one thread of a third, producer warpgroup does all the
-//     loading (warp specialisation: the consumers spend no instruction on
-//     addresses or copies, and setmaxnreg hands the producer's registers to
-//     them).
-//   * Loads by TMA (cp.async.bulk.tensor) into the 128-byte swizzle that
-//     wgmma's descriptors read. The tensor maps are 4-D over (D, heads, T, B),
+//     are (position, head) pairs: P = floor(128/G) positions times the G
+//     query heads of the kv head (R = P*G rows; at G = 3, 5, 6, 7 the last
+//     rows of the tile are unused: never loaded, never written), so each K/V
+//     tile is read from device memory once per GQA group rather than once
+//     per query head. Two consumer warpgroups own 64 rows each; one thread
+//     of a third, producer warpgroup does all the loading (warp
+//     specialisation: the consumers spend no instruction on addresses or
+//     copies, and setmaxnreg hands the producer's registers to them).
+//   * Loads by TMA (cp.async.bulk.tensor) into the swizzle that wgmma's
+//     descriptors read. The tensor maps are 4-D over (D, heads, T, B),
 //     encoded on the host per call and passed as __grid_constant__
-//     parameters. A box is 64 dims wide (the swizzle's 128 bytes), so a
-//     128-dim row takes two boxes. Keys or positions at or past T arrive as
-//     zeros, and no box reaches into the next batch row. The block's Q rows
-//     are one box per half (positions x the G heads, adjacent in
-//     [B, T, Hq, D]); a K or V tile is [64 keys, 64 dims] per half.
+//     parameters. A box is one swizzle row wide: the widest swizzle (128, 64
+//     or 32 bytes) that D's row divides into, so D 64, 128 and 256 take one,
+//     two and four 64-dim boxes in the 128-byte swizzle, D 96 three 32-dim
+//     boxes in the 64-byte swizzle, D 16 one 16-dim box in the 32-byte
+//     swizzle. Keys or positions at or past T arrive as zeros, and no box
+//     reaches into the next batch row. The block's Q rows are one box per
+//     column block (positions x the G heads, adjacent in [B, T, Hq, D]); a
+//     K or V tile is [kBK keys, box dims] per column block.
 //   * The producer keeps a ring of kStages K/V stages full. K and V each
 //     complete on an mbarrier of their own, so Q.K starts before V has
 //     landed; each consumer warp frees a stage on a third after its last
 //     product that reads it.
-//   * S = Q K^T is wgmma m64n64k16 with Q and K from shared memory (both
-//     K-major). O += P V is wgmma m64n128k16, with P from registers (the S
+//   * S = Q K^T is wgmma m64n{kBK}k16 with Q and K from shared memory (both
+//     K-major). O += P V is wgmma m64n{D}k16, with P from registers (the S
 //     accumulator layout is the A fragment's) and V from shared memory read
 //     MN-major. Softmax and the masks run on the CUDA cores, on the S
-//     accumulator in registers; O (64 rows x 128) and the TPU's m/l scratch
-//     are registers too. Within a warpgroup the tiles are pipelined: Q.K of
-//     tile t is issued with P.V of tile t-1, and its softmax runs while that
-//     P.V finishes.
-//   * The TPU's sequential kv-block grid axis becomes a loop over 64-key tiles
+//     accumulator in registers; O (64 rows x D) and the TPU's m/l scratch
+//     are registers too. A key tile is 64 keys up to D 128; at D 256, where
+//     O alone takes 128 registers a thread, it is 32 keys, so S, the next
+//     tile's S and P's fragments fit beside O under setmaxnreg 240. Within
+//     a warpgroup the tiles are pipelined: Q.K of tile t is issued with P.V
+//     of tile t-1, and its softmax runs while that P.V finishes.
+//   * The TPU's sequential kv-block grid axis becomes a loop over key tiles
 //     inside the block, from the window's first visible key to the block's
 //     last visible key (min of its last position and len-1); tiles wholly in
 //     the future, past the length or before the window are never loaded. A
@@ -69,6 +77,7 @@
 
 #include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled
 
+#include "attention_f32.cuh"
 #include "sm90_common.cuh"
 
 #ifndef FLASH_P_TERMS
@@ -78,8 +87,6 @@ static_assert(FLASH_P_TERMS == 1 || FLASH_P_TERMS == 3, "P is one or three bf16 
 
 namespace {
 
-constexpr int kD = 128;                          // head dim
-constexpr int kHalfD = 64;                       // dims per 128-byte swizzled box
 constexpr int kWgRows = 64;                      // rows per consumer warpgroup (wgmma M)
 constexpr int kConsumers = 2;                    // consumer warpgroups
 constexpr int kRows = kWgRows * kConsumers;      // (position, head) rows per block
@@ -89,16 +96,31 @@ constexpr int kThreads = kConsumerThreads + 128;  // + the producer warpgroup
 // (384 threads, one block an SM), and 2 x 128 x 240 + 128 x 24 is the same sum
 constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
-constexpr int kBK = 64;                          // keys per tile
 constexpr int kStages = 3;                       // K/V ring depth
-constexpr uint32_t kRowBytes = kHalfD * 2;       // one swizzled row: 128 bytes
-constexpr uint32_t kQHalfBytes = kRows * kRowBytes;
-constexpr uint32_t kQBytes = 2 * kQHalfBytes;
-constexpr uint32_t kTileHalfBytes = kBK * kRowBytes;
-constexpr uint32_t kTileBytes = 2 * kTileHalfBytes;  // one K or V tile
-constexpr uint32_t kAtomBytes = 8 * kRowBytes;       // 8 swizzled rows
-constexpr int kSmemBytes = 1024 /* alignment */ + kQBytes + 2 * kStages * kTileBytes +
-                           8 * (1 + 3 * kStages) /* mbarriers */;
+constexpr int kMaxG = 8;                         // query heads per kv head
+
+// The shapes that follow from the head dim D.
+template <int kD>
+struct Shape {
+  static_assert(kD % 16 == 0 && kD >= 16 && kD <= 256, "D is a multiple of 16, at most 256");
+  static constexpr int kBK = kD > 128 ? 32 : 64;  // keys per tile
+  // one swizzled row: the widest swizzle span D's row divides into
+  static constexpr uint32_t kRowBytes = (kD * 2) % 128 == 0 ? 128 : (kD * 2) % 64 == 0 ? 64 : 32;
+  static constexpr int kBoxD = kRowBytes / 2;     // dims per box
+  static constexpr int kBoxes = kD / kBoxD;       // column blocks of a row
+  static constexpr int kStepsPerBox = kRowBytes / 32;  // 16-dim k steps in a row
+  static constexpr uint32_t kLayout = sm90::swizzle_layout(kRowBytes);
+  static constexpr uint32_t kAtomBytes = 8 * kRowBytes;  // 8 swizzled rows
+  static constexpr uint32_t kQBoxBytes = kRows * kRowBytes;
+  static constexpr uint32_t kQBytes = kBoxes * kQBoxBytes;
+  static constexpr uint32_t kTileBoxBytes = kBK * kRowBytes;
+  static constexpr uint32_t kTileBytes = kBoxes * kTileBoxBytes;  // one K or V tile
+  static constexpr int kSmemBytes = 1024 /* alignment */ + kQBytes + 2 * kStages * kTileBytes +
+                                    8 * (1 + 3 * kStages) /* mbarriers */;
+  static_assert(kTileBoxBytes % 1024 == 0 && kQBoxBytes % 1024 == 0,
+                "every box starts on a 1024-byte boundary");
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
+};
 constexpr float kNegInf = -1e30f;
 
 using sm90::mbar_arrive;
@@ -107,7 +129,7 @@ using sm90::mbar_wait;
 using sm90::pack_bf16;
 using sm90::reg_fence;
 using sm90::wgmma_commit;
-using sm90::wgmma_desc_sw128;
+using sm90::wgmma_desc;
 using sm90::wgmma_fence;
 using sm90::wgmma_wait;
 
@@ -135,7 +157,8 @@ __device__ __forceinline__ uint32_t pack_top(float lo, float hi) {
 // P's bf16 terms for keys 16j..16j+15 as A fragments, in the order they are
 // multiplied (lo, mid, hi): the S accumulator's n-tiles 2j and 2j+1 are the
 // A fragment's k halves.
-__device__ __forceinline__ void split_p(const float (&p)[32], int j,
+template <int kN>
+__device__ __forceinline__ void split_p(const float (&p)[kN], int j,
                                         uint32_t (&a)[FLASH_P_TERMS][4]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {    // n-tile 2j + h: keys 16j + 8h ..
@@ -157,38 +180,44 @@ __device__ __forceinline__ void split_p(const float (&p)[32], int j,
   }
 }
 
-// S = Q K^T for one 64-key tile, issued (not waited for): 8 steps of 16
+// S = Q K^T for one key tile, issued (not waited for): D/16 steps of 16
 // dims chained in the tensor cores. Q and K are K-major: a 16-dim step is 32
-// bytes along a swizzled row, and dims 64.. are the second box.
-__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t q_tile, uint32_t k_tile) {
-  const uint64_t q_desc = wgmma_desc_sw128(q_tile, 16, kAtomBytes);
-  const uint64_t k_desc = wgmma_desc_sw128(k_tile, 16, kAtomBytes);
+// bytes along a swizzled row, and the next column block starts a box on.
+template <int kD>
+__device__ __forceinline__ void issue_qk(float (&s)[Shape<kD>::kBK / 2], uint32_t q_tile,
+                                         uint32_t k_tile) {
+  using S = Shape<kD>;
+  const uint64_t q_desc = wgmma_desc(q_tile, 16, S::kAtomBytes, S::kLayout);
+  const uint64_t k_desc = wgmma_desc(k_tile, 16, S::kAtomBytes, S::kLayout);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
-    const uint32_t off = ((kk >> 2) * kTileHalfBytes + (kk & 3) * 32) >> 4;  // 16-byte units
-    const uint32_t q_off = ((kk >> 2) * kQHalfBytes + (kk & 3) * 32) >> 4;
-    sm90::wgmma_m64n64k16_ss(s, q_desc + q_off, k_desc + off, kk);
+    const int box = kk / S::kStepsPerBox, step = kk % S::kStepsPerBox;
+    const uint32_t off = (box * S::kTileBoxBytes + step * 32) >> 4;  // 16-byte units
+    const uint32_t q_off = (box * S::kQBoxBytes + step * 32) >> 4;
+    sm90::WgmmaSsK<S::kBK>::run(s, q_desc + q_off, k_desc + off, kk);
   }
   wgmma_commit();
 }
 
-// O += P V for one 64-key tile, issued (not waited for): P's terms for keys
-// 16j.. (lo, mid, hi) chained into O. V is MN-major: keys 16j.. start 16 rows
-// in, and dims 64.. are the second box, kTileHalfBytes on (the lbo). The
-// fragments must stay untouched until the product has completed.
-__device__ __forceinline__ void issue_pv(float (&o)[64], const float (&p)[32],
-                                         uint32_t (&a)[kBK / 16][FLASH_P_TERMS][4],
+// O += P V for one key tile, issued (not waited for): P's terms for keys
+// 16j.. (lo, mid, hi) chained into O. V is MN-major: keys 16j.. start 16
+// rows in, and the next column block is a box on (the lbo). The fragments
+// must stay untouched until the product has completed.
+template <int kD>
+__device__ __forceinline__ void issue_pv(float (&o)[kD / 2], const float (&p)[Shape<kD>::kBK / 2],
+                                         uint32_t (&a)[Shape<kD>::kBK / 16][FLASH_P_TERMS][4],
                                          uint32_t v_tile) {
+  using S = Shape<kD>;
 #pragma unroll
-  for (int j = 0; j < kBK / 16; ++j) split_p(p, j, a[j]);
-  const uint64_t v_desc = wgmma_desc_sw128(v_tile, kTileHalfBytes, kAtomBytes);
+  for (int j = 0; j < S::kBK / 16; ++j) split_p(p, j, a[j]);
+  const uint64_t v_desc = wgmma_desc(v_tile, S::kTileBoxBytes, S::kAtomBytes, S::kLayout);
   wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < kBK / 16; ++j)
+  for (int j = 0; j < S::kBK / 16; ++j)
 #pragma unroll
     for (int u = 0; u < FLASH_P_TERMS; ++u)
-      sm90::wgmma_m64n128k16_rs_mn(o, a[j][u], v_desc + ((j * 16 * kRowBytes) >> 4), 1);
+      sm90::WgmmaRsMn<kD>::run(o, a[j][u], v_desc + ((j * 16 * S::kRowBytes) >> 4), 1);
   wgmma_commit();
 }
 
@@ -196,9 +225,9 @@ __device__ __forceinline__ void issue_pv(float (&o)[64], const float (&p)[32],
 // becomes p, m and l move on, and corr is what O must be scaled by before
 // this tile's P V is added. Row i of this thread sees keys kt0 + c with
 // lo_key[i] < c - 2 * tig <= hi_key[i]; kMask false: the caller knows that
-// every row of the warpgroup sees every key of the tile.
-template <bool kMask>
-__device__ __forceinline__ void softmax(float (&s)[32], float (&m)[2], float (&l)[2],
+// every row of the warpgroup sees every key of the tile. kN = kBK / 2.
+template <bool kMask, int kN>
+__device__ __forceinline__ void softmax(float (&s)[kN], float (&m)[2], float (&l)[2],
                                         float (&corr)[2], const int (&qpos)[2], int kt0,
                                         int len, int window, float scale, int tig) {
   int hi_key[2], lo_key[2];
@@ -207,10 +236,10 @@ __device__ __forceinline__ void softmax(float (&s)[32], float (&m)[2], float (&l
     hi_key[i] = min(qpos[i], len - 1) - kt0 - tig * 2;
     lo_key[i] = (window > 0 ? qpos[i] - window : -1) - kt0 - tig * 2;
   }
-  // scale, mask, row max (a row's 64 keys lie on the 4 threads of its quad)
+  // scale, mask, row max (a row's keys lie on the 4 threads of its quad)
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int e = 0; e < 32; ++e) {
+  for (int e = 0; e < kN; ++e) {
     const int i = (e >> 1) & 1;
     const int key = (e >> 2) * 8 + (e & 1);
     s[e] = !kMask || (key <= hi_key[i] && key > lo_key[i]) ? s[e] * scale : kNegInf;
@@ -230,7 +259,7 @@ __device__ __forceinline__ void softmax(float (&s)[32], float (&m)[2], float (&l
   }
   float ls[2] = {0.f, 0.f};
 #pragma unroll
-  for (int e = 0; e < 32; ++e) {
+  for (int e = 0; e < kN; ++e) {
     s[e] = expf(s[e] - m_use[(e >> 1) & 1]);
     ls[(e >> 1) & 1] += s[e];
   }
@@ -245,46 +274,57 @@ __device__ __forceinline__ void softmax(float (&s)[32], float (&m)[2], float (&l
 // A consumer thread: its warpgroup's tiles, then the epilogue. The tiles are
 // pipelined within the warpgroup: tile t's Q.K runs while P.V of tile t-1
 // runs, and the softmax of tile t while P.V of tile t-1 finishes. Stages the
-// warpgroup does not multiply are waited for and freed all the same.
+// warpgroup does not multiply are waited for and freed all the same. Rows
+// r >= R = P*G (the tile's unused rows) compute on whatever shared memory
+// holds there and are never written.
+template <int kD>
 __device__ __forceinline__ void consumer(uint32_t q_s, uint32_t k_s, uint32_t v_s, Barriers bars,
                                          __nv_bfloat16* __restrict__ out, int pos0, int len,
                                          int b, int kvh, int G, int T, int Hq, int t_lo,
                                          int t_hi, int window, float scale) {
+  using S = Shape<kD>;
+  constexpr int kBK = S::kBK;
+  constexpr int kN = kBK / 2;  // S accumulator values a thread
   const int tid = threadIdx.x;
   // warpgroup wg, and this thread's two rows of the warp's 16
   const int wg = tid >> 7;
   const int lane = tid & 31;
   const int grp = lane >> 2;  // accumulator row group
   const int tig = lane & 3;   // thread in group
+  const int R = (kRows / G) * G;  // rows in use
   int qpos[2];
+  bool row_out[2];
   int64_t qoff[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = wg * kWgRows + ((tid >> 5) & 3) * 16 + grp + 8 * i;
     qpos[i] = pos0 + r / G;
+    row_out[i] = r < R && qpos[i] < T;
     const int head = kvh * G + r % G;
     qoff[i] = ((static_cast<int64_t>(b) * T + qpos[i]) * Hq + head) * kD;
   }
 
-  float o[64];
+  float o[kD / 2];
 #pragma unroll
-  for (int e = 0; e < 64; ++e) o[e] = 0.f;
+  for (int e = 0; e < kD / 2; ++e) o[e] = 0.f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
 
   if (pos0 < len) {
-    // the tiles this warpgroup's rows can see, [w_lo, w_hi] (none when all
-    // its rows lie at or past the length)
-    const int wpos0 = pos0 + wg * (kWgRows / G);
-    const int w_last = min(wpos0 + kWgRows / G - 1, len - 1);
+    // this warpgroup's positions [wpos0, wpos1] (of its rows in use), and
+    // the tiles they can see, [w_lo, w_hi] (none when all of them lie at or
+    // past the length)
+    const int wpos0 = pos0 + (wg * kWgRows) / G;
+    const int wpos1 = pos0 + min(wg * kWgRows + kWgRows - 1, R - 1) / G;
+    const int w_last = min(wpos1, len - 1);
     const int w_first = window > 0 ? max(0, wpos0 - window + 1) : 0;
     const int w_lo = wpos0 < len ? max(t_lo, w_first / kBK) : t_hi + 1;
     const int w_hi = w_last / kBK;
-    const uint32_t q_tile = q_s + wg * kWgRows * kRowBytes;
+    const uint32_t q_tile = q_s + wg * kWgRows * S::kRowBytes;
     // tile t needs no mask when every row of the warpgroup sees all its keys
     const int interior_hi = min(wpos0, len - 1) - (kBK - 1);
-    const int interior_lo = window > 0 ? wpos0 + kWgRows / G - 1 - window : -1;
-    const auto update = [&](float (&sc)[32], float (&cr)[2], int t) {
+    const int interior_lo = window > 0 ? wpos1 - window : -1;
+    const auto update = [&](float (&sc)[kN], float (&cr)[2], int t) {
       const int kt0 = t * kBK;
       if (kt0 <= interior_hi && kt0 > interior_lo) {
         softmax<false>(sc, m, l, cr, qpos, kt0, len, window, scale, tig);
@@ -313,12 +353,12 @@ __device__ __forceinline__ void consumer(uint32_t q_s, uint32_t k_s, uint32_t v_
     int t = t_lo;
     for (; t < w_lo && t <= t_hi; ++t) skip();
     if (t <= w_hi) {
-      float s[32], corr[2];
+      float s[kN], corr[2];
       uint32_t a[kBK / 16][FLASH_P_TERMS][4];
       mbar_wait(bars.q_full(), 0);
       mbar_wait(bars.k_full(st), parity);
       __syncwarp();
-      issue_qk(s, q_tile, k_s + st * kTileBytes);
+      issue_qk<kD>(s, q_tile, k_s + st * S::kTileBytes);
       wgmma_wait<0>();
       reg_fence(s);
       update(s, corr, t);
@@ -326,12 +366,12 @@ __device__ __forceinline__ void consumer(uint32_t q_s, uint32_t k_s, uint32_t v_
       uint32_t prev_parity = parity;
       advance();
       for (++t; t <= w_hi; ++t) {
-        float sn[32];
+        float sn[kN];
         mbar_wait(bars.k_full(st), parity);
         mbar_wait(bars.v_full(prev), prev_parity);
         __syncwarp();
-        issue_qk(sn, q_tile, k_s + st * kTileBytes);
-        issue_pv(o, s, a, v_s + prev * kTileBytes);
+        issue_qk<kD>(sn, q_tile, k_s + st * S::kTileBytes);
+        issue_pv<kD>(o, s, a, v_s + prev * S::kTileBytes);
         wgmma_wait<1>();  // Q.K of tile t
         reg_fence(sn);
         float cn[2];
@@ -344,16 +384,16 @@ __device__ __forceinline__ void consumer(uint32_t q_s, uint32_t k_s, uint32_t v_
           for (int u = 0; u < FLASH_P_TERMS; ++u) reg_fence(a[j][u]);
         release(prev);
 #pragma unroll
-        for (int e = 0; e < 64; ++e) o[e] *= cn[(e >> 1) & 1];
+        for (int e = 0; e < kD / 2; ++e) o[e] *= cn[(e >> 1) & 1];
 #pragma unroll
-        for (int e = 0; e < 32; ++e) s[e] = sn[e];
+        for (int e = 0; e < kN; ++e) s[e] = sn[e];
         prev = st;
         prev_parity = parity;
         advance();
       }
       mbar_wait(bars.v_full(prev), prev_parity);
       __syncwarp();
-      issue_pv(o, s, a, v_s + prev * kTileBytes);
+      issue_pv<kD>(o, s, a, v_s + prev * S::kTileBytes);
       wgmma_wait<0>();
       reg_fence(o);
 #pragma unroll
@@ -365,10 +405,11 @@ __device__ __forceinline__ void consumer(uint32_t q_s, uint32_t k_s, uint32_t v_
     for (; t <= t_hi; ++t) skip();
   }
 
-  // epilogue: rows at or past the length are zeros; rows past T are not written
+  // epilogue: rows at or past the length are zeros; unused rows and rows
+  // past T are not written
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (qpos[i] >= T) continue;
+    if (!row_out[i]) continue;
     const bool valid = qpos[i] < len;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -380,18 +421,22 @@ __device__ __forceinline__ void consumer(uint32_t q_s, uint32_t k_s, uint32_t v_
   }
 }
 
-// grid: (ceil(T / (128/G)), Hkv, B); block: 2 consumer warpgroups, then the
-// producer warpgroup (one of its threads issues the loads).
+// grid: (ceil(T / P), Hkv, B), P = floor(128 / G); block: 2 consumer
+// warpgroups, then the producer warpgroup (one of its threads issues the
+// loads).
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, const int* __restrict__ lengths,
     __nv_bfloat16* __restrict__ out, int T, int Hq, int Hkv, int window, float scale) {
+  using S = Shape<kD>;
+  constexpr int kBK = S::kBK;
   extern __shared__ unsigned char smem[];
   // the swizzle's 8-row atoms must sit on 1024-byte boundaries
   const uint32_t q_s = (sm90::smem_addr(smem) + 1023u) & ~1023u;
-  const uint32_t k_s = q_s + kQBytes;
-  const uint32_t v_s = k_s + kStages * kTileBytes;
-  const Barriers bars{v_s + kStages * kTileBytes};
+  const uint32_t k_s = q_s + S::kQBytes;
+  const uint32_t v_s = k_s + kStages * S::kTileBytes;
+  const Barriers bars{v_s + kStages * S::kTileBytes};
 
   const int G = Hq / Hkv;
   const int P = kRows / G;  // positions per block
@@ -420,20 +465,24 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
   if (tid >= kConsumerThreads) {  // the producer warpgroup
     sm90::setmaxnreg_dec<kProducerRegs>();
     if (work && tid == kConsumerThreads) {
-      mbar_expect_tx(bars.q_full(), kQBytes);
-      sm90::tma_load_4d(q_s, &q_map, bars.q_full(), 0, kvh * G, pos0, b);
-      sm90::tma_load_4d(q_s + kQHalfBytes, &q_map, bars.q_full(), kHalfD, kvh * G, pos0, b);
+      // the Q box holds the P * G rows in use
+      mbar_expect_tx(bars.q_full(), S::kBoxes * P * G * S::kRowBytes);
+      for (int c = 0; c < S::kBoxes; ++c)
+        sm90::tma_load_4d(q_s + c * S::kQBoxBytes, &q_map, bars.q_full(), c * S::kBoxD,
+                          kvh * G, pos0, b);
       int st = 0;
       uint32_t parity = 0;
       for (int t = t_lo; t <= t_hi; ++t) {
         if (t - t_lo >= kStages) mbar_wait(bars.freed(st), parity ^ 1u);  // its last use freed
-        const uint32_t ks = k_s + st * kTileBytes, vs = v_s + st * kTileBytes;
-        mbar_expect_tx(bars.k_full(st), kTileBytes);
-        sm90::tma_load_4d(ks, &k_map, bars.k_full(st), 0, kvh, t * kBK, b);
-        sm90::tma_load_4d(ks + kTileHalfBytes, &k_map, bars.k_full(st), kHalfD, kvh, t * kBK, b);
-        mbar_expect_tx(bars.v_full(st), kTileBytes);
-        sm90::tma_load_4d(vs, &v_map, bars.v_full(st), 0, kvh, t * kBK, b);
-        sm90::tma_load_4d(vs + kTileHalfBytes, &v_map, bars.v_full(st), kHalfD, kvh, t * kBK, b);
+        const uint32_t ks = k_s + st * S::kTileBytes, vs = v_s + st * S::kTileBytes;
+        mbar_expect_tx(bars.k_full(st), S::kTileBytes);
+        for (int c = 0; c < S::kBoxes; ++c)
+          sm90::tma_load_4d(ks + c * S::kTileBoxBytes, &k_map, bars.k_full(st), c * S::kBoxD,
+                            kvh, t * kBK, b);
+        mbar_expect_tx(bars.v_full(st), S::kTileBytes);
+        for (int c = 0; c < S::kBoxes; ++c)
+          sm90::tma_load_4d(vs + c * S::kTileBoxBytes, &v_map, bars.v_full(st), c * S::kBoxD,
+                            kvh, t * kBK, b);
         if (++st == kStages) {
           st = 0;
           parity ^= 1u;
@@ -442,9 +491,30 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
     }
   } else {
     sm90::setmaxnreg_inc<kConsumerRegs>();
-    consumer(q_s, k_s, v_s, bars, out, pos0, len, b, kvh, G, T, Hq, t_lo, t_hi, window,
-             scale);
+    consumer<kD>(q_s, k_s, v_s, bars, out, pos0, len, b, kvh, G, T, Hq, t_lo, t_hi, window,
+                 scale);
   }
+}
+
+// grid: (T, Hq, B); block: f32attn::kThreads. Position t of row b for query
+// head h: keys max(0, t - window + 1) .. t, zeros at or past the length.
+template <int kD>
+__global__ void __launch_bounds__(f32attn::kThreads) flash_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int* __restrict__ lengths, float* __restrict__ out, int T, int Hq, int Hkv,
+    int window, float scale) {
+  const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (Hq / Hkv);
+  const int64_t qoff = ((static_cast<int64_t>(b) * T + t) * Hq + h) * kD;
+  if (t >= lengths[b]) {
+    f32attn::zero_row<kD>(out + qoff);
+    return;
+  }
+  const int first = window > 0 ? max(0, t - window + 1) : 0;
+  const auto row_of = [&](int key) -> int64_t {
+    return ((static_cast<int64_t>(b) * T + key) * Hkv + kvh) * kD;
+  };
+  f32attn::attend_row<kD>(q + qoff, k, v, out + qoff, first, t, row_of, scale);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -474,55 +544,102 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// [B, T, H, 128] bf16 as a 4-D map over (128, H, T, B), boxes of
-// (64, box_h, box_t, 1) in the 128-byte swizzle, zeros outside.
+// [B, T, H, D] bf16 as a 4-D map over (D, H, T, B), boxes of (kBoxD, box_h,
+// box_t, 1) in the swizzle of a kBoxD-dim row, zeros outside.
+template <int kD>
 CUresult encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int T, int H,
                     int box_h, int box_t) {
+  using S = Shape<kD>;
   const cuuint64_t dims[4] = {kD, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(T),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {kD * 2, static_cast<cuuint64_t>(H) * kD * 2,
                                  static_cast<cuuint64_t>(T) * H * kD * 2};  // bytes, dims 1..3
-  const cuuint32_t box[4] = {kHalfD, static_cast<cuuint32_t>(box_h),
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(S::kBoxD), static_cast<cuuint32_t>(box_h),
                              static_cast<cuuint32_t>(box_t), 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = S::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : S::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                          : CU_TENSOR_MAP_SWIZZLE_32B;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-}  // namespace
-
-extern "C" {
-
-// q/out [B, T, Hq, 128] bf16; k/v [B, T, Hkv, 128] bf16, all 16-byte aligned;
-// lengths [B] int32. window 0 = none. Returns a cudaError_t, or minus the
-// CUresult when a tensor map cannot be made.
-int flash_self_attention_bf16(const void* q, const void* k, const void* v,
-                              const int* lengths, void* out, int B, int T, int Hq,
-                              int Hkv, int window, float scale, void* stream) {
-  if (B <= 0 || T <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || kWgRows % (Hq / Hkv) != 0 || Hq / Hkv > 8)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <int kD>
+int launch_bf16(const void* q, const void* k, const void* v, const int* lengths, void* out, int B,
+                int T, int Hq, int Hkv, int window, float scale, cudaStream_t stream) {
+  using S = Shape<kD>;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return -static_cast<int>(CUDA_ERROR_NOT_FOUND);
   const int G = Hq / Hkv;
   const int P = kRows / G;
   CUtensorMap q_map, k_map, v_map;
-  CUresult r = encode_map(encode, &q_map, q, B, T, Hq, G, P);
-  if (r == CUDA_SUCCESS) r = encode_map(encode, &k_map, k, B, T, Hkv, 1, kBK);
-  if (r == CUDA_SUCCESS) r = encode_map(encode, &v_map, v, B, T, Hkv, 1, kBK);
+  CUresult r = encode_map<kD>(encode, &q_map, q, B, T, Hq, G, P);
+  if (r == CUDA_SUCCESS) r = encode_map<kD>(encode, &k_map, k, B, T, Hkv, 1, S::kBK);
+  if (r == CUDA_SUCCESS) r = encode_map<kD>(encode, &v_map, v, B, T, Hkv, 1, S::kBK);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+        flash_attention_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmemBytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
   const dim3 grid((T + P - 1) / P, Hkv, B);
-  flash_attention_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  flash_attention_kernel<kD><<<grid, kThreads, S::kSmemBytes, stream>>>(
       q_map, k_map, v_map, lengths, static_cast<__nv_bfloat16*>(out), T, Hq, Hkv, window, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kD>
+int launch_f32(const void* q, const void* k, const void* v, const int* lengths, void* out, int B,
+               int T, int Hq, int Hkv, int window, float scale, cudaStream_t stream) {
+  flash_f32_kernel<kD><<<dim3(T, Hq, B), f32attn::kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      lengths, static_cast<float*>(out), T, Hq, Hkv, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool args_ok(int Hq, int Hkv) {
+  return Hkv > 0 && Hq % Hkv == 0 && Hq / Hkv >= 1 && Hq / Hkv <= kMaxG;
+}
+
+// Calls fn<D>(args...) for a head dim of the model registry.
+#define FLASH_DISPATCH_D(D, fn, ...)                               \
+  switch (D) {                                                     \
+    case 16: return fn<16>(__VA_ARGS__);                           \
+    case 64: return fn<64>(__VA_ARGS__);                           \
+    case 96: return fn<96>(__VA_ARGS__);                           \
+    case 128: return fn<128>(__VA_ARGS__);                         \
+    case 256: return fn<256>(__VA_ARGS__);                         \
+    default: return static_cast<int>(cudaErrorInvalidValue);       \
+  }
+
+}  // namespace
+
+extern "C" {
+
+// q/out [B, T, Hq, D] bf16; k/v [B, T, Hkv, D] bf16, all 16-byte aligned, D
+// in {16, 64, 96, 128, 256}, Hq/Hkv in 1..8; lengths [B] int32. window 0 =
+// none. Returns a cudaError_t, or minus the CUresult when a tensor map
+// cannot be made.
+int flash_self_attention_bf16(const void* q, const void* k, const void* v,
+                              const int* lengths, void* out, int B, int T, int Hq,
+                              int Hkv, int D, int window, float scale, void* stream) {
+  if (B <= 0 || T <= 0) return 0;
+  if (!args_ok(Hq, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH_D(D, launch_bf16, q, k, v, lengths, out, B, T, Hq, Hkv, window, scale, st)
+}
+
+// The same for f32 q, k, v and out.
+int flash_self_attention_f32(const void* q, const void* k, const void* v, const int* lengths,
+                             void* out, int B, int T, int Hq, int Hkv, int D, int window,
+                             float scale, void* stream) {
+  if (B <= 0 || T <= 0) return 0;
+  if (!args_ok(Hq, Hkv)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH_D(D, launch_f32, q, k, v, lengths, out, B, T, Hq, Hkv, window, scale, st)
 }
 
 }  // extern "C"

@@ -3,8 +3,9 @@
 // Replaces the two Pallas TPU kernels of cyberfabric_core_tpu/ops/paged_attention.py:
 //   ragged_paged_attention (:421, body _ragged_kernel :263)  -> ragged_paged_attention_bf16
 //   paged_decode_attention (:188, body _paged_kernel :76)    -> paged_decode_attention_bf16
+// (and ragged_paged_attention_f32 / paged_decode_attention_f32 for f32 inputs).
 //
-// Three __global__ functions serve both entry points:
+// Three __global__ functions serve both bf16 entry points:
 //
 //   split_kernel + combine_kernel: the decode path. One query (all G = Hq/Hkv
 //     heads of one kv head) over one split of its keys. A query of length L
@@ -57,9 +58,22 @@
 // boundaries and a tile a row cannot see is an exact no-op of its update,
 // so neither tile placement nor the chunk's start changes its bits. Rows
 // past q_len are exact zeros.
+// Head dims: every kernel is a template on D, built for the head dims of the
+// model registry (16, 64, 96, 128, 256); the entry points take D and launch
+// the matching build. Where D changes the work split: the split path's P.V
+// hands each warp a run of 16-dim column pairs (all four warps at D >= 64),
+// the combine kernel walks the D output dims with its 128 threads, and the
+// chunk path copies D/16 16-byte pieces of each 64-key tile a thread. Shared
+// memory grows with D (at 256: ~137 KB split, ~169 KB chunk, one block an SM).
+//
+// f32 inputs take the entry points *_f32: the CUDA-core kernel of
+// attention_f32.cuh, one block per (position, query head), walking the
+// row's keys through the page table.
+//
 // Not yet done (later work): wgmma and TMA; several positions of a short
 // span sharing the split path's page loads and mma rows.
 
+#include "attention_f32.cuh"
 #include "sm90_common.cuh"
 
 #ifndef PAGED_SPLIT_PAGES
@@ -78,7 +92,6 @@ using sm90::mma_bf16;
 using sm90::pack_bf16;
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 128;               // head dim (llama-3 family)
 constexpr int kMaxPage = 64;          // tokens per page
 constexpr int kMaxG = 8;              // query heads per kv head
 constexpr int kShortSpan = 8;         // ragged spans up to this take the split path
@@ -89,23 +102,31 @@ constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kSplitPages >= 1, "a split holds at least one page");
 
-// K, V (and Q) rows in shared memory are padded by 16 bytes: fragment reads
-// of K and the transposing ldmatrix of V hit 32 distinct banks
-constexpr int kStride = kD + 8;
+constexpr int kRows = 64;             // chunk path: (position, head) rows per block
+constexpr int kBK = 64;               // chunk path: keys per tile
 
-// split path shared memory: 2 stages of one page of K and V, the page's
-// scores/probabilities as [key][head] and the heads' corrections
-constexpr int kPageElems = kMaxPage * kStride;
-constexpr int kSplitSmem = 2 * 2 * kPageElems * 2 + kMaxPage * kMaxG * 4 + kMaxG * 4;
-
-// chunk path shared memory, as flash_attention.cu: Q + 2 stages x (K, V)
-constexpr int kRows = 64;             // (position, head) rows per block
-constexpr int kBK = 64;               // keys per tile
-constexpr int kTileElems = kBK * kStride;
-constexpr int kQElems = kRows * kStride;
-constexpr int kChunkSmem = (kQElems + 2 * 2 * kTileElems) * 2;
-static_assert(kThreads / (kD / 8) * 8 == kBK,
-              "a chunk-path thread copies keys kl0 + 8k, k < 8, of a tile");
+// The shapes that follow from the head dim D.
+template <int kD>
+struct Dims {
+  static_assert(kD % 16 == 0 && kD >= 16 && kD <= 256, "D is a multiple of 16, at most 256");
+  // K, V (and Q) rows in shared memory are padded by 16 bytes: fragment
+  // reads of K and the transposing ldmatrix of V spread over the banks
+  static constexpr int kStride = kD + 8;
+  // split path: 2 stages of one page of K and V, the page's
+  // scores/probabilities as [key][head] and the heads' corrections
+  static constexpr int kPageElems = kMaxPage * kStride;
+  static constexpr int kSplitSmem = 2 * 2 * kPageElems * 2 + kMaxPage * kMaxG * 4 + kMaxG * 4;
+  // split path P.V: the D/16 pairs of 8-dim n-tiles, a run of kPairsPerWarp
+  // of them for each warp
+  static constexpr int kPairs = kD / 16;
+  static constexpr int kPairsPerWarp = (kPairs + 3) / 4;
+  // chunk path, as flash_attention.cu: Q + 2 stages x (K, V); a thread
+  // copies the 16-byte pieces tid + kThreads * c, c < kPieces, of a tile
+  static constexpr int kTileElems = kBK * kStride;
+  static constexpr int kQElems = kRows * kStride;
+  static constexpr int kChunkSmem = (kQElems + 2 * 2 * kTileElems) * 2;
+  static constexpr int kPieces = kBK * (kD / 8) / kThreads;
+};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -148,12 +169,16 @@ __device__ __forceinline__ int n_splits(int len, int page, int Pmax) {
 
 // Split s of position i of row b, for kv head kvh: its partial (m, l,
 // acc[D]) for each of the G heads into slot (b * n_pos + i, kvh, s).
+template <int kD>
 __device__ __forceinline__ void split_position(
     const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
     const bf16* __restrict__ v_pool, const int* __restrict__ page_table,
     float* __restrict__ part_acc, float* __restrict__ part_ml, unsigned char* smem,
     int b, int i, int kvh, int s, int len, int Qmax, int n_pos, int Hq, int Hkv,
     int N, int page, int Pmax, int n_split, int window, float scale) {
+  using S = Dims<kD>;
+  constexpr int kStride = S::kStride;
+  constexpr int kPageElems = S::kPageElems;
   const int G = Hq / Hkv;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -217,12 +242,15 @@ __device__ __forceinline__ void split_position(
   }
 
   // warp w keeps the running max and sum of heads w and w + 4; lane (grp,
-  // tig) of warp w accumulates head grp at dims 32w + 8n + tig*2 (+1)
+  // tig) of warp w accumulates head grp at dims 16p + 8u + tig*2 (+1) of
+  // its pairs p = w * kPairsPerWarp + pp (pp < kPairsPerWarp, p < kPairs)
+  constexpr int kPPW = S::kPairsPerWarp;
+  const int pair0 = warp * kPPW;
   float m_run[2] = {kNegInf, kNegInf};
   float l_run[2] = {0.f, 0.f};
-  float o[4][2];
+  float o[2 * kPPW][2];
 #pragma unroll
-  for (int n = 0; n < 4; ++n) o[n][0] = o[n][1] = 0.f;
+  for (int n = 0; n < 2 * kPPW; ++n) o[n][0] = o[n][1] = 0.f;
 
   for (int j = p_lo; j <= p_hi; ++j) {
     const int stage = (j - p_lo) & 1;
@@ -295,19 +323,19 @@ __device__ __forceinline__ void split_position(
     }
     __syncthreads();
 
-    // O = O * corr + P V: warp w owns dims 32w .. 32w+31 (four n-tiles of
-    // 8); P as hi + mid + lo bf16 terms, each 16-key product started from
-    // zero and added in IEEE f32
+    // O = O * corr + P V: warp w owns its pairs of n-tiles of 8 dims; P as
+    // hi + mid + lo bf16 terms, each 16-key product started from zero and
+    // added in IEEE f32
     if (grp < G) {
       const float corr = cs[grp];
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
+      for (int n = 0; n < 2 * kPPW; ++n) {
         o[n][0] = __fmul_rn(o[n][0], corr);
         o[n][1] = __fmul_rn(o[n][1], corr);
       }
     }
     const int mat = lane >> 3;
-    const bf16* vrow = vs + ((lane & 7) + (mat & 1) * 8) * kStride + (mat >> 1) * 8 + 32 * warp;
+    const bf16* vrow = vs + ((lane & 7) + (mat & 1) * 8) * kStride + (mat >> 1) * 8 + 16 * pair0;
     for (int jj = 0; jj < page16 / 16; ++jj) {
       // A: row grp (head grp) at keys 16jj + tig*2 (+1), 16jj + 8 + tig*2 (+1)
       float pk[4] = {0.f, 0.f, 0.f, 0.f};
@@ -330,17 +358,18 @@ __device__ __forceinline__ void split_position(
         a_lo[2 * h] = pack_bf16(p0 - h0f - m0, p1 - h1f - m1);
       }
 #pragma unroll
-      for (int dn = 0; dn < 4; dn += 2) {
+      for (int pp = 0; pp < kPPW; ++pp) {
+        if (pair0 + pp >= S::kPairs) break;  // warp-uniform
         uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vrow + jj * 16 * kStride + dn * 8);
+        ldmatrix_x4_trans(bv, vrow + jj * 16 * kStride + pp * 16);
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           float t4[4] = {0.f, 0.f, 0.f, 0.f};
           mma_bf16(t4, a_lo, bv[2 * u], bv[2 * u + 1]);
           mma_bf16(t4, a_mid, bv[2 * u], bv[2 * u + 1]);
           mma_bf16(t4, a_hi, bv[2 * u], bv[2 * u + 1]);
-          o[dn + u][0] = __fadd_rn(o[dn + u][0], t4[0]);
-          o[dn + u][1] = __fadd_rn(o[dn + u][1], t4[1]);
+          o[2 * pp + u][0] = __fadd_rn(o[2 * pp + u][0], t4[0]);
+          o[2 * pp + u][1] = __fadd_rn(o[2 * pp + u][1], t4[1]);
         }
       }
     }
@@ -349,9 +378,10 @@ __device__ __forceinline__ void split_position(
 
   if (grp < G) {
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
-      *reinterpret_cast<float2*>(acc_out + grp * kD + 32 * warp + 8 * n + tig * 2) =
-          make_float2(o[n][0], o[n][1]);
+    for (int n = 0; n < 2 * kPPW; ++n)
+      if (pair0 + n / 2 < S::kPairs)
+        *reinterpret_cast<float2*>(acc_out + grp * kD + 16 * pair0 + 8 * n + tig * 2) =
+            make_float2(o[n][0], o[n][1]);
   }
   if (lane == 0) {
 #pragma unroll
@@ -371,6 +401,7 @@ __device__ __forceinline__ void split_position(
 // same walk whatever the entry point. q is [B, Qmax, Hq, D] (decode passes
 // Qmax = n_pos = 1); slot (b * n_pos + i, kvh, s) of the scratch holds the
 // partial.
+template <int kD>
 __global__ void __launch_bounds__(kThreads) split_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
     const bf16* __restrict__ v_pool, const int* __restrict__ page_table,
@@ -384,13 +415,13 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
   for (int i = 0; i < n_i; ++i) {
     const int len = position_length(hist_or_len, q_lens, b, i);
     if (static_cast<int>(blockIdx.z) >= n_splits(len, page, Pmax)) continue;
-    split_position(q, k_pool, v_pool, page_table, part_acc, part_ml, smem, b, i,
+    split_position<kD>(q, k_pool, v_pool, page_table, part_acc, part_ml, smem, b, i,
                    blockIdx.y, blockIdx.z, len, Qmax, n_pos, Hq, Hkv, N, page, Pmax,
                    n_split, window, scale);
   }
 }
 
-// grid: (B * n_pos, Hkv); block: kThreads (thread t = output dim t);
+// grid: (B * n_pos, Hkv); block: kThreads (thread t = output dims t + 128i);
 // dynamic shared memory: 2 * kMaxG * n_split floats. Merges the partials of
 // decode-path position i of row b in split order 0..n-1 against their
 // common max M: warp w finds M for heads w, w + 4 with its lanes over the
@@ -398,6 +429,7 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
 // lane 0 sums l in split order; then thread t sums acc_s[t] * c_s in split
 // order. An empty partial (m at the floor) has c_s = 0 and is skipped, its
 // acc never used. Every load of a sum is issued before its additions.
+template <int kD>
 __global__ void __launch_bounds__(kThreads) combine_kernel(
     const int* __restrict__ hist_or_len, const int* __restrict__ q_lens,
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
@@ -442,24 +474,27 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(
 
   bf16* orow = out + ((static_cast<int64_t>(b) * Qmax + i) * Hq + kvh * G) * kD;
   for (int g = 0; g < G; ++g) {
-    float a = 0.f;
-    for (int s0 = 0; s0 < n; s0 += 8) {
-      float v[8];
+    for (int d = tid; d < kD; d += kThreads) {
+      float a = 0.f;
+      for (int s0 = 0; s0 < n; s0 += 8) {
+        float v[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)  // an empty partial's acc is loaded, never used
-        v[j] = s0 + j < n ? pacc[((s0 + j) * G + g) * kD + tid] : 0.f;
+        for (int j = 0; j < 8; ++j)  // an empty partial's acc is loaded, never used
+          v[j] = s0 + j < n ? pacc[((s0 + j) * G + g) * kD + d] : 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float c = s0 + j < n ? corr_s[g * n_split + s0 + j] : 0.f;
-        if (c != 0.f) a = __fadd_rn(a, __fmul_rn(v[j], c));
+        for (int j = 0; j < 8; ++j) {
+          const float c = s0 + j < n ? corr_s[g * n_split + s0 + j] : 0.f;
+          if (c != 0.f) a = __fadd_rn(a, __fmul_rn(v[j], c));
+        }
       }
+      orow[g * kD + d] = __float2bfloat16_rn(__fdiv_rn(a, fmaxf(l_tot[g], 1e-30f)));
     }
-    orow[g * kD + tid] = __float2bfloat16_rn(__fdiv_rn(a, fmaxf(l_tot[g], 1e-30f)));
   }
 }
 
 // Span positions [pos0, pos0 + P) of row b for kv head kvh, P = 64 / G:
 // 64 (position, head) rows on 4 warps x 16 rows.
+template <int kD>
 __device__ __forceinline__ void chunk_tile(
     const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
     const bf16* __restrict__ v_pool, const int* __restrict__ page_table,
@@ -467,8 +502,11 @@ __device__ __forceinline__ void chunk_tile(
     bf16* __restrict__ out, unsigned char* smem, int pos0, int b, int kvh, int Qmax,
     int Hq, int Hkv, int N, int page, int page_shift, int Pmax, int window,
     float scale) {
+  using S = Dims<kD>;
+  constexpr int kStride = S::kStride;
+  constexpr int kTileElems = S::kTileElems;
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* tiles = qs + kQElems;
+  bf16* tiles = qs + S::kQElems;
 
   const int G = Hq / Hkv;
   const int P = kRows / G;     // span positions per block
@@ -543,35 +581,37 @@ __device__ __forceinline__ void chunk_tile(
 
   // one 64-key tile at absolute keys [t*64, t*64+64), each key read
   // through the page table; keys past the table are zero-filled and masked.
-  // This thread copies 16 bytes (dims dc..dc+7) of keys kl0 + 8k of a tile;
-  // their pool offsets for the next tile are read one tile ahead, so the
-  // page-table reads wait behind a tile of arithmetic, not before a copy.
-  constexpr int kKeysPerThread = kBK * (kD / 8) / kThreads;
-  const int kl0 = tid / (kD / 8);
-  const int dc = (tid % (kD / 8)) * 8;
-  int64_t row_off[kKeysPerThread];
+  // This thread copies the 16-byte pieces tid + kThreads * c of a tile (key
+  // piece / (D/8), dims 8 * (piece % (D/8)) ..); their pool rows for the
+  // next tile are read one tile ahead, so the page-table reads wait behind a
+  // tile of arithmetic, not before a copy.
+  constexpr int kPieces = S::kPieces;
+  int pool_row[kPieces];  // the key's row in the pool (page * page size + offset), -1 past the table
   auto fetch_rows = [&](int t) {
 #pragma unroll
-    for (int k = 0; k < kKeysPerThread; ++k) {
-      const int key = t * kBK + kl0 + 8 * k;
-      int64_t off = -1;
+    for (int c = 0; c < kPieces; ++c) {
+      const int key = t * kBK + (tid + kThreads * c) / (kD / 8);
+      int row = -1;
       if (key < kcap) {
         const int pg = page_shift >= 0 ? key >> page_shift : key / page;
         int pid = page_table[static_cast<int64_t>(b) * Pmax + pg];
         if (pid < 0 || pid >= N) pid = 0;  // never read outside the pool
-        off = ((static_cast<int64_t>(pid) * page + key - pg * page) * Hkv + kvh) * kD + dc;
+        row = pid * page + key - pg * page;
       }
-      row_off[k] = off;
+      pool_row[c] = row;
     }
   };
   auto load_tile = [&](int stage, int t) {
     bf16* ks = tiles + stage * 2 * kTileElems;
     bf16* vs = ks + kTileElems;
 #pragma unroll
-    for (int k = 0; k < kKeysPerThread; ++k) {
-      const bool valid = row_off[k] >= 0;
-      const int64_t off = valid ? row_off[k] : 0;
-      const int row = (kl0 + 8 * k) * kStride + dc;
+    for (int c = 0; c < kPieces; ++c) {
+      const int piece = tid + kThreads * c;
+      const int dc = (piece % (kD / 8)) * 8;
+      const bool valid = pool_row[c] >= 0;
+      const int64_t off =
+          valid ? (static_cast<int64_t>(pool_row[c]) * Hkv + kvh) * kD + dc : 0;
+      const int row = (piece / (kD / 8)) * kStride + dc;
       cp_async16(ks + row, k_pool + off, valid);
       cp_async16(vs + row, v_pool + off, valid);
     }
@@ -717,6 +757,7 @@ __device__ __forceinline__ void chunk_tile(
 
 // grid: (ceil(Qmax / P), Hkv, B), the span's latest (heaviest) tiles
 // first; block: 128 threads.
+template <int kD>
 __global__ void __launch_bounds__(kThreads) chunk_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
     const bf16* __restrict__ v_pool, const int* __restrict__ page_table,
@@ -725,7 +766,7 @@ __global__ void __launch_bounds__(kThreads) chunk_kernel(
     int page_shift, int Pmax, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int P = kRows / (Hq / Hkv);
-  chunk_tile(q, k_pool, v_pool, page_table, hist, q_lens, out, smem,
+  chunk_tile<kD>(q, k_pool, v_pool, page_table, hist, q_lens, out, smem,
              (gridDim.x - 1 - blockIdx.x) * P, blockIdx.z, blockIdx.y, Qmax, Hq, Hkv,
              N, page, page_shift, Pmax, window, scale);
 }
@@ -755,20 +796,22 @@ int page_shift_of(int page) {
 }
 
 // The decode path over the n_pos positions of B rows: split_kernel then
-// combine_kernel. scratch: f32, B * n_pos * Hkv * n_split * G * (kD + 2).
+// combine_kernel. scratch: f32, B * n_pos * Hkv * n_split * G * (D + 2).
+template <int kD>
 int launch_split(const void* q, const void* k_pool, const void* v_pool,
                  const int* page_table, const int* hist_or_len, const int* q_lens,
                  void* out, float* scratch, int B, int Qmax, int n_pos, int Hq,
                  int Hkv, int N, int page, int Pmax, int window, float scale,
                  cudaStream_t stream) {
+  constexpr int kSplitSmem = Dims<kD>::kSplitSmem;
   static bool smem_set = false;
-  const int rc = set_smem(reinterpret_cast<const void*>(split_kernel), kSplitSmem, smem_set);
+  const int rc = set_smem(reinterpret_cast<const void*>(split_kernel<kD>), kSplitSmem, smem_set);
   if (rc != 0) return rc;
   const int n_split = n_split_of(Pmax);
   float* part_acc = scratch;
   float* part_ml = scratch + static_cast<int64_t>(B) * n_pos * Hkv * n_split * (Hq / Hkv) * kD;
   if (n_split > 0) {  // else no key: the combine writes zeros
-    split_kernel<<<dim3(B, Hkv, n_split), kThreads, kSplitSmem, stream>>>(
+    split_kernel<kD><<<dim3(B, Hkv, n_split), kThreads, kSplitSmem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
         static_cast<const bf16*>(v_pool), page_table, hist_or_len, q_lens, part_acc,
         part_ml, Qmax, n_pos, Hq, Hkv, N, page, Pmax, n_split, window, scale);
@@ -778,14 +821,95 @@ int launch_split(const void* q, const void* k_pool, const void* v_pool,
   const int combine_smem = 2 * kMaxG * (n_split > 0 ? n_split : 1) * 4;
   if (combine_smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        combine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, combine_smem);
+        combine_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, combine_smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  combine_kernel<<<dim3(B * n_pos, Hkv), kThreads, combine_smem, stream>>>(
+  combine_kernel<kD><<<dim3(B * n_pos, Hkv), kThreads, combine_smem, stream>>>(
       hist_or_len, q_lens, part_acc, part_ml, static_cast<bf16*>(out), Qmax, n_pos,
       Hq, Hkv, page, Pmax, n_split);
   return static_cast<int>(cudaGetLastError());
 }
+
+template <int kD>
+int launch_ragged(const void* q, const void* k_pool, const void* v_pool,
+                  const int* page_table, const int* hist, const int* q_lens, void* out,
+                  void* scratch, int B, int Qmax, int Hq, int Hkv, int N, int page,
+                  int Pmax, int window, float scale, cudaStream_t st) {
+  constexpr int kChunkSmem = Dims<kD>::kChunkSmem;
+  static bool smem_set = false;
+  int rc = set_smem(reinterpret_cast<const void*>(chunk_kernel<kD>), kChunkSmem, smem_set);
+  if (rc != 0) return rc;
+  const int P = kRows / (Hq / Hkv);
+  chunk_kernel<kD><<<dim3((Qmax + P - 1) / P, Hkv, B), kThreads, kChunkSmem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
+      static_cast<const bf16*>(v_pool), page_table, hist, q_lens,
+      static_cast<bf16*>(out), Qmax, Hq, Hkv, N, page, page_shift_of(page), Pmax,
+      window, scale);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  const int n_pos = Qmax < kShortSpan ? Qmax : kShortSpan;
+  return launch_split<kD>(q, k_pool, v_pool, page_table, hist, q_lens, out,
+                          static_cast<float*>(scratch), B, Qmax, n_pos, Hq, Hkv, N, page,
+                          Pmax, window, scale, st);
+}
+
+// ------------------------------------------------------------------ f32
+// grid: (B * n_pos, Hq); block: f32attn::kThreads. Position i of row b
+// (decode: q_lens null, n_pos = Qmax = 1, the row's length; ragged: hist +
+// i + 1 for i < q_len, zeros past it) for query head h, over the row's
+// page chain.
+template <int kD>
+__global__ void __launch_bounds__(f32attn::kThreads) paged_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k_pool,
+    const float* __restrict__ v_pool, const int* __restrict__ page_table,
+    const int* __restrict__ hist_or_len, const int* __restrict__ q_lens,
+    float* __restrict__ out, int Qmax, int Hq, int Hkv, int N, int page, int Pmax,
+    int window, float scale) {
+  const int b = blockIdx.x / Qmax;
+  const int i = blockIdx.x % Qmax;
+  const int h = blockIdx.y;
+  const int kvh = h / (Hq / Hkv);
+  const int64_t qoff = ((static_cast<int64_t>(b) * Qmax + i) * Hq + h) * kD;
+  if (q_lens != nullptr && i >= q_lens[b]) {
+    f32attn::zero_row<kD>(out + qoff);
+    return;
+  }
+  const int len = position_length(hist_or_len, q_lens, b, i);
+  const int qpos = len - 1;
+  const int first = window > 0 ? max(0, qpos - window + 1) : 0;
+  const int last = min(qpos, Pmax * page - 1);
+  const int* table = page_table + static_cast<int64_t>(b) * Pmax;
+  const auto row_of = [&](int key) -> int64_t {
+    const int pg = key / page;
+    int pid = table[pg];
+    if (pid < 0 || pid >= N) pid = 0;  // never read outside the pool
+    return ((static_cast<int64_t>(pid) * page + key - pg * page) * Hkv + kvh) * kD;
+  };
+  f32attn::attend_row<kD>(q + qoff, k_pool, v_pool, out + qoff, first, last, row_of, scale);
+}
+
+template <int kD>
+int launch_f32(const void* q, const void* k_pool, const void* v_pool, const int* page_table,
+               const int* hist_or_len, const int* q_lens, void* out, int B, int Qmax,
+               int Hq, int Hkv, int N, int page, int Pmax, int window, float scale,
+               cudaStream_t st) {
+  paged_f32_kernel<kD><<<dim3(B * Qmax, Hq), f32attn::kThreads, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k_pool),
+      static_cast<const float*>(v_pool), page_table, hist_or_len, q_lens,
+      static_cast<float*>(out), Qmax, Hq, Hkv, N, page, Pmax, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Calls fn<D>(args...) for a head dim of the model registry.
+#define PAGED_DISPATCH_D(D, fn, ...)                               \
+  switch (D) {                                                     \
+    case 16: return fn<16>(__VA_ARGS__);                           \
+    case 64: return fn<64>(__VA_ARGS__);                           \
+    case 96: return fn<96>(__VA_ARGS__);                           \
+    case 128: return fn<128>(__VA_ARGS__);                         \
+    case 256: return fn<256>(__VA_ARGS__);                         \
+    default: return static_cast<int>(cudaErrorInvalidValue);       \
+  }
 
 }  // namespace
 
@@ -796,46 +920,57 @@ extern "C" {
 int paged_attention_split_pages() { return kSplitPages; }
 int paged_attention_short_span() { return kShortSpan; }
 
-// q/out [B, Qmax, Hq, 128] bf16; pools [N, page, Hkv, 128] bf16;
-// page_table [B, Pmax], hist [B], q_lens [B] int32; scratch f32 of
-// B * min(Qmax, 8) * Hkv * ceil(Pmax / split_pages) * (Hq/Hkv) * 130.
+// q/out [B, Qmax, Hq, D] bf16; pools [N, page, Hkv, D] bf16, D in {16, 64,
+// 96, 128, 256}; page_table [B, Pmax], hist [B], q_lens [B] int32; scratch
+// f32 of B * min(Qmax, 8) * Hkv * ceil(Pmax / split_pages) * (Hq/Hkv) * (D + 2).
 // Returns a cudaError_t.
 int ragged_paged_attention_bf16(const void* q, const void* k_pool, const void* v_pool,
                                 const int* page_table, const int* hist,
                                 const int* q_lens, void* out, void* scratch, int B,
                                 int Qmax, int Hq, int Hkv, int N, int page, int Pmax,
-                                int window, float scale, void* stream) {
+                                int D, int window, float scale, void* stream) {
   if (B <= 0 || Qmax <= 0) return 0;
   if (!args_ok(Hq, Hkv, page)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  static bool smem_set = false;
-  int rc = set_smem(reinterpret_cast<const void*>(chunk_kernel), kChunkSmem, smem_set);
-  if (rc != 0) return rc;
-  const int P = kRows / (Hq / Hkv);
-  chunk_kernel<<<dim3((Qmax + P - 1) / P, Hkv, B), kThreads, kChunkSmem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
-      static_cast<const bf16*>(v_pool), page_table, hist, q_lens,
-      static_cast<bf16*>(out), Qmax, Hq, Hkv, N, page, page_shift_of(page), Pmax,
-      window, scale);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  const int n_pos = Qmax < kShortSpan ? Qmax : kShortSpan;
-  return launch_split(q, k_pool, v_pool, page_table, hist, q_lens, out,
-                      static_cast<float*>(scratch), B, Qmax, n_pos, Hq, Hkv, N, page,
-                      Pmax, window, scale, st);
+  PAGED_DISPATCH_D(D, launch_ragged, q, k_pool, v_pool, page_table, hist, q_lens, out,
+                   scratch, B, Qmax, Hq, Hkv, N, page, Pmax, window, scale, st)
 }
 
-// q/out [B, Hq, 128] bf16; lengths [B] int32 (the current token included);
-// scratch f32 of B * Hkv * ceil(Pmax / split_pages) * (Hq/Hkv) * 130.
+// q/out [B, Hq, D] bf16; lengths [B] int32 (the current token included);
+// scratch f32 of B * Hkv * ceil(Pmax / split_pages) * (Hq/Hkv) * (D + 2).
 int paged_decode_attention_bf16(const void* q, const void* k_pool, const void* v_pool,
                                 const int* page_table, const int* lengths, void* out,
                                 void* scratch, int B, int Hq, int Hkv, int N, int page,
-                                int Pmax, int window, float scale, void* stream) {
+                                int Pmax, int D, int window, float scale, void* stream) {
   if (B <= 0) return 0;
   if (!args_ok(Hq, Hkv, page)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_split(q, k_pool, v_pool, page_table, lengths, nullptr, out,
-                      static_cast<float*>(scratch), B, 1, 1, Hq, Hkv, N, page, Pmax,
-                      window, scale, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PAGED_DISPATCH_D(D, launch_split, q, k_pool, v_pool, page_table, lengths, nullptr, out,
+                   static_cast<float*>(scratch), B, 1, 1, Hq, Hkv, N, page, Pmax, window,
+                   scale, st)
+}
+
+// The same two entry points for f32 q, pools and out (no scratch).
+int ragged_paged_attention_f32(const void* q, const void* k_pool, const void* v_pool,
+                               const int* page_table, const int* hist, const int* q_lens,
+                               void* out, int B, int Qmax, int Hq, int Hkv, int N, int page,
+                               int Pmax, int D, int window, float scale, void* stream) {
+  if (B <= 0 || Qmax <= 0) return 0;
+  if (!args_ok(Hq, Hkv, page)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PAGED_DISPATCH_D(D, launch_f32, q, k_pool, v_pool, page_table, hist, q_lens, out, B, Qmax,
+                   Hq, Hkv, N, page, Pmax, window, scale, st)
+}
+
+int paged_decode_attention_f32(const void* q, const void* k_pool, const void* v_pool,
+                               const int* page_table, const int* lengths, void* out, int B,
+                               int Hq, int Hkv, int N, int page, int Pmax, int D, int window,
+                               float scale, void* stream) {
+  if (B <= 0) return 0;
+  if (!args_ok(Hq, Hkv, page)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PAGED_DISPATCH_D(D, launch_f32, q, k_pool, v_pool, page_table, lengths, nullptr, out, B, 1,
+                   Hq, Hkv, N, page, Pmax, window, scale, st)
 }
 
 }  // extern "C"

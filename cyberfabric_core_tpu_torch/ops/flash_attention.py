@@ -11,7 +11,10 @@ The wrapper launches the hand-written Hopper kernel of
 ``ops/csrc/flash_attention.cu`` for CUDA tensors, and runs
 :func:`flash_self_attention_plain` only for CPU tensors. There is no fallback
 from the kernel to the plain version. Launches are counted in
-``flash_self_attention.launches``.
+``flash_self_attention.launches``. On the card the kernel takes the head
+dims of the model registry (:data:`HEAD_DIMS`), 1 to 8 query heads per kv
+head, and bf16 (the wgmma kernel) or f32 (a CUDA-core kernel, f32
+throughout) inputs; the wrapper raises on anything else.
 
 Query positions at or past ``lengths[b]`` come out as zeros in both versions
 (the JAX kernel leaves them undefined).
@@ -37,8 +40,10 @@ import torch
 
 _NEG_INF = -1e30
 _LANES = 128
-_HEAD_DIM = 128                 # the CUDA kernel's head dim
-_KERNEL_GROUPS = (1, 2, 4, 8)   # q heads per kv head the CUDA kernel takes
+#: the head dims the CUDA kernel is built for (those of models/configs.py)
+HEAD_DIMS = (16, 64, 96, 128, 256)
+_MAX_GROUP = 8                  # q heads per kv head the CUDA kernel takes, from 1
+_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _block(requested: int, Tp: int) -> int:
@@ -103,9 +108,10 @@ def _lib():
     from ._build import load_library
 
     lib = load_library("flash_attention")
-    lib.flash_self_attention_bf16.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-    lib.flash_self_attention_bf16.restype = ctypes.c_int
+    for fn in (lib.flash_self_attention_bf16, lib.flash_self_attention_f32):
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -113,12 +119,13 @@ def check_kernel_supports(head_dim: int, num_heads: int, num_kv_heads: int,
                           dtype: torch.dtype) -> None:
     """Raise ValueError naming what the CUDA kernel does not take (an engine
     checks its model here once, before any prompt reaches the kernel)."""
-    if dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA flash kernel takes bfloat16, got {dtype}")
-    if head_dim != _HEAD_DIM:
-        raise ValueError(f"the CUDA flash kernel takes head_dim {_HEAD_DIM}, got {head_dim}")
-    if num_heads % num_kv_heads or num_heads // num_kv_heads not in _KERNEL_GROUPS:
-        raise ValueError(f"the CUDA flash kernel takes {_KERNEL_GROUPS} query heads per "
+    if dtype not in _DTYPES:
+        raise ValueError(f"the CUDA flash kernel takes bfloat16 or float32, got {dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"the CUDA flash kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {head_dim}")
+    if num_heads % num_kv_heads or num_heads // num_kv_heads > _MAX_GROUP:
+        raise ValueError(f"the CUDA flash kernel takes 1 to {_MAX_GROUP} query heads per "
                          f"kv head, got Hq {num_heads} over Hkv {num_kv_heads}")
 
 
@@ -132,6 +139,9 @@ def _check_cuda_inputs(q, k, v, lengths) -> None:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q is on {dev}")
         check_kernel_supports(D, Hq, k.shape[2], t.dtype)
+        if t.dtype != q.dtype:
+            raise ValueError(f"q, k and v must share a dtype, got {name} {t.dtype} "
+                             f"with q {q.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if lengths.device != dev or lengths.dtype != torch.int32 \
@@ -161,9 +171,11 @@ def flash_self_attention(
         raise ValueError(f"sliding_window must be positive, got {sliding_window}")
     B, T, Hq, D = q.shape
     out = torch.empty_like(q)
-    rc = _lib().flash_self_attention_bf16(
+    launch = (_lib().flash_self_attention_f32 if q.dtype == torch.float32
+              else _lib().flash_self_attention_bf16)
+    rc = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, T, Hq, k.shape[2], int(sliding_window or 0), 1.0 / D ** 0.5,
+        B, T, Hq, k.shape[2], D, int(sliding_window or 0), 1.0 / D ** 0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc < 0:
         raise RuntimeError(f"flash_self_attention: a TMA tensor map could not be made "

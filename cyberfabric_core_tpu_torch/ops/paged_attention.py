@@ -14,7 +14,10 @@ Each wrapper launches the hand-written Hopper kernels of
 ``ops/csrc/paged_attention.cu`` for CUDA tensors, and runs its plain PyTorch
 version (``*_plain``) only for CPU tensors. There is no fallback from the
 kernel to the plain version. Each wrapper counts its calls that launch the
-kernels in its ``launches`` attribute.
+kernels in its ``launches`` attribute. On the card the kernels take the head
+dims of the model registry (:data:`HEAD_DIMS`), up to 8 query heads per kv
+head, and bf16 (the tensor-core kernels) or f32 (a CUDA-core kernel, f32
+throughout) inputs; the wrappers raise on anything else.
 
 On the card, decode is split-KV: each row's keys are cut every
 :func:`split_pages` pages from key 0, one block per (row, kv head, split)
@@ -43,7 +46,9 @@ from typing import Optional
 import torch
 
 _NEG_INF = -1e30
-_HEAD_DIM = 128     # the CUDA kernel's head dim
+#: the head dims the CUDA kernels are built for (those of models/configs.py)
+HEAD_DIMS = (16, 64, 96, 128, 256)
+_DTYPES = (torch.bfloat16, torch.float32)
 _MAX_PAGE = 64      # the CUDA kernel's largest page
 _MAX_GROUP = 8      # the CUDA kernel's most query heads per kv head
 #: ragged spans of at most this many positions take the decode (split-KV)
@@ -144,9 +149,13 @@ def paged_gather_dense(k_pool: torch.Tensor, v_pool: torch.Tensor,
 
 # ---------------------------------------------------------------- CUDA launches
 _LIB_SIGNATURES = {
-    "ragged_paged_attention_bf16": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    "ragged_paged_attention_bf16": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_void_p],
-    "paged_decode_attention_bf16": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    "paged_decode_attention_bf16": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    + [ctypes.c_float, ctypes.c_void_p],
+    "ragged_paged_attention_f32": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+    + [ctypes.c_float, ctypes.c_void_p],
+    "paged_decode_attention_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_void_p],
     "paged_attention_split_pages": [],
     "paged_attention_short_span": [],
@@ -176,12 +185,28 @@ def split_pages() -> int:
     return _lib().paged_attention_split_pages()
 
 
-def _scratch(items: int, Hkv: int, G: int, Pmax: int, dev) -> torch.Tensor:
-    """f32 scratch of the decode path's partials: (m, l, acc[D]) for each
-    (item, kv head, split, head)."""
+def _scratch(items: int, Hkv: int, G: int, Pmax: int, D: int, dev) -> torch.Tensor:
+    """f32 scratch of the bf16 decode path's partials: (m, l, acc[D]) for
+    each (item, kv head, split, head)."""
     n_split = -(-Pmax // split_pages())
-    return torch.empty(items * Hkv * n_split * G * (_HEAD_DIM + 2),
+    return torch.empty(items * Hkv * n_split * G * (D + 2),
                        dtype=torch.float32, device=dev)
+
+
+def check_kernel_supports(head_dim: int, num_heads: int, num_kv_heads: int,
+                          dtype: torch.dtype, page: int) -> None:
+    """Raise ValueError naming what the CUDA kernels do not take (an engine
+    checks its model here once, before any request reaches a kernel)."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"the CUDA paged kernels take bfloat16 or float32, got {dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"the CUDA paged kernels take head_dim in {HEAD_DIMS}, "
+                         f"got {head_dim}")
+    if page > _MAX_PAGE:
+        raise ValueError(f"page size {page} exceeds the kernel's {_MAX_PAGE}")
+    if num_heads % num_kv_heads or num_heads // num_kv_heads > _MAX_GROUP:
+        raise ValueError(f"{num_heads} query heads over {num_kv_heads} kv heads: the CUDA "
+                         f"kernels take groups of at most {_MAX_GROUP}")
 
 
 def _check_cuda_inputs(q, k_pool, v_pool, tables) -> None:
@@ -189,9 +214,9 @@ def _check_cuda_inputs(q, k_pool, v_pool, tables) -> None:
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q is on {dev}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16 for the CUDA kernel, "
-                            f"got {t.dtype}")
+        if t.dtype not in _DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"q and the pools must all be bfloat16 or all float32 for "
+                            f"the CUDA kernels, got {name} {t.dtype} with q {q.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     for name, t in tables.items():
@@ -201,13 +226,9 @@ def _check_cuda_inputs(q, k_pool, v_pool, tables) -> None:
         raise ValueError(f"pools must match and be [N, page, Hkv, D], got "
                          f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
     _, page, Hkv, D = k_pool.shape
-    if D != _HEAD_DIM or q.shape[-1] != D:
-        raise ValueError(f"the CUDA kernel takes head_dim {_HEAD_DIM}, got {D}")
-    if page > _MAX_PAGE:
-        raise ValueError(f"page size {page} exceeds the kernel's {_MAX_PAGE}")
-    if q.shape[-2] % Hkv or q.shape[-2] // Hkv > _MAX_GROUP:
-        raise ValueError(f"{q.shape[-2]} query heads over {Hkv} kv heads: the CUDA "
-                         f"kernel takes groups of at most {_MAX_GROUP}")
+    if q.shape[-1] != D:
+        raise ValueError(f"q has head_dim {q.shape[-1]}, the pools {D}")
+    check_kernel_supports(D, q.shape[-2], Hkv, q.dtype, page)
 
 
 def _window_arg(sliding_window: Optional[int]) -> int:
@@ -243,13 +264,19 @@ def paged_decode_attention(
     N, page, Hkv, _ = k_pool.shape
     Pmax = page_table.shape[1]
     out = torch.empty_like(q)
-    scratch = _scratch(B, Hkv, Hq // Hkv, Pmax, q.device)
-    rc = _lib().paged_decode_attention_bf16(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), B, Hq, Hkv, N, page, Pmax,
-        _window_arg(sliding_window), 1.0 / D ** 0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    window, scale = _window_arg(sliding_window), 1.0 / D ** 0.5
+    if q.dtype == torch.float32:
+        rc = _lib().paged_decode_attention_f32(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, N, page, Pmax, D, window,
+            scale, stream)
+    else:
+        scratch = _scratch(B, Hkv, Hq // Hkv, Pmax, D, q.device)
+        rc = _lib().paged_decode_attention_bf16(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), B, Hq, Hkv, N, page, Pmax, D, window, scale, stream)
     _raise_on(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
@@ -285,13 +312,19 @@ def ragged_paged_attention(
     N, page, Hkv, _ = k_pool.shape
     Pmax = page_table.shape[1]
     out = torch.empty_like(q)
-    scratch = _scratch(B * min(Qmax, SHORT_SPAN), Hkv, Hq // Hkv, Pmax, q.device)
-    rc = _lib().ragged_paged_attention_bf16(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        page_table.data_ptr(), hist.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), B, Qmax, Hq, Hkv, N, page, Pmax,
-        _window_arg(sliding_window), 1.0 / D ** 0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    window, scale = _window_arg(sliding_window), 1.0 / D ** 0.5
+    if q.dtype == torch.float32:
+        rc = _lib().ragged_paged_attention_f32(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
+            hist.data_ptr(), q_lens.data_ptr(), out.data_ptr(), B, Qmax, Hq, Hkv, N, page,
+            Pmax, D, window, scale, stream)
+    else:
+        scratch = _scratch(B * min(Qmax, SHORT_SPAN), Hkv, Hq // Hkv, Pmax, D, q.device)
+        rc = _lib().ragged_paged_attention_bf16(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_table.data_ptr(), hist.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), B, Qmax, Hq, Hkv, N, page, Pmax, D, window, scale, stream)
     _raise_on(rc, "ragged_paged_attention")
     ragged_paged_attention.launches += 1
     return out

@@ -38,11 +38,13 @@ The JAX ``ContinuousBatchingEngine`` on one CUDA device, on three paths:
   per-request seed.
 
 On the paged paths, rounds with no prompt chunks run ``decode_chunk`` fused
-decode steps through :func:`ops.paged_attention.paged_decode_attention`,
-through the **lookahead ring** (``decode_lookahead`` deep): a round drains
-the oldest in-flight chunk while up to ``depth`` later chunks, each chained
-off the device outputs of the one before, are already queued, so the host's
-emit loop overlaps the device. Dispatch commits nothing: a chunk's outputs
+decode steps through :func:`ops.paged_attention.paged_decode_attention`: on
+CUDA one replay of a CUDA graph captured when the engine is built
+(:class:`.programs.PagedDecodeChunk`), on the CPU the same body called
+eagerly. They run through the **lookahead ring** (``decode_lookahead``
+deep): a round drains the oldest in-flight chunk while up to ``depth``
+later chunks, each chained off the device outputs of the one before, are
+already queued, so the host's emit loop overlaps the device. Dispatch commits nothing: a chunk's outputs
 become the engine's state only when it is drained. An admission, an
 activation or a stop the device could not see bumps the epoch and the
 stale ring suffix is discarded; since a ``torch.Generator`` advances when a
@@ -57,9 +59,10 @@ finished mask, and a finished row freezes (its KV writes park on scratch page
 0 or an unread position, its length and last token stop advancing, it emits
 -1). The host mirrors the same rules to close each stream with one terminal
 event. Each round (and each phase-separated prefill dispatch) makes ONE
-blocking device→host read: on CUDA each dispatch copies its tokens into a
-pinned buffer of its own without blocking and records an event, and the
-round waits on the event of the chunk it drains. Host→device patches go
+blocking device→host read: on CUDA each dispatch copies its tokens into one
+of a fixed set of pinned buffers (one per ring slot, taken back at the
+drain) without blocking and records an event, and the round waits on the
+event of the chunk it drains. Host→device patches go
 through pinned staging buffers of their own (:func:`device.to_device`), so
 nothing else in a round waits for the device.
 
@@ -102,6 +105,7 @@ from ..ops.sampling import (make_slot_generator, sample_token, sample_token_per_
 from .engine import (EngineConfig, SamplingParams, SchedulerSaturated, StepEvent,
                      build_decode_chunk_fn)
 from .paged import PrefixKVPool
+from .programs import PagedDecodeChunk
 from .weights import model_from_state_dict
 
 logger = logging.getLogger("scheduler")
@@ -209,9 +213,10 @@ class _InflightChunk:
     engine adopts only at the drain. ``active_dev`` is the mask it was
     dispatched with; a chained chunk reuses it, and it is never committed
     from a decode chunk (the host's finishes since must stand). ``host`` and
-    ``ready`` are the tokens' pinned readback buffer and the event that
-    marks the copy done (None on the CPU); ``gen_states`` the drawing
-    slots' generator states before this dispatch, put back on a discard."""
+    ``ready`` are the tokens' pinned readback buffer (the engine's, given
+    back at the drain or discard) and the event that marks the copy done
+    (None on the CPU); ``gen_states`` the drawing slots' generator states
+    before this dispatch, put back on a discard."""
 
     chunk_dev: torch.Tensor   # [N, k] tokens, -1 for frozen rows ([N] for mixed)
     last: torch.Tensor        # [N] last tokens after the dispatch
@@ -226,10 +231,14 @@ class _InflightChunk:
 
 class ContinuousBatchingEngine:
     """Runs a scheduler thread driving the device; submission is
-    thread-safe. ``emit`` callbacks fire on the scheduler thread."""
+    thread-safe. ``emit`` callbacks fire on the scheduler thread.
+
+    ``_eager_decode`` (private, not an ``EngineConfig`` option): on CUDA,
+    enqueue the paged decode chunk launch by launch instead of replaying its
+    CUDA graph; a comparison run's switch, nothing a deployment sets."""
 
     def __init__(self, config: EngineConfig, params: Any = None, seed: int = 0,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None, *, _eager_decode: bool = False) -> None:
         self.device = resolve_device(device)
         self.config = config
         self.model_config = get_config(config.model)
@@ -257,9 +266,13 @@ class ContinuousBatchingEngine:
         self.paged = config.prefix_cache_pages > 0
         self.mixed = self.paged and config.mixed_batch
         self.use_flash = config.resolve_use_flash(self.device)
-        if self.use_flash and self.device.type == "cuda":
-            fa.check_kernel_supports(cfg.head_dim, cfg.num_heads, cfg.num_kv_heads,
-                                     self.dtype)
+        if self.device.type == "cuda":  # a model the kernels cannot take fails here
+            if self.use_flash:
+                fa.check_kernel_supports(cfg.head_dim, cfg.num_heads, cfg.num_kv_heads,
+                                         self.dtype)
+            if self.paged:
+                pa.check_kernel_supports(cfg.head_dim, cfg.num_heads, cfg.num_kv_heads,
+                                         self.dtype, config.prefix_page_size)
         page = config.prefix_page_size
         self.pmax = -(-config.max_seq_len // page)
         self.pool: Optional[PrefixKVPool] = None
@@ -309,6 +322,25 @@ class ContinuousBatchingEngine:
         # the lookahead ring (paged decode rounds)
         self._depth = config.resolve_lookahead_depth() if self.paged else 0
         self._ring: deque[_InflightChunk] = deque()
+        #: pinned readback buffers by shape: one per ring slot for decode
+        #: chunks, one for the mixed round; a dispatch takes one, its drain or
+        #: discard gives it back
+        self._pinned: dict[tuple, list[torch.Tensor]] = {}
+        self._chunk: Optional[PagedDecodeChunk] = None
+        if self.paged:
+            if dev.type == "cuda":
+                self._pinned = {
+                    (n, self._k_steps): [torch.empty((n, self._k_steps), dtype=torch.int32,
+                                                     pin_memory=True)
+                                         for _ in range(self._depth + 1)],
+                    (n,): [torch.empty((n,), dtype=torch.int32, pin_memory=True)]}
+            rows = {"page_table": self._page_table_dev, "stops": self._stops_dev,
+                    "limit": self._limit_dev, "temperature": self._temp_dev,
+                    "top_p": self._top_p_dev, "top_k": self._top_k_dev}
+            self._chunk = PagedDecodeChunk(
+                self.params, cfg, (self.pool.k_pool, self.pool.v_pool), rows,
+                self.rope_tables, n, self._k_steps, config.max_seq_len,
+                graphs=dev.type == "cuda" and not _eager_decode)
         #: bumped by every change the in-flight ring cannot have seen
         self._epoch = 0
 
@@ -424,6 +456,9 @@ class ContinuousBatchingEngine:
             "host_emit_ms_p50": p50("host_emit_ms"),
             "ms_by_kind": {kind: {"count": self.rounds[kind], **self.round_split_ms[kind]}
                            for kind in _ROUND_KINDS},
+            "decode_graphs": bool(self._chunk and self._chunk.graphs),
+            "decode_graph_replays": self._chunk.replays if self._chunk else 0,
+            "decode_eager_chunks": self._chunk.eager_runs if self._chunk else 0,
         }
         return {
             "mode": "mixed" if self.mixed else
@@ -877,14 +912,24 @@ class ContinuousBatchingEngine:
 
     def _readback(self, tokens: torch.Tensor) -> tuple[torch.Tensor, Optional[Any]]:
         """Start the tokens' copy to the host without blocking: on CUDA into
-        a pinned buffer of their own, marked done by an event."""
+        a free pinned buffer of the engine's (a ring slot's, or the mixed
+        round's), marked done by an event. A buffer a discarded dispatch
+        still copies into is safe to take: the copies run in stream order."""
         if self.device.type != "cuda":
             return tokens, None
-        host = torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True)
+        free = self._pinned[tuple(tokens.shape)]
+        if not free:
+            raise RuntimeError(f"no free pinned readback buffer of shape {tuple(tokens.shape)}: "
+                               "more dispatches in flight than the ring holds")
+        host = free.pop()
         host.copy_(tokens, non_blocking=True)
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(self.device))
         return host, ready
+
+    def _give_back(self, rec: _InflightChunk) -> None:
+        if rec.ready is not None:
+            self._pinned[tuple(rec.host.shape)].append(rec.host)
 
     def _discard_ring(self) -> None:
         """Drop every undrained ring entry and put back the generator states
@@ -894,27 +939,28 @@ class ContinuousBatchingEngine:
         for rec in reversed(self._ring):
             for gen, saved in rec.gen_states:
                 gen.set_state(saved)
+            self._give_back(rec)
         self.lookahead["discarded"] += len(self._ring)
         self._ring.clear()
 
     def _commit_chunk(self, rec: _InflightChunk) -> np.ndarray:
         """Adopt a drained chunk's outputs as the engine's state (the active
-        mask excepted) and advance the host lengths; returns the lengths
-        before the chunk."""
-        self._last_dev = rec.last
-        self._lengths_dev = rec.lengths_dev
-        self._finished_dev = rec.finished_dev
+        mask excepted), in place, and advance the host lengths; returns the
+        lengths before the chunk."""
+        self._last_dev.copy_(rec.last)
+        self._lengths_dev.copy_(rec.lengths_dev)
+        self._finished_dev.copy_(rec.finished_dev)
         old_lengths = self.lengths.copy()
         self.lengths = np.where(self.active, self.lengths + self._k_steps, 0).astype(np.int32)
         return old_lengths
 
     def _dispatch_chunk(self, after: Optional[_InflightChunk],
                         draw_mask: np.ndarray) -> _InflightChunk:
-        """Enqueue ``decode_chunk`` fused decode steps over all slots, from
+        """Enqueue ``decode_chunk`` fused decode steps over all slots
+        (:class:`.programs.PagedDecodeChunk`: a graph replay on CUDA), from
         the committed state or chained off ``after``'s outputs; rows that hit
         a stop id, their limit or the window bound freeze on the device.
         ``draw_mask``: the rows whose generators draw. Commits nothing."""
-        k, cfg = self._k_steps, self.model_config
         self._flush_page_table()
         self._note_sharing()
         if after is None:
@@ -925,27 +971,10 @@ class ContinuousBatchingEngine:
                 after.active_dev
         gens, all_greedy = self._sampling_rows(draw_mask)
         saved = [(g, g.get_state()) for g in gens if g is not None]
-        emits = []
-        for j in range(k):
-            run = active & ~fin
-            hidden, _ = llama.forward_paged_decode(
-                self.params, cfg, toks[:, None], (self.pool.k_pool, self.pool.v_pool),
-                self._page_table_dev, lens, self.rope_tables, write_mask=run)
-            logits = llama.lm_head_logits(self.params, cfg, hidden[:, 0])
-            nxt = self._sample(logits, gens, all_greedy)
-            new_lens = lens + 1
-            is_stop = (nxt[:, None] == self._stops_dev).any(dim=1)
-            hit = new_lens >= self._limit_dev
-            if j == k - 1:
-                hit = hit | (new_lens + k > self.config.max_seq_len)
-            emits.append(torch.where(run, nxt, torch.full_like(nxt, -1)))
-            toks = torch.where(run, nxt, toks)
-            lens = torch.where(run, new_lens, lens)
-            fin = fin | (run & (is_stop | hit))
-        chunk = torch.stack(emits, dim=1)
+        chunk, last, lengths, finished = self._chunk(toks, lens, fin, active, gens, all_greedy)
         host, ready = self._readback(chunk)
-        return _InflightChunk(chunk, toks, torch.where(active, lens, torch.zeros_like(lens)),
-                              fin, active, self._epoch, host, ready, saved)
+        return _InflightChunk(chunk, last, lengths, finished, active, self._epoch, host, ready,
+                              saved)
 
     def _can_extend_ring(self) -> bool:
         """Chain one more chunk off the ring's tail only while it is likely to
@@ -967,7 +996,9 @@ class ContinuousBatchingEngine:
     def _drain(self, rec: _InflightChunk) -> np.ndarray:
         if rec.ready is not None:
             rec.ready.synchronize()  # sync-point: the round's one blocking read
-        return rec.host.numpy()
+        tokens = rec.host.numpy().copy()
+        self._give_back(rec)
+        return tokens
 
     def _decode_round_chunk(self) -> str:
         """A pure-decode round through the ring: drop a stale ring, dispatch
@@ -1082,9 +1113,11 @@ class ContinuousBatchingEngine:
         toks_host = self._drain(rec)
         t2 = time.perf_counter()
         # the mixed dispatch flipped its final rows on the device: adopt its
-        # active mask with the rest
-        self._last_dev, self._lengths_dev = rec.last, rec.lengths_dev
-        self._finished_dev, self._active_dev = rec.finished_dev, rec.active_dev
+        # active mask with the rest, in place
+        for mine, new in ((self._last_dev, rec.last), (self._lengths_dev, rec.lengths_dev),
+                          (self._finished_dev, rec.finished_dev),
+                          (self._active_dev, rec.active_dev)):
+            mine.copy_(new)
 
         decode_rows = [s for s in range(n) if self.active[s]]
         old_lengths = self.lengths.copy()

@@ -31,6 +31,9 @@ def _inputs(seed, B, T, Hq, Hkv, D):
     (2, 32, 4, 1, 16, 32, 32, None),    # extreme GQA, single kv block
     (1, 128, 2, 1, 32, 32, 64, None),   # bk > bq
     (1, 128, 4, 2, 32, 32, 32, 48),     # sliding window
+    (1, 64, 7, 1, 16, 32, 16, None),    # G=7 (qwen2-7b's group)
+    (2, 64, 2, 2, 96, 32, 32, None),    # D=96 (phi-3-mini)
+    (1, 64, 2, 1, 256, 32, 32, 20),     # D=256 (gemma-7b), window
 ])
 def test_plain_matches_jax_kernel_and_dense_attention(B, T, Hq, Hkv, D, block_q,
                                                        block_k, window):
@@ -80,9 +83,13 @@ def test_wrapper_counts_no_launch_on_the_cpu():
 
 @pytest.mark.parametrize("head_dim,Hq,Hkv,dtype,bad", [
     (128, 32, 8, torch.bfloat16, None),        # llama-3-8b
-    (96, 32, 32, torch.bfloat16, "head_dim"),  # phi-3-mini
-    (128, 12, 4, torch.bfloat16, "query heads per kv head"),
-    (128, 32, 8, torch.float32, "bfloat16"),
+    (96, 32, 32, torch.bfloat16, None),        # phi-3-mini
+    (128, 28, 4, torch.bfloat16, None),        # qwen2-7b: G=7
+    (256, 16, 16, torch.bfloat16, None),       # gemma-7b
+    (16, 4, 2, torch.float32, None),           # tiny-llama at dtype float32
+    (32, 4, 2, torch.bfloat16, "head_dim"),
+    (128, 36, 4, torch.bfloat16, "query heads per kv head"),   # G=9
+    (128, 32, 8, torch.float16, "bfloat16 or float32"),
 ])
 def test_kernel_support_check_names_what_it_refuses(head_dim, Hq, Hkv, dtype, bad):
     """What a CUDA engine checks once at build: a model the kernel cannot

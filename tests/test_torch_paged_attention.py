@@ -46,6 +46,11 @@ DECODE_CASES = [
     (3, 4, 2, 16, 8, 4, None, [1, 9, 30]),
     (3, 4, 2, 16, 8, 5, 11, [5, 17, 40]),
     (3, 4, 2, 16, 8, 6, 9, [31, 32, 33]),
+    # the other head dims and groups the card's kernels are built for:
+    # qwen2-7b's G=7, phi-3-mini's D=96, gemma-7b's D=256 (with a window)
+    (2, 7, 1, 16, 8, 4, None, [9, 30]),
+    (2, 2, 2, 96, 8, 3, None, [5, 20]),
+    (2, 2, 1, 256, 8, 3, 7, [12, 24]),
 ]
 
 
@@ -74,6 +79,10 @@ RAGGED_CASES = [
     (3, 8, 4, 2, 16, 8, 6, 6, [9, 0, 30], [8, 3, 1]),
     (5, 24, 4, 2, 16, 8, 8, None, [0, 10, 20, 31, 40], [1, 3, 8, 9, 17]),
     (5, 24, 4, 2, 16, 8, 8, 13, [0, 10, 20, 31, 40], [1, 3, 8, 9, 17]),
+    # G=7, D=96 and D=256 (with a window), short spans and chunks
+    (3, 16, 7, 1, 16, 8, 5, None, [0, 9, 20], [13, 1, 9]),
+    (2, 16, 2, 2, 96, 8, 4, None, [3, 12], [12, 1]),
+    (2, 16, 2, 1, 256, 8, 4, 9, [4, 10], [16, 2]),
 ]
 
 
@@ -218,3 +227,29 @@ def test_wrappers_count_no_launch_on_cpu():
                                torch.tensor([3], dtype=torch.int32))
     assert (tpa.paged_decode_attention.launches,
             tpa.ragged_paged_attention.launches) == before
+
+
+def test_kernel_checks_take_every_llama_config_of_the_registry():
+    """What a CUDA engine checks at build: every llama-family config of the
+    registry (head dims 16, 96, 128 and 256; G 1, 2, 4, 7 and 8) in bf16 and
+    f32 passes both kernels' checks; what the kernels do not take raises."""
+    from cyberfabric_core_tpu_torch.models.configs import MODEL_CONFIGS
+    from cyberfabric_core_tpu_torch.ops import flash_attention as tfa
+
+    checked = set()
+    for cfg in MODEL_CONFIGS.values():
+        if cfg.architecture != "llama" or cfg.num_experts:
+            continue
+        for dtype in (torch.bfloat16, torch.float32):
+            tpa.check_kernel_supports(cfg.head_dim, cfg.num_heads, cfg.num_kv_heads,
+                                      dtype, 64)
+            tfa.check_kernel_supports(cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, dtype)
+        checked.add((cfg.head_dim, cfg.num_heads // cfg.num_kv_heads))
+    assert {d for d, _ in checked} == {16, 96, 128, 256}
+    assert {g for _, g in checked} == {1, 2, 4, 7, 8}
+    for args, what in [((32, 4, 2, torch.bfloat16, 16), "head_dim"),
+                       ((128, 36, 4, torch.bfloat16, 16), "groups of at most"),
+                       ((128, 32, 8, torch.bfloat16, 128), "page size"),
+                       ((128, 32, 8, torch.float16, 16), "bfloat16 or float32")]:
+        with pytest.raises(ValueError, match=what):
+            tpa.check_kernel_supports(*args)
