@@ -54,13 +54,30 @@ fatal on failure:
    replays (or eagerly, with the switch), the pool conserves its pages
    (nothing referenced or orphaned, every page free or cached), and every
    greedy token lies within a bf16 margin of the max of the dense forward's
-   logits (teacher-forced);
-5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
+   logits (teacher-forced). At llama-3-8b width also: (i) cancellation and
+   deadlines (cancelled while queued, after a 1500-token prompt's first
+   512-token chunk, mid-decode from the emit callback with the ring in
+   flight, twice; lapses in the queue and mid-decode; an unknown id): one
+   terminal event a stream with the JAX reason, the counts, a freed slot
+   serving a later request; (ii) preemption to host, forced by wrapping
+   ``pool.extend_chain`` here: greedy and seeded streams preempted
+   mid-decode and one mid chunked prefill equal their undisturbed runs;
+   (iii) tenants: fair admission, ``tenant_max_slots`` held at every round,
+   a soft-quota yield that resumes, the hard limits raising at ``submit``;
+5. golden parity: the five committed HF checkpoints (llama, qwen2, gemma,
+   mixtral MoE, outlier llama) through the port's loader at f32 on the
+   card, TF32 off: logits through the f32 flash kernel within rtol = atol
+   = 1e-4 of transformers' and the greedy continuation through a paged
+   mixed engine at f32 (mixtral's routed MoE inside the decode graph)
+   equal to transformers'; the f32 entry points and D 64 timed at the
+   main-path shapes;
+6. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -84,6 +101,7 @@ from cyberfabric_core_tpu_torch.runtime.tokenizer import ByteTokenizer
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak, same source
+F32_FLOPS_PER_S = 67e12        # float32 outside the tensor cores, same source
 KERNELS = {  # name → (source, the TPU kernel it replaces, wrapper)
     "ragged_paged_attention": ("cyberfabric_core_tpu_torch/ops/csrc/paged_attention.cu",
                                "cyberfabric_core_tpu/ops/paged_attention.py:421",
@@ -206,10 +224,12 @@ def i32(xs, dev):
     return torch.tensor(xs, dtype=torch.int32, device=dev)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, dtype=torch.bfloat16):
     """The least time the card could take: the larger of the bytes over the
-    HBM rate and the operations over the bf16 tensor-core rate, in ms."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    HBM rate and the operations over the peak rate of ``dtype`` (bf16 on the
+    tensor cores; f32 on the CUDA cores, where the f32 kernels run), in ms."""
+    peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -242,7 +262,7 @@ def paged_geometry(Hq, Hkv, page, Pmax, B, Qmax, split_rows, chunks, D=128) -> d
     return geo
 
 
-def time_kernel(name, kern, plain, libs, nbytes, flops, err) -> dict:
+def time_kernel(name, kern, plain, libs, nbytes, flops, err, dtype=torch.bfloat16) -> dict:
     """Times of the kernel and of each library yardstick in ``libs`` ({label:
     call}) on the card (CUDA-graph replay: device time, no host gaps) and of
     the plain version (CUDA events), beside the bound; also back-to-back event
@@ -254,10 +274,12 @@ def time_kernel(name, kern, plain, libs, nbytes, flops, err) -> dict:
     plain_ms = cuda_ms(plain, 3, warmup=1)
     lib_ms = {label: graph_ms(lib) for label, lib in libs.items()}
     library_ms = min(lib_ms.values())
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    tol = (f"rtol = atol = {F32_TOL}" if dtype == torch.float32
+           else "one bf16 ulp of the plain value")
     log(f"kernel {name} main shapes: ms={ms:.4f} plain_ms={plain_ms:.3f} "
         f"library_ms={library_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-        f"max_abs_err={err:.3e} (tolerance: one bf16 ulp of the plain value)")
+        f"max_abs_err={err:.3e} (tolerance: {tol})")
     log(f"kernel {name} library yardsticks (device ms): "
         + ", ".join(f"{label} {t:.4f}" for label, t in lib_ms.items()))
     first_lib = next(iter(libs.values()))
@@ -272,7 +294,7 @@ def time_kernel(name, kern, plain, libs, nbytes, flops, err) -> dict:
 def ragged_one(q1, k, v, pt, lens, window):
     """Each row's decode query as a ragged span of one token at lens-1."""
     B, Hq, D = q1.shape
-    qr = torch.zeros((B, 8, Hq, D), dtype=torch.bfloat16, device=q1.device)
+    qr = torch.zeros((B, 8, Hq, D), dtype=q1.dtype, device=q1.device)
     qr[:, 0] = q1
     ones = torch.ones(B, dtype=torch.int32, device=q1.device)
     return pa.ragged_paged_attention(qr, k, v, pt, lens - 1, ones,
@@ -380,21 +402,25 @@ def kernel_split_cases(dev, gen, D=128) -> None:
         "independent of its span's start")
 
 
-def kernel_main_shapes(dev, gen, cfg, page, Pmax, n_pages) -> dict[str, dict]:
+def kernel_main_shapes(dev, gen, cfg, page, Pmax, n_pages,
+                       dtype=torch.bfloat16) -> dict[str, dict]:
     """Serving shapes of ``cfg``'s heads (the main path's: llama-3-8b): 8
-    rows, lengths 128..2048, 64-token pages."""
+    rows, lengths 128..2048, 64-token pages; bf16, or the f32 entry points
+    (held to rtol = atol = F32_TOL, bound by the f32 CUDA-core peak)."""
     B, Hq, Hkv, D = 8, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    k, v = make_pools(gen, n_pages, page, Hkv, D, dev)
+    esize = torch.empty((), dtype=dtype).element_size()
+    close = f32_close if dtype == torch.float32 else bf16_ulp_close
+    k, v = make_pools(gen, n_pages, page, Hkv, D, dev, dtype)
     pt = make_table(B, Pmax, n_pages, 2, dev)
     lengths = [128, 384, 640, 896, 1152, 1408, 1664, 2048]
     lens = i32(lengths, dev)
-    q1 = torch.randn((B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    q1 = torch.randn((B, Hq, D), generator=gen, device=dev).to(dtype)
     # a mixed round: one 512-token prompt chunk, six decode rows, one idle row
     Qmax = 512
     hist_l = [1024, 383, 639, 895, 0, 1407, 1663, 2047]
     qlen_l = [512, 1, 1, 1, 0, 1, 1, 1]
     hist, q_lens = i32(hist_l, dev), i32(qlen_l, dev)
-    q = torch.randn((B, Qmax, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((B, Qmax, Hq, D), generator=gen, device=dev).to(dtype)
 
     results = {}
     short = pa.SHORT_SPAN
@@ -408,10 +434,10 @@ def kernel_main_shapes(dev, gen, cfg, page, Pmax, n_pages) -> dict[str, dict]:
             [(h, ql) for h, ql in zip(hist_l, qlen_l) if ql > short], D),
     }
     dec = pa.paged_decode_attention(q1, k, v, pt, lens)
-    err_dec = bf16_ulp_close(dec, pa.paged_decode_attention_plain(q1, k, v, pt, lens))
+    err_dec = close(dec, pa.paged_decode_attention_plain(q1, k, v, pt, lens))
     rag = pa.ragged_paged_attention(q, k, v, pt, hist, q_lens)
-    err_rag = bf16_ulp_close(rag, pa.ragged_paged_attention_plain(q, k, v, pt, hist, q_lens))
-    if not torch.equal(ragged_one(q1, k, v, pt, lens, None), dec):
+    err_rag = close(rag, pa.ragged_paged_attention_plain(q, k, v, pt, hist, q_lens))
+    if dtype == torch.bfloat16 and not torch.equal(ragged_one(q1, k, v, pt, lens, None), dec):
         raise AssertionError("main shapes: ragged q_len=1 differs from decode")
 
     # library yardstick: SDPA over the dense K/V gathered (and GQA-expanded)
@@ -429,15 +455,15 @@ def kernel_main_shapes(dev, gen, cfg, page, Pmax, n_pages) -> dict[str, dict]:
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     tokens_dec = sum(lengths)
-    kv_row_bytes = Hkv * D * 2 * 2                       # K and V, bf16
-    dec_bytes = tokens_dec * kv_row_bytes + 2 * B * Hq * D * 2 + B * (Pmax + 1) * 4
+    kv_row_bytes = Hkv * D * 2 * esize                   # K and V
+    dec_bytes = tokens_dec * kv_row_bytes + 2 * B * Hq * D * esize + B * (Pmax + 1) * 4
     dec_flops = 4 * Hq * D * tokens_dec
     rag_tokens = sum(h + ql for h, ql in zip(hist_l, qlen_l) if ql > 0)
     rag_pairs = sum(sum(h + i + 1 for i in range(ql)) for h, ql in zip(hist_l, qlen_l))
     # q is read only at valid span positions; the whole out tensor is
     # written (padding positions are zeros by contract)
-    rag_bytes = (rag_tokens * kv_row_bytes + sum(qlen_l) * Hq * D * 2
-                 + B * Qmax * Hq * D * 2 + B * (Pmax + 2) * 4)
+    rag_bytes = (rag_tokens * kv_row_bytes + sum(qlen_l) * Hq * D * esize
+                 + B * Qmax * Hq * D * esize + B * (Pmax + 2) * 4)
     rag_flops = 4 * Hq * D * rag_pairs
 
     for name, kern, plain, libs, nbytes, flops, err in [
@@ -453,12 +479,12 @@ def kernel_main_shapes(dev, gen, cfg, page, Pmax, n_pages) -> dict[str, dict]:
          rag_bytes, rag_flops, err_rag),
     ]:
         results[name] = time_kernel(f"{name} [{cfg.name}]", kern, plain, libs, nbytes, flops,
-                                    err)
+                                    err, dtype)
         ms, geo = results[name]["ms"], geometry[name]
         rate = (f" (chunk path: {geo['chunk_tc_flops'] / 1e9:.2f} GFLOP of tensor-core "
                 f"work over {geo['chunk_tiles']} tiles, "
                 f"{geo['chunk_tc_flops'] / ms / 1e9:.1f} TFLOP/s if it took the whole call)"
-                if "chunk_tiles" in geo else "")
+                if "chunk_tiles" in geo and dtype == torch.bfloat16 else "")
         log(f"kernel {name} [{cfg.name}] main shapes: blocks {geo}; achieved "
             f"{nbytes / ms / 1e6:.1f} GB/s and {flops / ms / 1e9:.2f} TFLOP/s of the "
             f"counted work against bound {results[name]['bound_ms']:.4f} ms and library "
@@ -569,13 +595,14 @@ def flash_geometry(T, Hq, Hkv, lengths, window=None, D=128) -> dict:
             "tc_flops": wg_tiles * Hkv * 64 * bk * D * 2 * 4}
 
 
-def flash_main_shape(dev, gen, cfg) -> dict:
+def flash_main_shape(dev, gen, cfg, dtype=torch.bfloat16) -> dict:
     """The coalesced batch_prefill group of the serving storm's two longest
     prompts at bucket 2048: B=2, T=2048, lengths [1300, 1500], at ``cfg``'s
-    heads."""
+    heads, in ``dtype``."""
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    esize = torch.empty((), dtype=dtype).element_size()
     lengths, T = [1300, 1500], 2048
-    (q, k, v, lens), err = flash_case(dev, gen, T, Hq, Hkv, lengths, None, D)
+    (q, k, v, lens), err = flash_case(dev, gen, T, Hq, Hkv, lengths, None, D, dtype)
     # library yardsticks on [B, H, T, D]: (a) GQA expanded and the mask
     # (k <= q) & (k < len) built outside the timed call; (b) is_causal, which
     # computes the same rows below each length (their visible keys all lie
@@ -605,14 +632,16 @@ def flash_main_shape(dev, gen, cfg) -> dict:
     tokens = sum(lengths)
     # q read at valid positions, K+V of the valid tokens, the whole output
     # written (rows past the length are zeros by contract), the lengths
-    nbytes = (tokens * Hq * D * 2 + tokens * Hkv * D * 2 * 2
-              + len(lengths) * T * Hq * D * 2 + len(lengths) * 4)
+    nbytes = (tokens * Hq * D * esize + tokens * Hkv * D * 2 * esize
+              + len(lengths) * T * Hq * D * esize + len(lengths) * 4)
     result = time_kernel(
         f"flash_self_attention [{cfg.name}]",
         lambda: fa.flash_self_attention(q, k, v, lens),
         lambda: fa.flash_self_attention_plain(q, k, v, lens),
         {"SDPA masked": lambda: sdpa(qq, kk, vv, attn_mask=mask), causal_label: causal},
-        nbytes, 4 * Hq * D * pairs, err)
+        nbytes, 4 * Hq * D * pairs, err, dtype)
+    if dtype == torch.float32:  # a CUDA-core kernel: no tensor-core tiles to count
+        return result
     geo, ms = flash_geometry(T, Hq, Hkv, lengths, D=D), result["ms"]
     log(f"kernel flash_self_attention [{cfg.name}] main shapes: blocks {geo}; "
         f"{geo['tc_flops'] / 1e9:.2f} GFLOP of tensor-core work over {geo['wg_tiles']} "
@@ -1081,6 +1110,499 @@ def tiny_quickstart_run(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+class Streams:
+    """Per-request records of a run driven case by case: tokens, terminal
+    reasons, submit and terminal times, and an optional hook per request
+    called with each event on the scheduler thread."""
+
+    def __init__(self) -> None:
+        self.recs: dict[str, dict] = {}
+        self._lock = threading.Lock()
+        self._open = 0
+        self.done = threading.Event()
+
+    def emit_for(self, rid: str, hook=None):
+        rec = self.recs[rid] = {"toks": [], "fins": [], "t0": time.perf_counter(),
+                                "t_end": None}
+        with self._lock:
+            self._open += 1
+            self.done.clear()
+
+        def emit(ev):
+            if ev.token_id >= 0:
+                rec["toks"].append(ev.token_id)
+            if hook is not None:
+                hook(ev, rec)
+            if ev.finished is not None:
+                rec["fins"].append(ev.finished)
+                rec["t_end"] = time.monotonic()
+                with self._lock:
+                    self._open -= 1
+                    if self._open == 0:
+                        self.done.set()
+        return emit
+
+    def wait(self, engine, timeout=600.0) -> None:
+        if not self.done.wait(timeout):
+            raise AssertionError(f"requests did not finish: {engine.stats()}")
+
+
+@contextlib.contextmanager
+def held(engine):
+    """Hold the engine's scheduler thread while requests go in, so the first
+    admission sees them all (the same rounds every run)."""
+    engine.shutdown()
+    engine.start = lambda: None  # shadows the method until the block ends
+    try:
+        yield
+    finally:
+        del engine.start
+    engine.start()
+
+
+def one_terminal(label: str, streams: Streams, want: dict[str, str]) -> None:
+    for rid, reason in want.items():
+        fins = streams.recs[rid]["fins"]
+        if fins != [reason]:
+            raise AssertionError(f"[{label}] {rid}: terminal events {fins}, want [{reason!r}]")
+
+
+def flush_prefix_cache(engine) -> None:
+    """Evict every page the radix tree holds, the engine idle (no chain
+    references a page), so the next run prefills cold: the pool's own
+    allocator evicts them, and the pages go straight back."""
+    pool = engine.pool
+    if pool._refs:
+        raise AssertionError("flush_prefix_cache needs an idle pool")
+    ids = pool._alloc(pool.capacity_pages)
+    pool.allocator.free([p - pool._page_offset for p in ids])
+    check_pool("flush", engine.stats())
+
+
+def cancel_phase(card: str, params) -> None:
+    """Cancellation and deadlines at llama-3-8b width, quickstart options
+    (mixed, ring depth 2, decode graphs), seven requests in at once:
+    cancelled while queued; a 1500-token prompt cancelled after its first
+    512-token chunk; a decode cancelled from its own emit callback at its
+    20th token (the ring in flight), then cancelled again (a no-op); a
+    deadline that lapses in the queue; a deadline that lapses mid-decode;
+    two survivors (one greedy, one seeded). Also a cancel of an unknown id
+    (False). Gates: one terminal event a stream with the JAX reason, the
+    greedy survivor within the teacher-forced margin, the cancellation
+    counts, pages conserved, and a freed slot serving a later request."""
+    label = "cancel and deadlines"
+    engine, ecfg = build_engine(label, QUICKSTART, params)
+    vocab = engine.model_config.vocab_size
+    rng = np.random.default_rng(21)
+    prompt = {rid: rng.integers(3, vocab, n).tolist() for rid, n in
+              (("queued", 300), ("prefill", 1500), ("decode", 250), ("lapse-queued", 200),
+               ("lapse-decode", 100), ("survivor", 700), ("survivor-seeded", 96))}
+    sp = {rid: SamplingParams(max_tokens=32) for rid in prompt}
+    sp["decode"] = SamplingParams(max_tokens=64)
+    sp["lapse-decode"] = SamplingParams(max_tokens=1500)
+    sp["survivor-seeded"] = SamplingParams(max_tokens=32, temperature=0.8, seed=5)
+    streams, second = Streams(), []
+
+    def cancel_at_20(ev, rec):
+        if len(rec["toks"]) == 20 and not rec["fins"]:
+            engine.cancel("decode", "client_disconnect")
+            second.append(engine.cancel("decode", "client_disconnect"))
+
+    mixed_round = engine._decode_round_mixed
+
+    def round_hook():  # after each mixed round: cut the long prompt after 512
+        kind = mixed_round()
+        st = next((st for st in engine.slots if st is not None and st.request_id == "prefill"),
+                  None)
+        if st is not None and st.phase == "prefill" and st.prefill_pos >= 512:
+            engine.cancel("prefill", "client_disconnect")
+        return kind
+
+    engine._decode_round_mixed = round_hook
+    lapse_at = None
+    try:
+        with held(engine):
+            for rid in ("prefill", "queued", "decode", "lapse-queued", "lapse-decode",
+                        "survivor", "survivor-seeded"):
+                deadline = None
+                if rid == "lapse-queued":
+                    deadline = time.monotonic()
+                elif rid == "lapse-decode":
+                    deadline = lapse_at = time.monotonic() + 4.0
+                engine.submit(prompt[rid], sp[rid],
+                              streams.emit_for(rid, cancel_at_20 if rid == "decode" else None),
+                              request_id=rid, deadline=deadline)
+            if not engine.cancel("queued", "client_disconnect"):
+                raise AssertionError(f"[{label}] the queued request was not visible")
+        if engine.cancel("no-such-request"):
+            raise AssertionError(f"[{label}] cancel of an unknown id returned True")
+        streams.wait(engine)
+        engine.cancel("decode", "client_disconnect")  # after its terminal: a no-op
+        later = Streams()
+        engine.submit(rng.integers(3, vocab, 64).tolist(), SamplingParams(max_tokens=16),
+                      later.emit_for("later"), request_id="later")
+        later.wait(engine)
+    finally:
+        engine.shutdown()
+    stats = engine.stats()
+    one_terminal(label, streams, {"queued": "cancelled", "prefill": "cancelled",
+                                  "decode": "cancelled", "lapse-queued": "deadline",
+                                  "lapse-decode": "deadline", "survivor": "length",
+                                  "survivor-seeded": "length"})
+    one_terminal(label, later, {"later": "length"})
+    rec = streams.recs
+    checks = {
+        "queued and lapsed-in-queue requests emit nothing":
+            not rec["queued"]["toks"] and not rec["lapse-queued"]["toks"],
+        "the long prompt is cancelled before its first token": not rec["prefill"]["toks"],
+        "the decode is cancelled within a round of its 20th token":
+            20 <= len(rec["decode"]["toks"]) < 64,
+        "the second cancel found the request (still in its slot)": second == [True],
+        "the mid-decode lapse emitted tokens first": 0 < len(rec["lapse-decode"]["toks"]) < 1500,
+        "survivors complete": len(rec["survivor"]["toks"]) == 32
+        and len(rec["survivor-seeded"]["toks"]) == 32 and len(later.recs["later"]["toks"]) == 16,
+        "cancellation counts": stats["cancellations"] == {"client_disconnect": 3,
+                                                          "deadline": 2},
+    }
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"[{label}] failed: {bad}; stats {stats['cancellations']}, "
+                             f"tokens { {r: len(v['toks']) for r, v in rec.items()} }")
+    check_pool(label, stats)
+    oracle(label, engine, [rec["survivor"]], [(prompt["survivor"], sp["survivor"])],
+           min_caught=None)
+    overshoot = (rec["lapse-decode"]["t_end"] - lapse_at) * 1e3
+    log(f"serving [{label}]: one terminal event a stream, reasons "
+        f"{ {r: v['fins'][0] for r, v in rec.items()} }; decode cancelled at token "
+        f"{len(rec['decode']['toks'])} (asked at 20), mid-decode lapse after "
+        f"{len(rec['lapse-decode']['toks'])} tokens, {overshoot:.1f} ms past its deadline; "
+        f"cancellations {stats['cancellations']}, reclaimed tokens {stats['reclaimed_tokens']}; "
+        f"a later request served in a freed slot; pages conserved")
+    pipeline_line(card, label, stats)
+    del engine
+    torch.cuda.empty_cache()
+
+
+def preempt_phase(card: str, params) -> None:
+    """Preemption to host at llama-3-8b width (quickstart options, ring depth
+    2), forced by wrapping ``pool.extend_chain`` in this script (no engine
+    switch): a greedy and a seeded (temperature 0.8) request, 1000-token
+    prompts and 64 output tokens, in at once. From each one's first token
+    on (the ring running at depth 2), its chain growth fails until it has
+    been preempted once: the ring caps, and the preemption lands where its
+    next chunk needs a new page (position 1024), mid-decode. Then the greedy
+    one alone, preempted at its chunk boundary (prefill_pos 512). Each is
+    held against its undisturbed run on the same engine; every run starts
+    with a cold prefix cache, so the runs compared have the same rounds up
+    to the preemption. Gates: streams equal token for token, the
+    preemptions counted (two mid-decode, one mid-prefill), pages conserved.
+    Prints the suspend-to-resume time."""
+    label = "preemption"
+    engine, ecfg = build_engine(label, QUICKSTART, params)
+    vocab = engine.model_config.vocab_size
+    rng = np.random.default_rng(31)
+    cases = {"greedy": (rng.integers(3, vocab, 1000).tolist(), SamplingParams(max_tokens=64)),
+             "seeded": (rng.integers(3, vocab, 1000).tolist(),
+                        SamplingParams(max_tokens=64, temperature=0.8, seed=42))}
+    orig_extend, orig_preempt = engine.pool.extend_chain, engine._preempt_slot
+    armed: dict[str, object] = {}  # request id → predicate on its slot state
+    preempted: list[tuple[str, str, int]] = []  # (request id, phase, position)
+
+    def flaky(chain, needed):
+        for st in engine.slots:
+            if st is not None and st.chain is chain and st.request_id in armed \
+                    and st.request_id not in {rid for rid, _, _ in preempted} \
+                    and armed[st.request_id](st):
+                raise MemoryError("injected pool pressure")
+        return orig_extend(chain, needed)
+
+    def preempt(slot, state, soft_yielded=False):
+        pos = state.prefill_pos if state.phase == "prefill" else int(engine.lengths[slot])
+        preempted.append((state.request_id, state.phase, pos))
+        return orig_preempt(slot, state, soft_yielded)
+
+    def run(rids, arm=None, at_first_token=True):
+        """Serve ``rids`` at once from a cold cache; ``arm``: request id →
+        predicate on its slot state under which its chain growth fails
+        (from its first token on, or from the start)."""
+        flush_prefix_cache(engine)
+        armed.clear()
+        preempted.clear()
+        streams = Streams()
+
+        def hook(ev, rec, rid):
+            if arm and rid in arm and rid not in armed:
+                armed[rid] = arm[rid]
+
+        with held(engine):
+            for rid in rids:
+                prompt, sp = cases[rid]
+                engine.submit(prompt, sp, streams.emit_for(
+                    rid, (lambda ev, rec, rid=rid: hook(ev, rec, rid)) if at_first_token
+                    else None), request_id=rid)
+            if arm and not at_first_token:
+                armed.update(arm)
+        streams.wait(engine)
+        engine.shutdown()
+        check_pool(label, engine.stats())
+        return streams, list(preempted)
+
+    engine.pool.extend_chain, engine._preempt_slot = flaky, preempt
+    try:
+        ref, _ = run(["greedy", "seeded"])
+        hit, mid_decode = run(["greedy", "seeded"], {"greedy": lambda st: True,
+                                                     "seeded": lambda st: True})
+        ref_alone, _ = run(["greedy"])
+        at_boundary, mid_prefill = run(
+            ["greedy"], {"greedy": lambda st: st.phase == "prefill" and st.prefill_pos == 512},
+            at_first_token=False)
+    finally:
+        engine.pool.extend_chain = orig_extend
+        del engine._preempt_slot
+        engine.shutdown()
+    stats = engine.stats()
+    for name, a, b in (("mid-decode", ref, hit), ("mid-prefill", ref_alone, at_boundary)):
+        for rid in b.recs:
+            x, y = a.recs[rid], b.recs[rid]
+            if x["toks"] != y["toks"] or x["fins"] != y["fins"] or x["fins"] != ["length"]:
+                raise AssertionError(f"[{label}] {name} {rid}: {y['toks']} {y['fins']} against "
+                                     f"the undisturbed {x['toks']} {x['fins']}")
+    if sorted((r, ph) for r, ph, _ in mid_decode) != [("greedy", "decode"), ("seeded", "decode")] \
+            or [(r, ph, pos) for r, ph, pos in mid_prefill] != [("greedy", "prefill", 512)] \
+            or stats["suspended"]:
+        raise AssertionError(f"[{label}] preemptions: mid-decode {mid_decode}, mid-prefill "
+                             f"{mid_prefill}; suspended {stats['suspended']}")
+    log(f"serving [{label}]: greedy and seeded streams preempted once each mid-decode "
+        f"{mid_decode} (request, phase, position; ring depth {stats['pipeline']['depth']}) and "
+        f"the greedy one at its chunk boundary {mid_prefill} equal their undisturbed runs "
+        f"token for token; preemptions {stats['preemptions']}; pages conserved")
+    log(f"info [{card}] serving [{label}]: suspend-to-resume ms p50 "
+        f"{stats['resume_recovery_ms']['p50']:.3f} over {stats['resume_recovery_ms']['count']}")
+    pipeline_line(card, label, stats)
+    del engine
+    torch.cuda.empty_cache()
+
+
+def tenant_flood(engine, vocab: int, hook=None, lengths: tuple[int, int] = (200, 400),
+                 a_slots: int = 0) -> tuple[Streams, dict[str, float]]:
+    """Tenant a floods 12 requests (prompts of ``lengths`` tokens, 32
+    tokens out); once a holds every slot (or ``a_slots`` of them) and the
+    rest of a's wait in the queue, tenant b submits 2 (150 tokens). Returns
+    the streams and each request's queue wait in ms (submit to leaving the
+    queue, read where the engine fixes the seed)."""
+    rng = np.random.default_rng(41)
+    waits, t_submit = {}, {}
+    new_state = engine._new_state
+
+    def timed(req):
+        waits[req.request_id] = (time.perf_counter() - t_submit[req.request_id]) * 1e3
+        return new_state(req)
+
+    engine._new_state = timed
+    streams = Streams()
+    try:
+        for i in range(12):
+            rid = f"a{i}"
+            t_submit[rid] = time.perf_counter()
+            engine.submit(rng.integers(3, vocab, int(rng.integers(*lengths))).tolist(),
+                          SamplingParams(max_tokens=32), streams.emit_for(rid, hook),
+                          request_id=rid, tenant="a")
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not (
+                engine.pending_depth() > 0 and (
+                    engine.tenant_snapshot().get("a", {}).get("active_slots", 0)
+                    >= (a_slots or engine.n_slots))):
+            time.sleep(0.001)
+        for j in range(2):
+            rid = f"b{j}"
+            t_submit[rid] = time.perf_counter()
+            engine.submit(rng.integers(3, vocab, 150).tolist(), SamplingParams(max_tokens=32),
+                          streams.emit_for(rid, hook), request_id=rid, tenant="b")
+        streams.wait(engine)
+    finally:
+        engine.shutdown()
+        del engine._new_state
+    reasons = {r["fins"][0] if len(r["fins"]) == 1 else r["fins"] for r in streams.recs.values()}
+    if reasons != {"length"} or any(len(r["toks"]) != 32 for r in streams.recs.values()):
+        raise AssertionError(f"tenant flood: reasons {reasons}")
+    check_pool("tenant flood", engine.stats())
+    return streams, waits
+
+
+def tenants_phase(card: str, params) -> None:
+    """Tenants at llama-3-8b width: tenant a floods 12 requests, tenant b
+    sends 2 once a's are all in. (1) Fairness, at max_batch 4 so that a's
+    backlog is most of its requests: with ``tenant_fair`` on, each of b's
+    queue waits below the median of a's; off, both printed. (2) Slot cap:
+    ``tenant_max_slots=4`` at max_batch 8, a's slots read from
+    ``tenant_snapshot()`` at every emit (every round) never above 4. (3)
+    Soft pages: ``tenant_soft_pages=16`` at max_batch 8: a yields a slot to
+    host while b waits, the yielded stream resumes and ends normally. (4)
+    Hard limits: ``tenant_max_pages`` and ``tenant_max_pending`` raise
+    their exceptions at ``submit``."""
+    from cyberfabric_core_tpu_torch.runtime.engine import TenantQuotaExceeded, TenantSaturated
+
+    label = "tenants"
+    vocab = get_config(QUICKSTART["model_config"]).vocab_size
+    medians = {}
+    for fair in (True, False):
+        opts = dict(QUICKSTART, max_batch=4)
+        ecfg = engine_config_from_options(opts)
+        ecfg.tenant_fair = fair
+        engine = ContinuousBatchingEngine(ecfg, params=params, seed=0)
+        _, waits = tenant_flood(engine, vocab)
+        a = sorted(w for r, w in waits.items() if r.startswith("a"))
+        b = [waits["b0"], waits["b1"]]
+        medians[fair] = (a[len(a) // 2 - 1] + a[len(a) // 2]) / 2
+        log(f"info [{card}] serving [{label}, tenant_fair={fair}, max_batch 4]: queue wait ms "
+            f"b {b[0]:.1f}, {b[1]:.1f}; a median {medians[fair]:.1f} "
+            f"(a: {', '.join(f'{w:.1f}' for w in a)})")
+        if fair and not max(b) < medians[fair]:
+            raise AssertionError(f"[{label}] with tenant_fair on, b waited {b} ms against a's "
+                                 f"median {medians[fair]:.1f}")
+        del engine
+        torch.cuda.empty_cache()
+
+    # a's prompts of 100..200 tokens hold at most 4 pages a slot (ring
+    # horizon included), so the 24-page quota never blocks a's 4 slots
+    ecfg = engine_config_from_options(QUICKSTART)
+    ecfg.tenant_max_slots, ecfg.tenant_max_pages, ecfg.tenant_max_pending = 4, 24, 12
+    engine = ContinuousBatchingEngine(ecfg, params=params, seed=0)
+    seen: list[int] = []
+    tenant_flood(engine, vocab, lambda ev, rec: seen.append(
+        engine.tenant_snapshot().get("a", {}).get("active_slots", 0)), lengths=(100, 200),
+        a_slots=4)
+    if max(seen, default=0) != 4:
+        raise AssertionError(f"[{label}] tenant a held up to {max(seen, default=None)} slots "
+                             "under tenant_max_slots=4 (want the cap reached, never passed)")
+    rng = np.random.default_rng(43)
+    try:
+        engine.submit(rng.integers(3, vocab, 1600).tolist(), SamplingParams(max_tokens=32),
+                      lambda ev: None, tenant="c")
+        raise AssertionError(f"[{label}] a 26-page request passed tenant_max_pages=24")
+    except TenantQuotaExceeded:
+        pass
+    engine.start = lambda: None  # park what follows in the queue
+    try:
+        for i in range(12):
+            engine.submit([5, 6, 7], SamplingParams(max_tokens=2), lambda ev: None, tenant="c")
+        try:
+            engine.submit([5, 6, 7], SamplingParams(max_tokens=2), lambda ev: None, tenant="c")
+            raise AssertionError(f"[{label}] a 13th pending request passed tenant_max_pending=12")
+        except TenantSaturated as e:
+            retry = e.retry_after_s
+    finally:
+        del engine.start
+    engine.close()  # the 12 parked requests end with 'error'
+    log(f"serving [{label}]: tenant_max_slots=4 held at every one of {len(seen)} emits (a's "
+        f"slots at most {max(seen)}); tenant_max_pages=24 raised TenantQuotaExceeded for a "
+        f"26-page request; tenant_max_pending=12 raised TenantSaturated (retry after "
+        f"{retry:.1f} s)")
+    del engine
+    torch.cuda.empty_cache()
+
+    ecfg = engine_config_from_options(QUICKSTART)
+    ecfg.tenant_soft_pages = 16
+    engine = ContinuousBatchingEngine(ecfg, params=params, seed=0)
+    tenant_flood(engine, vocab)
+    stats = engine.stats()
+    if stats["tenants"]["a"]["soft_yields"] < 1 or stats["preemptions"] < 1:
+        raise AssertionError(f"[{label}] no soft-quota yield: {stats['tenants']}")
+    log(f"serving [{label}]: tenant_soft_pages=16: a yielded {stats['tenants']['a']['soft_yields']} "
+        f"slot(s) to host while b waited ({stats['preemptions']} preemptions); every stream "
+        f"ended with 'length' after 32 tokens; pages conserved")
+    del engine
+    torch.cuda.empty_cache()
+
+
+GOLDEN = ("tiny-llama-golden", "tiny-qwen2-golden", "tiny-gemma-golden",
+          "tiny-mixtral-golden", "tiny-llama-outlier")
+GOLDEN_DIR = "tests/golden/fixtures"
+
+
+def golden_phase(card: str) -> dict[str, int]:
+    """The five committed HF checkpoints loaded with the port's own loader,
+    at f32 on the card, TF32 off: full-prompt logits through the dense
+    forward and the f32 flash kernel within rtol = atol = 1e-4 of
+    transformers' (``golden.npz``) with every argmax equal; the 16-token
+    greedy continuation through a paged mixed engine at f32 (ragged and
+    decode f32 kernels, decode graphs; tiny-mixtral's routed MoE inside the
+    graph) equal to ``greedy_ids``. At bf16 the continuation's agreement is
+    printed. Returns the f32 kernels' launches over these runs."""
+    from cyberfabric_core_tpu_torch.ops.rope import rope_frequencies
+    from cyberfabric_core_tpu_torch.runtime.weights import load_llama_params, model_from_state_dict
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 parity would not be f32")
+    launches = {name: 0 for name in KERNELS}
+
+    def counted(fn):  # run fn, adding the launches it makes to the f32 count
+        for _, _, wrapper in KERNELS.values():
+            wrapper.launches = 0
+        out = fn()
+        for name, (_, _, wrapper) in KERNELS.items():
+            launches[name] += wrapper.launches
+        return out
+
+    agree_bf16 = {}
+    for fam in GOLDEN:
+        cfg = get_config(fam)
+        golden = np.load(f"{GOLDEN_DIR}/{fam}/golden.npz")
+        state = load_llama_params(f"{GOLDEN_DIR}/{fam}", cfg, torch.float32)  # on the card
+        params = model_from_state_dict(state, cfg)
+        ids = torch.from_numpy(golden["input_ids"].astype(np.int32)).cuda()
+        B, T = ids.shape
+        rope = rope_frequencies(cfg.head_dim, cfg.max_position, cfg.rope_theta)
+        with torch.inference_mode():
+            hidden, _ = counted(lambda: llama.forward(
+                params, cfg, ids, torch.arange(T, dtype=torch.int32, device="cuda")[None]
+                .expand(B, T), llama.init_cache(cfg, B, T, torch.float32),
+                torch.zeros(B, dtype=torch.int32, device="cuda"), rope, use_flash=True))
+            logits = llama.lm_head_logits(params, cfg, hidden).cpu().numpy()
+        ref = golden["logits"]
+        err = float(np.abs(logits - ref).max())
+        if not np.allclose(logits, ref, rtol=1e-4, atol=1e-4) or \
+                not (logits.argmax(-1) == ref.argmax(-1)).all():
+            raise AssertionError(f"[golden {fam}] logits off transformers' by up to {err:.3e}")
+        prompt, want = golden["greedy_ids"][:12].tolist(), golden["greedy_ids"][12:].tolist()
+        got = {}
+        for dtype in ("float32", "bfloat16"):
+            engine = ContinuousBatchingEngine(
+                EngineConfig(model=fam, max_seq_len=64, max_batch=2, decode_chunk=4,
+                             prefix_cache_pages=32, prefix_page_size=16, dtype=dtype,
+                             prefill_budget_tokens=8), params=state, seed=0)
+            streams = Streams()
+
+            def serve_one():
+                try:
+                    engine.submit(prompt, SamplingParams(max_tokens=len(want)),
+                                  streams.emit_for("g"))
+                    streams.wait(engine, 120)
+                finally:
+                    engine.shutdown()
+
+            counted(serve_one) if dtype == "float32" else serve_one()
+            pipe = engine.stats()["pipeline"]
+            if not pipe["decode_graphs"] or pipe["decode_graph_replays"] <= 0:
+                raise AssertionError(f"[golden {fam}] decode chunks did not replay graphs: {pipe}")
+            got[dtype] = streams.recs["g"]["toks"]
+            del engine
+        if got["float32"] != want:
+            raise AssertionError(f"[golden {fam}] f32 greedy {got['float32']} against "
+                                 f"transformers' {want}")
+        agree_bf16[fam] = sum(a == b for a, b in zip(got["bfloat16"], want))
+        log(f"golden [{fam}]: f32 logits within {err:.3e} of transformers' (rtol = atol = "
+            f"1e-4, argmax equal); f32 greedy continuation through the paged mixed engine "
+            f"(decode graphs) equals greedy_ids ({len(want)} tokens)")
+    if any(n <= 0 for n in launches.values()):
+        raise AssertionError(f"[golden] an f32 kernel never ran: {launches}")
+    log(f"info [{card}] golden at bf16 (printed, not required): greedy tokens equal to "
+        f"transformers' f32 continuation {agree_bf16} of 16")
+    log(f"info [{card}] golden f32 kernel launches (dense forward + f32 engines, all five "
+        f"fixtures): {launches}")
+    return launches
+
+
 def serving_phases(card: str) -> dict[str, int]:
     """The serving runs on one set of weights. Returns the kernels'
     main-path launch counts: the paged kernels from the mixed run, flash
@@ -1136,6 +1658,9 @@ def serving_phases(card: str) -> dict[str, int]:
         prefix_phase(card, label, engine, ecfg, is_mixed)
         del engine
         torch.cuda.empty_cache()
+    cancel_phase(card, params)
+    preempt_phase(card, params)
+    tenants_phase(card, params)
     del params
     torch.cuda.empty_cache()
     tiny_quickstart_run(card)
@@ -1203,10 +1728,18 @@ def main() -> int:
         cfg = get_config("llama-3-8b")
         kern = kernel_main_shapes(dev, gen, cfg, page=64, Pmax=32, n_pages=321)
         kern["flash_self_attention"] = flash_main_shape(dev, gen, cfg)
-        # the main-path shapes at the registry's other head dims (timings only)
+        # the f32 entry points at the main-path shapes
+        f32 = kernel_main_shapes(dev, gen, cfg, page=64, Pmax=32, n_pages=321,
+                                 dtype=torch.float32)
+        f32["flash_self_attention"] = flash_main_shape(dev, gen, cfg, torch.float32)
+        torch.cuda.empty_cache()
+        # the main-path shapes at the registry's other head dims, and at D 64
+        # with llama-3-8b's 32 / 8 heads (no registry model has D 64)
         by_dim = {}
-        for other in ("tiny-llama", "phi-3-mini", "gemma-7b"):
-            ocfg = get_config(other)
+        d64 = dataclasses.replace(cfg, name="llama-3-8b heads at D 64", head_dim=64)
+        for other in ("tiny-llama", "phi-3-mini", "gemma-7b", d64):
+            ocfg = other if isinstance(other, type(cfg)) else get_config(other)
+            other = ocfg.name
             res = kernel_main_shapes(dev, gen, ocfg, page=64, Pmax=32, n_pages=321)
             res["flash_self_attention"] = flash_main_shape(dev, gen, ocfg)
             heads = f"D {ocfg.head_dim}, Hq {ocfg.num_heads}, Hkv {ocfg.num_kv_heads}"
@@ -1216,6 +1749,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches = serving_phases(card)
+    f32_launches = golden_phase(card)
+    log(f"info [{card}] kernels f32 entry points, main-path shapes (bound: bytes at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, operations at the f32 CUDA-core peak "
+        f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s; library: SDPA in f32; launches: the golden "
+        "f32 runs): " + json.dumps({name: {**f32[name], "launches": f32_launches[name]}
+                                     for name in KERNELS}))
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -17,8 +17,10 @@ GEMM accumulates in f32 and rounds once). Where JAX works on the f32 product
 first (the logits; ``act(gate) * up``; the qwen2 q/k/v bias), the port asks for
 an f32 result too (:func:`_mm_f32`) and rounds where JAX rounds.
 
-MoE configs and quantized leaves are not in this slice: they raise
-``NotImplementedError``.
+Mixture-of-experts configs run the routed MLP (:func:`_moe_mlp`, with
+:func:`_moe_mlp_dense` as its oracle); it reads no device value on the host,
+so it runs inside the paged decode chunk's CUDA graph. Quantized leaves are
+not in this slice: they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,16 +41,11 @@ from .configs import ModelConfig
 KVCache = tuple[torch.Tensor, torch.Tensor]    # (k, v): [L, B, S, Hkv, D]
 PagedPools = tuple[torch.Tensor, torch.Tensor]  # (k, v): [L, N, page, Hkv, D]
 
-_MOE_SLICE = ("mixture-of-experts configs are not ported yet (later slice: "
-              "MoE MLP, models/llama.py _moe_mlp)")
-
 
 def check_supported(cfg: ModelConfig) -> None:
     if cfg.architecture != "llama":
         raise ValueError(f"the llama forward drives decoder models, got "
                          f"{cfg.architecture!r}")
-    if cfg.num_experts > 0:
-        raise NotImplementedError(_MOE_SLICE)
 
 
 def _leaf_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
@@ -59,7 +56,12 @@ def _leaf_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
               "wo": (Dq, H), "mlp_norm": (H,)}
     if cfg.attention_bias:
         shapes.update({"bq": (Dq,), "bk": (Dkv,), "bv": (Dkv,)})
-    shapes.update({"gate": (H, I), "up": (H, I), "down": (I, H)})
+    if cfg.num_experts > 0:
+        E = cfg.num_experts
+        shapes.update({"router": (H, E), "moe_gate": (E, H, I), "moe_up": (E, H, I),
+                       "moe_down": (E, I, H)})
+    else:
+        shapes.update({"gate": (H, I), "up": (H, I), "down": (I, H)})
     return shapes
 
 
@@ -138,9 +140,11 @@ def _act(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _embed_scale(h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``h`` times the multiplier rounded to h's dtype, as JAX scales it.
+    The scalar is filled on h's device: a host tensor would be a copy,
+    which a CUDA graph capture refuses."""
     if cfg.embedding_multiplier != 1.0:
-        return h * torch.tensor(cfg.embedding_multiplier, dtype=h.dtype,
-                                device=h.device)
+        return h * torch.full((), cfg.embedding_multiplier, dtype=h.dtype, device=h.device)
     return h
 
 
@@ -186,10 +190,86 @@ def _attn_out(lp: LlamaLayer, h: torch.Tensor, attn_flat: torch.Tensor) -> torch
     return h + (attn_flat @ lp.wo).to(h.dtype)
 
 
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a [E, M, K] @ b [E, K, N]`` as an f32 result nothing has
+    rounded (JAX's batched einsum with ``preferred_element_type=f32``): the
+    operands are widened first (a product of two bf16 values is exact in
+    f32), a transient f32 copy of the expert weights at bf16."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    return torch.bmm(a.float(), b.float())
+
+
+def _moe_mlp_dense(x: torch.Tensor, lp: LlamaLayer, cfg: ModelConfig) -> torch.Tensor:
+    """The MoE oracle: every expert computes, and a top-k mask softmaxes the
+    router logits over the selected experts (Mixtral). E times the routed
+    FLOPs; the routed form is held against it. Returns f32 [B, T, H]."""
+    K = cfg.experts_per_token
+    router_logits = _mm_f32(x, lp.router)                     # [B, T, E]
+    threshold = torch.topk(router_logits, K, dim=-1).values[..., K - 1:K]
+    masked = torch.where(router_logits >= threshold, router_logits,
+                         torch.full_like(router_logits, -1e30))
+    weights = torch.softmax(masked, dim=-1)                    # zeros off the top k
+    xf = x.float()
+    gate = torch.einsum("bth,ehi->btei", xf, lp.moe_gate.float())
+    up = torch.einsum("bth,ehi->btei", xf, lp.moe_up.float())
+    act = (_act(gate, cfg) * up).to(x.dtype)
+    expert_out = torch.einsum("btei,eih->bteh", act.float(), lp.moe_down.float())
+    return torch.einsum("bteh,bte->bth", expert_out, weights)
+
+
+def _moe_mlp(x: torch.Tensor, lp: LlamaLayer, cfg: ModelConfig) -> torch.Tensor:
+    """The routed MoE MLP (the JAX ``_moe_mlp``): each token's top-k
+    experts by router logit, gates softmaxed over those k; the N·k
+    assignments sorted by expert (stable) land in an ``[E, C, H]`` dispatch
+    buffer of capacity C = max(ceil(N·k/E)·``moe_capacity_factor``,
+    min(N, 256), 1); overflow assignments lose that expert's contribution
+    (they land in a sacrificial row E). One batched product per projection
+    runs every expert's bucket, and a weighted scatter-add combines them.
+    Every shape is static and nothing is read on the host (the bucket
+    counts are a ``scatter_add_`` into a zero ``[E]`` count; no
+    ``bincount``, ``nonzero`` or boolean-mask indexing), so it runs inside a
+    CUDA graph. Returns f32 [B, T, H]."""
+    E, K = cfg.num_experts, cfg.experts_per_token
+    B, T, H = x.shape
+    N = B * T
+    dev = x.device
+    flat = x.reshape(N, H)
+    router_logits = _mm_f32(flat, lp.router)                  # [N, E]
+    top_vals, top_idx = torch.topk(router_logits, K, dim=-1)
+    weights = torch.softmax(top_vals, dim=-1)                 # [N, K]
+    NK = N * K
+    expert_of = top_idx.reshape(NK)
+    token_of = torch.arange(NK, device=dev) // K  # repeat_interleave would read its size back
+    order = torch.argsort(expert_of, stable=True)
+    se, st, sg = expert_of[order], token_of[order], weights.reshape(NK)[order]
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, se, torch.ones_like(se))
+    offsets = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(NK, device=dev) - offsets[se]          # slot in its bucket
+    capacity = max(int(-(-NK // E) * cfg.moe_capacity_factor), min(N, 256), 1)
+    keep = pos < capacity
+    safe_e = torch.where(keep, se, torch.full_like(se, E))
+    safe_p = torch.where(keep, pos, torch.zeros_like(pos))
+    dispatch = torch.zeros((E + 1, capacity, H), dtype=x.dtype, device=dev)
+    dispatch[safe_e, safe_p] = flat[st]
+    xb = dispatch[:E]                                         # [E, C, H]
+    act = (_act(_bmm_f32(xb, lp.moe_gate), cfg) * _bmm_f32(xb, lp.moe_up)).to(x.dtype)
+    expert_out = _bmm_f32(act, lp.moe_down)                   # [E, C, H] f32
+    # dropped assignments read a clamped row and are zeroed (JAX's gather
+    # clamps the sacrificial index the same way)
+    contrib = expert_out[safe_e.clamp_max(E - 1), safe_p] * sg[:, None]
+    contrib = torch.where(keep[:, None], contrib, torch.zeros_like(contrib))
+    out = torch.zeros((N, H), dtype=torch.float32, device=dev).index_add_(0, st, contrib)
+    return out.reshape(B, T, H)
+
+
 def _mlp_residual(lp: LlamaLayer, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Post-attention norm + dense gated MLP + residual; gate and up stay
-    f32 until ``act(gate) * up`` is rounded."""
+    """Post-attention norm + (routed MoE or dense gated) MLP + residual;
+    gate and up stay f32 until ``act(gate) * up`` is rounded."""
     x = rms_norm(h, lp.mlp_norm, cfg.rms_norm_eps, cfg.norm_weight_offset)
+    if cfg.num_experts > 0:
+        return h + _moe_mlp(x, lp, cfg).to(h.dtype)
     act = (_act(_mm_f32(x, lp.gate), cfg) * _mm_f32(x, lp.up)).to(h.dtype)
     return h + (act @ lp.down).to(h.dtype)
 

@@ -34,6 +34,28 @@ class SchedulerSaturated(RuntimeError):
         self.retry_after_s = retry_after_s
 
 
+class TenantSaturated(SchedulerSaturated):
+    """``submit()`` rejected: the caller's tenant is at its own pending
+    bound (``tenant_max_pending``) while the global queue may have room.
+    Serving layers map it to its own 429 + ``Retry-After``, so one tenant's
+    retry storm reads as that tenant's saturation."""
+
+    def __init__(self, detail: str, retry_after_s: float = 1.0,
+                 tenant: str = "default") -> None:
+        super().__init__(detail, retry_after_s)
+        self.tenant = tenant
+
+
+class TenantQuotaExceeded(RuntimeError):
+    """``submit()`` rejected: the request's worst case needs more KV pages
+    than its tenant's hard quota (``tenant_max_pages``)."""
+
+    def __init__(self, detail: str, tenant: str = "default",
+                 retry_after_s: float = 1.0) -> None:
+        super().__init__(detail)
+        self.tenant = tenant
+        self.retry_after_s = retry_after_s
+
 
 @dataclass
 class SamplingParams:

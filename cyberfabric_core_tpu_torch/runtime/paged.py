@@ -298,9 +298,21 @@ class PrefixKVPool:
     # ------------------------------------------------------------ host copies
     def save_chain_to_host(self, chain: list[int]) -> KV:
         """Copy a chain's pages to host memory ([L, n, page, Hkv, D] CPU
-        tensors in the pool's dtype), one gather per pool."""
+        tensors in the pool's dtype), one gather per pool. On CUDA the copy
+        goes into pinned memory without blocking the host: the bytes are
+        there once the stream has run it, so a host reader synchronises
+        first, while :meth:`restore_chain_from_host` (a copy queued later on
+        the same stream) needs no wait."""
         ids = self._ids(chain)
-        return (self.k_pool[:, ids].cpu(), self.v_pool[:, ids].cpu())
+        if self.k_pool.device.type != "cuda":
+            return (self.k_pool[:, ids], self.v_pool[:, ids])
+        out = []
+        for pool in (self.k_pool, self.v_pool):
+            src = pool[:, ids]
+            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            host.copy_(src, non_blocking=True)
+            out.append(host)
+        return out[0], out[1]
 
     def restore_chain_from_host(self, host_kv: KV) -> list[int]:
         """Allocate fresh private pages and write a saved chain back. Raises
@@ -312,7 +324,11 @@ class PrefixKVPool:
         self.ref_pages(ids)
         idx = self._ids(ids)
         for pool, host in ((self.k_pool, host_kv[0]), (self.v_pool, host_kv[1])):
-            pool[:, idx] = to_device(host.to(pool.dtype), pool.device)
+            host = host.to(pool.dtype)
+            # a pinned buffer of save_chain_to_host goes straight to the
+            # device: staging it would read it on the host before its copy ran
+            pool[:, idx] = (host.to(pool.device, non_blocking=True) if host.is_pinned()
+                            else to_device(host, pool.device))
         return ids
 
     def export_pages(self, chain: list[int],

@@ -73,12 +73,45 @@ admission number, and advanced once per sampled token — a seed reproduces
 its tokens whatever shares the batch, whichever path prefills it, and at
 every lookahead depth.
 
-Options that only change speed (tenant fairness, and ``prefill_coalesce``
-where no phase-separated paged prefill runs) are accepted and ignored; the
-JAX contract makes streams identical across those settings. Options that
-change what is computed or which path runs and are not ported raise
+The request's life around the rounds, as in JAX:
+
+- **Tenants.** Pending requests wait in a :class:`TenantFairQueue`: one
+  FIFO per tenant, drained by token-weighted fair order (each tenant's
+  virtual counter is charged with the prefill and decode tokens it
+  consumed); ``tenant_fair=False`` makes it one FIFO. A request's sampling
+  seed is fixed when it is taken from the queue, so a seeded stream does
+  not depend on the tenant mix. ``tenant_max_slots`` and
+  ``tenant_max_pages`` make admission skip a tenant at its cap,
+  ``tenant_max_pending`` and the hard page quota raise at ``submit``
+  (:class:`.engine.TenantSaturated`, :class:`.engine.TenantQuotaExceeded`),
+  and ``tenant_soft_pages`` makes an over-quota tenant yield its youngest
+  decode slot to host while another tenant waits.
+- **Cancellation and deadlines.** ``cancel`` registers from any thread;
+  at every round boundary (:meth:`_service_cancellations`) a cancelled or
+  lapsed request leaves the queue, its prefilling or decoding slot, or the
+  suspended list, with exactly one ``cancelled`` or ``deadline`` event. A
+  queued request whose remaining budget cannot cover its estimated prefill
+  (the best recent prefill rate) lapses instead of taking a slot. A slot
+  removed while the ring is in flight first discards the ring (which puts
+  the slots' generator states back): chunks chained off the ring's tail
+  reuse its device active mask, so they would run the removed row on.
+- **Preemption to host.** When a slot's chain cannot grow to cover its
+  next chunk (a ``MemoryError`` from the pool), the slot is preempted: its
+  pages are copied to host (:meth:`.paged.PrefixKVPool.save_chain_to_host`,
+  a non-blocking copy on CUDA), freed, and the request is parked with its
+  length, last token and generator state; :meth:`_resume_suspended` puts
+  it back, ahead of new admissions, once the pool has room, and the stream
+  continues with the same tokens. A slot that covers its next chunk is
+  never preempted for the ring's deeper horizon (that only caps the ring).
+  Mid-prefill preemption keeps ``prefill_pos``. A request even an idle pool
+  cannot hold ends with ``length``.
+
+``prefill_coalesce`` where no phase-separated paged prefill runs is
+accepted and ignored (it only changes speed). Options that change what is
+computed or which path runs and are not ported raise
 ``NotImplementedError`` naming the slice that brings them (see
-:func:`_reject_unported`).
+:func:`_reject_unported`). ``trace`` is kept on the request and emits
+nothing yet: lifecycle spans come with the observability slice.
 """
 
 from __future__ import annotations
@@ -103,7 +136,7 @@ from ..ops.rope import rope_frequencies
 from ..ops.sampling import (make_slot_generator, sample_token, sample_token_per_slot,
                             split_keys_per_slot)
 from .engine import (EngineConfig, SamplingParams, SchedulerSaturated, StepEvent,
-                     build_decode_chunk_fn)
+                     TenantQuotaExceeded, TenantSaturated, build_decode_chunk_fn)
 from .paged import PrefixKVPool
 from .programs import PagedDecodeChunk
 from .weights import model_from_state_dict
@@ -125,11 +158,6 @@ def _reject_unported(config: EngineConfig, cfg: ModelConfig) -> None:
         (config.tp > 1, "tp>1 (multi-GPU slice)"),
         (bool(config.pd_role), f"pd_role={config.pd_role!r} (replica pools "
          "and PD slice)"),
-        (cfg.num_experts > 0, f"{cfg.name} is a mixture-of-experts config "
-         "(MoE slice)"),
-        (bool(config.tenant_max_slots or config.tenant_soft_pages
-              or config.tenant_max_pages or config.tenant_max_pending),
-         "per-tenant caps (preemption, cancellation and tenant caps slice)"),
     ]
     for bad, what in checks:
         if bad:
@@ -148,8 +176,6 @@ def _ignored_options(config: EngineConfig) -> list[str]:
                    "prefills one request per dispatch)")
     if config.mixed_batch and not paged:
         out.append("mixed_batch (dense mode is phase-separated)")
-    if config.tenant_fair:
-        out.append("tenant_fair (admission is FIFO)")
     return out
 
 
@@ -196,6 +222,16 @@ class _SlotState:
     emitted: int = 0
     prefill_pos: int = 0  # prompt tokens already in the chain
     cached_len: int = 0   # of those, taken from the prefix cache
+    #: "prefill" while mixed rounds consume the prompt, then "decode"
+    phase: str = "decode"
+    #: the last token emitted (the committed device last token of an active
+    #: slot whenever the ring is empty: what a preemption saves)
+    last_token: int = -1
+    trace: Optional[str] = None
+    #: absolute ``time.monotonic()`` instant; None = unbounded
+    deadline: Optional[float] = None
+    tenant: str = "default"
+    prefill_t0: float = 0.0
 
 
 @dataclass
@@ -204,6 +240,29 @@ class _Pending:
     prompt_ids: list[int]
     sampling: SamplingParams
     emit: Callable[[StepEvent], None]
+    enqueued_at: float = field(default_factory=time.monotonic)
+    trace: Optional[str] = None
+    deadline: Optional[float] = None
+    tenant: str = "default"
+
+
+@dataclass
+class _Suspended:
+    """A preempted request: its chain's KV lives on the host until the pool
+    has room again; resume restores the pages and the stream continues with
+    no recompute. ``length`` is the valid KV length (decode) or
+    ``prefill_pos`` (prefill phase); ``gen_state`` the sampling generator's
+    state at the preemption."""
+
+    state: _SlotState
+    host_kv: tuple
+    length: int
+    last_token: int
+    gen_state: Optional[torch.Tensor]
+    #: a tenant soft-quota yield (not pool pressure): resume waits while
+    #: another tenant has pending work and this tenant is still over its cap
+    soft_yielded: bool = False
+    suspended_at: float = field(default_factory=time.monotonic)
 
 
 @dataclass
@@ -227,6 +286,133 @@ class _InflightChunk:
     host: torch.Tensor
     ready: Optional[torch.cuda.Event]
     gen_states: list = field(default_factory=list)
+
+
+class TenantFairQueue:
+    """Per-tenant FIFO pending queues drained by token-weighted fair order
+    (the JAX package's ``TenantFairQueue``, copied).
+
+    :meth:`pop_fair` serves the backlogged tenant with the smallest virtual
+    counter: the prefill and decode tokens it consumed divided by its weight
+    (:meth:`charge`); ties break on the head's arrival time, then the tenant
+    id. A tenant going from idle to backlogged has its counter lifted to the
+    least counter among backlogged tenants, so idleness banks no credit.
+    Order within a tenant is FIFO. ``fair=False`` is one global FIFO.
+
+    ``put``, ``remove_if`` and ``drain_all`` may run on any thread;
+    ``pop_fair`` and ``charge`` on the scheduler thread. Every method is
+    bookkeeping under one lock: no sleeps, no device work."""
+
+    def __init__(self, fair: bool = True) -> None:
+        self.fair = fair
+        self._lock = threading.Lock()
+        self._queues: dict[str, deque] = {}
+        self._count = 0
+        #: virtual counters (charged tokens / weight), never reset
+        self._vtc: dict[str, float] = {}
+        #: raw charged tokens per tenant
+        self._charged: dict[str, int] = {}
+
+    def _key(self, tenant: str) -> str:
+        return tenant if self.fair else "default"
+
+    def put(self, req: _Pending) -> None:
+        with self._lock:
+            key = self._key(req.tenant)
+            q = self._queues.setdefault(key, deque())
+            if not q:
+                # idle → backlogged: lift the counter to the backlogged least
+                backlogged = [self._vtc.get(t, 0.0) for t, other in self._queues.items()
+                              if other and t != key]
+                if backlogged:
+                    self._vtc[key] = max(self._vtc.get(key, 0.0), min(backlogged))
+            q.append(req)
+            self._count += 1
+
+    def put_front(self, req: _Pending) -> None:
+        """Return a just-popped request to the head of its tenant's queue."""
+        with self._lock:
+            self._queues.setdefault(self._key(req.tenant), deque()).appendleft(req)
+            self._count += 1
+
+    def pop_fair(self, blocked: Optional[set] = None) -> Optional[_Pending]:
+        """The next request: least (virtual counter, head arrival, tenant id)
+        among backlogged tenants not in ``blocked``."""
+        with self._lock:
+            best_key, best = None, (0.0, 0.0, "")
+            for key, q in self._queues.items():
+                if not q or (blocked and key in blocked):
+                    continue
+                cand = (self._vtc.get(key, 0.0), q[0].enqueued_at, key)
+                if best_key is None or cand < best:
+                    best_key, best = key, cand
+            if best_key is None:
+                return None
+            self._count -= 1
+            return self._queues[best_key].popleft()
+
+    def charge(self, tenant: str, tokens: int, weight: float) -> None:
+        if tokens <= 0:
+            return
+        key = self._key(tenant)
+        with self._lock:
+            self._vtc[key] = self._vtc.get(key, 0.0) + tokens / max(weight, 1e-9)
+            self._charged[key] = self._charged.get(key, 0) + tokens
+
+    def qsize(self) -> int:
+        return self._count
+
+    def empty(self) -> bool:
+        return self._count == 0
+
+    def tenant_depth(self, tenant: str) -> int:
+        with self._lock:
+            q = self._queues.get(self._key(tenant))
+            return len(q) if q else 0
+
+    def depths(self) -> dict[str, int]:
+        with self._lock:
+            return {t: len(q) for t, q in self._queues.items() if q}
+
+    def snapshot(self) -> list[_Pending]:
+        with self._lock:
+            return [req for q in self._queues.values() for req in q]
+
+    def oldest_age(self) -> Optional[float]:
+        with self._lock:
+            heads = [q[0].enqueued_at for q in self._queues.values() if q]
+        return time.monotonic() - min(heads) if heads else None
+
+    def remove_if(self, pred: Callable[[_Pending], bool]) -> list[_Pending]:
+        """Remove and return every pending request matching ``pred``; the
+        survivors keep their order."""
+        removed: list[_Pending] = []
+        with self._lock:
+            for q in self._queues.values():
+                if not any(pred(r) for r in q):
+                    continue
+                kept = [r for r in q if not pred(r)]
+                removed.extend(r for r in q if pred(r))
+                q.clear()
+                q.extend(kept)
+            self._count -= len(removed)
+        return removed
+
+    def drain_all(self) -> list[_Pending]:
+        with self._lock:
+            out = [req for q in self._queues.values() for req in q]
+            for q in self._queues.values():
+                q.clear()
+            self._count = 0
+        return out
+
+    def vtc_snapshot(self) -> dict[str, float]:
+        with self._lock:
+            return dict(self._vtc)
+
+    def charged_snapshot(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._charged)
 
 
 class ContinuousBatchingEngine:
@@ -344,7 +530,33 @@ class ContinuousBatchingEngine:
         #: bumped by every change the in-flight ring cannot have seen
         self._epoch = 0
 
-        self._pending: deque[_Pending] = deque()
+        self._pending = TenantFairQueue(fair=config.tenant_fair)
+        self._tenant_weights: dict[str, float] = dict(config.tenant_weights or {})
+        caps = bool(config.tenant_max_slots or config.tenant_soft_pages
+                    or config.tenant_max_pages or config.tenant_max_pending)
+        #: the tenant-blind queue keys every tenant alike, so caps cannot be
+        #: attributed there: they are disarmed (as in JAX)
+        self._tenant_caps_armed = caps and config.tenant_fair
+        if caps and not config.tenant_fair:
+            logger.warning("per-tenant caps configured with tenant_fair=False; "
+                           "caps are DISARMED (the tenant-blind queue cannot attribute "
+                           "work to tenants)")
+        #: slots the cap sweep marked for a soft-quota yield (preempted by the
+        #: next capacity pass)
+        self._soft_yield: set[int] = set()
+        self.tenant_rejections: dict[str, dict[str, int]] = {}
+        self.tenant_soft_yields: dict[str, int] = {}
+        #: (time, requests that left the queue): the drain rate behind
+        #: ``retry_after_s``
+        self._admit_events: deque[tuple[float, int]] = deque(maxlen=256)
+        #: request id → reason, registered from any thread, applied at the
+        #: next round boundary
+        self._cancel_lock = threading.Lock()
+        self._cancel_requests: dict[str, str] = {}
+        self._has_deadlines = False
+        #: recent prefill rates (tokens/s) behind the admission estimate
+        self._prefill_rates: deque[float] = deque(maxlen=32)
+        self._suspended: deque[_Suspended] = deque()
         #: phase-separated admissions taken off the queue and not yet in a
         #: slot (a failing prefill must still close their streams)
         self._admitting: list[_SlotState] = []
@@ -354,6 +566,8 @@ class ContinuousBatchingEngine:
         self._thread: Optional[threading.Thread] = None
         self._thread_lock = threading.Lock()
         self._broken: Optional[str] = None
+        #: set by close(): retired on purpose, never restarted in place
+        self._closed = False
         self._admitted = 0
 
         self.rounds = {kind: 0 for kind in _ROUND_KINDS}
@@ -380,12 +594,22 @@ class ContinuousBatchingEngine:
         self.tokens_emitted = 0
         self.requests_completed = 0
         self.rejected_saturated = 0
+        self.preemptions = 0
+        #: terminal counts by cancel reason, and the max_tokens not generated
+        self.cancellations: dict[str, int] = {}
+        self.reclaimed_tokens = 0
+        self.resume_latency_samples: deque[float] = deque(maxlen=512)
+        self.queue_wait_samples: deque[float] = deque(maxlen=2048)
+        #: when the last round ended (the doctor's round watchdog)
+        self.last_round_at = time.monotonic()
 
     # ------------------------------------------------------------------ public api
     def start(self) -> None:
         with self._thread_lock:
             if self._broken:
                 raise RuntimeError(f"scheduler is broken: {self._broken}")
+            if self._closed:
+                raise RuntimeError("scheduler is closed; build a fresh engine")
             if self._thread is None or not self._thread.is_alive():
                 self._stop.clear()
                 self._thread = threading.Thread(target=self._run_loop,
@@ -398,29 +622,76 @@ class ContinuousBatchingEngine:
         if self._thread is not None:
             self._thread.join(timeout)
 
+    def close(self, timeout: float = 10.0) -> None:
+        """Retire the engine: stop the scheduler thread, then end everything
+        still in flight, suspended or queued with ``error``. Unlike a loop
+        fault this leaves ``broken`` unset: a fresh engine may reuse
+        ``.params``; this one never restarts. Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        self.shutdown(timeout)
+        self._fail_all_inflight("replica closed")
+
     def submit(self, prompt_ids: list[int], sampling: SamplingParams,
                emit: Callable[[StepEvent], None],
-               request_id: Optional[str] = None) -> str:
+               request_id: Optional[str] = None, trace: Optional[str] = None,
+               deadline: Optional[float] = None, tenant: Optional[str] = None) -> str:
         """Enqueue a request; ``emit`` receives one StepEvent per token, the
-        last one carrying the finish reason. Raises :class:`SchedulerSaturated`
-        at ``max_pending`` queued requests."""
+        last one carrying the finish reason. ``deadline`` is an absolute
+        ``time.monotonic()`` instant: past it the request ends with
+        ``deadline`` wherever it is. ``tenant`` keys the fair queue and the
+        per-tenant caps (None: ``"default"``); ``trace`` (a W3C traceparent)
+        rides along. Raises :class:`SchedulerSaturated` at ``max_pending``
+        queued requests, :class:`TenantSaturated` at ``tenant_max_pending``
+        of the tenant's, and :class:`TenantQuotaExceeded` when the request's
+        worst case (prompt + max_tokens) needs more pages than
+        ``tenant_max_pages``."""
         if not prompt_ids:
             raise ValueError("prompt_ids must hold at least one token")
+        rid = request_id or f"req-{uuid.uuid4().hex[:16]}"
+        tenant = tenant or "default"
         self.config.bucket_for(len(prompt_ids))  # validate in caller context
+        if self.paged and self._tenant_caps_armed and self.config.tenant_max_pages > 0:
+            need = self.pool.pages_for(min(len(prompt_ids) + sampling.max_tokens,
+                                           self.config.max_seq_len))
+            if need > self.config.tenant_max_pages:
+                self._bump_tenant_rejection(tenant, "quota")
+                raise TenantQuotaExceeded(
+                    f"request needs {need} KV pages > tenant hard quota "
+                    f"{self.config.tenant_max_pages} (prompt {len(prompt_ids)} + "
+                    f"max_tokens {sampling.max_tokens})", tenant=tenant)
         if not self.paged and sampling.seed is not None:
             raise ValueError(
                 "SamplingParams.seed requires the paged scheduler "
                 "(prefix_cache_pages > 0); dense mode shares one sampling stream")
-        rid = request_id or f"req-{uuid.uuid4().hex[:16]}"
+        if not self.active_slots and not self._suspended and not self._prefill_slots \
+                and self._pending.empty():
+            # idle → busy: the round watchdog measures time with work
+            self.last_round_at = time.monotonic()
         with self._submit_lock:
+            if self._closed:
+                raise RuntimeError("scheduler is closed; build a fresh engine")
             if self._broken:
                 raise RuntimeError(f"scheduler is broken: {self._broken}")
-            if self.config.max_pending and len(self._pending) >= self.config.max_pending:
+            cap = self.config.tenant_max_pending
+            if self._tenant_caps_armed and cap and self._pending.tenant_depth(tenant) >= cap:
+                self.rejected_saturated += 1
+                self._bump_tenant_rejection(tenant, "pending")
+                raise TenantSaturated(
+                    f"tenant {tenant!r} pending queue full ({cap} requests); retry later",
+                    retry_after_s=self._saturation_retry_after(
+                        self._pending.tenant_depth(tenant)), tenant=tenant)
+            if self.config.max_pending and self._pending.qsize() >= self.config.max_pending:
                 self.rejected_saturated += 1
                 raise SchedulerSaturated(
                     f"pending queue full ({self.config.max_pending} requests); "
-                    "retry later")
-            self._pending.append(_Pending(rid, list(prompt_ids), sampling, emit))
+                    "retry later",
+                    retry_after_s=self._saturation_retry_after(self._pending.qsize()))
+            if deadline is not None:
+                self._has_deadlines = True
+            self._pending.put(_Pending(rid, list(prompt_ids), sampling, emit, trace=trace,
+                                       deadline=deadline, tenant=tenant))
         self._wake.set()
         self.start()
         return rid
@@ -429,16 +700,265 @@ class ContinuousBatchingEngine:
     def active_slots(self) -> int:
         return int(self.active.sum())
 
+    def servable(self) -> bool:
+        """False once the loop failed or ``close()`` retired the engine."""
+        return self._broken is None and not self._closed
+
+    # ------------------------------------------------------------ cancellation
+    def cancel(self, request_id: str, reason: str = "cancelled") -> bool:
+        """Ask for ``request_id`` to end, from any thread, without blocking:
+        the scheduler thread applies it at the next round boundary, with one
+        ``cancelled`` event. Idempotent; a finished or unknown id is a no-op.
+        Returns whether the id was visible in this engine at call time
+        (advisory)."""
+        found = self._cancel_known(request_id)
+        with self._cancel_lock:
+            self._cancel_requests[request_id] = reason
+        self._wake.set()
+        return found
+
+    def _cancel_known(self, request_id: str) -> bool:
+        if any(st is not None and st.request_id == request_id for st in self.slots):
+            return True
+        if any(rec.state.request_id == request_id
+               for rec in _snapshot(lambda: list(self._suspended))):
+            return True
+        return any(req.request_id == request_id for req in self._pending.snapshot())
+
+    def _service_cancellations(self) -> None:
+        """Apply registered cancels and lapse passed deadlines: queued,
+        suspended, prefilling and decoding requests (round boundary,
+        scheduler thread). An id that matched nothing raced its own terminal
+        and is consumed without effect."""
+        with self._cancel_lock:
+            cancels, self._cancel_requests = self._cancel_requests, {}
+        if not cancels and not self._has_deadlines:
+            return
+        now = time.monotonic()
+        self._cancel_filter_pending(cancels, now)
+        self._cancel_suspended(cancels, now)
+        for slot in range(self.n_slots):
+            state = self.slots[slot]
+            if state is None:
+                continue
+            reason, kind = cancels.pop(state.request_id, None), "cancelled"
+            if reason is None and state.deadline is not None and now >= state.deadline:
+                reason, kind = "deadline", "deadline_exceeded"
+            if reason is not None:
+                self._cancel_slot(slot, state, reason, kind)
+
+    def _cancel_filter_pending(self, cancels: dict[str, str], now: float) -> None:
+        def doomed(req: _Pending) -> bool:
+            return req.request_id in cancels or (req.deadline is not None
+                                                 and now >= req.deadline)
+
+        if not any(doomed(req) for req in self._pending.snapshot()):
+            return
+        with self._submit_lock:
+            removed = self._pending.remove_if(doomed)
+        for req in removed:
+            reason = cancels.pop(req.request_id, None)
+            self._cancel_finalize(req.emit, reason or "deadline",
+                                  "cancelled" if reason else "deadline_exceeded",
+                                  reclaimed=req.sampling.max_tokens)
+
+    def _cancel_suspended(self, cancels: dict[str, str], now: float) -> None:
+        if not self._suspended:
+            return
+        kept, victims = [], []
+        with self._submit_lock:
+            while self._suspended:
+                rec = self._suspended.popleft()
+                reason, kind = cancels.pop(rec.state.request_id, None), "cancelled"
+                if reason is None and rec.state.deadline is not None \
+                        and now >= rec.state.deadline:
+                    reason, kind = "deadline", "deadline_exceeded"
+                (kept if reason is None else victims).append((rec, reason, kind))
+            self._suspended.extend(rec for rec, _, _ in kept)
+        for rec, reason, kind in victims:
+            st = rec.state
+            self._cancel_finalize(st.emit, reason, kind,
+                                  reclaimed=st.sampling.max_tokens - st.emitted)
+
+    def _cancel_slot(self, slot: int, state: _SlotState, reason: str, kind: str) -> None:
+        """Free one occupied slot (prefill or decode phase): its chain, its
+        device rows (frozen, page-table row zeroed) and the slot. A decode
+        row in flight in the ring first discards the ring, which puts the
+        generator states back: a chunk chained later would reuse the tail's
+        device active mask and run the row on. No epoch bump, as in JAX."""
+        if self._ring and self.active[slot]:
+            self._discard_ring()
+        if state.phase == "prefill":
+            self._prefill_slots.remove(slot)
+        self.active[slot] = False
+        self.slots[slot] = None
+        self._release_free_slot(slot)
+        self._deactivate_slot_device(slot)
+        if self.paged:
+            self.pool.release_slot(state.chain)
+            self.page_table[slot, :] = 0
+            self._pt_dirty = True
+        self._cancel_finalize(state.emit, reason, kind,
+                              reclaimed=state.sampling.max_tokens - state.emitted)
+
+    def _cancel_finalize(self, emit: Callable[[StepEvent], None], reason: str,
+                         kind: str, *, reclaimed: int) -> None:
+        """One terminal per cancellation: the count by reason, the budget
+        reclaimed, and the client's event (a raising emit belongs to a
+        client that is gone)."""
+        self.cancellations[reason] = self.cancellations.get(reason, 0) + 1
+        self.reclaimed_tokens += max(0, int(reclaimed))
+        try:
+            emit(StepEvent(0, -1, "deadline" if kind == "deadline_exceeded" else "cancelled"))
+        except Exception:  # noqa: BLE001 — the client is gone by definition
+            pass
+
+    def _note_prefill_rate(self, tokens: int, dur_s: float) -> None:
+        if tokens > 0 and dur_s > 0:
+            self._prefill_rates.append(tokens / dur_s)
+
+    def _estimate_prefill_s(self, tokens: int) -> float:
+        """Seconds to prefill ``tokens`` at the best recent rate; 0 with no
+        observation yet (admit, and let the sweep judge)."""
+        rate = max(_snapshot(lambda: list(self._prefill_rates)), default=0.0)
+        return tokens / rate if rate > 0 else 0.0
+
+    # ------------------------------------------------------------ tenants
+    def _weight(self, tenant: str) -> float:
+        return float(self._tenant_weights.get(tenant, self.config.tenant_default_weight))
+
+    def _charge_tenant(self, tenant: str, tokens: int) -> None:
+        self._pending.charge(tenant, tokens, self._weight(tenant))
+
+    def _bump_tenant_rejection(self, tenant: str, reason: str) -> None:
+        per = self.tenant_rejections.setdefault(tenant, {})
+        per[reason] = per.get(reason, 0) + 1
+
+    #: drain-rate observations older than this are stale
+    _DRAIN_RATE_WINDOW_S = 60.0
+
+    def _drain_rate_per_s(self) -> float:
+        """Requests that left the queue per second over the recent window;
+        the first event anchors the span without counting."""
+        cutoff = time.monotonic() - self._DRAIN_RATE_WINDOW_S
+        events = [e for e in _snapshot(lambda: list(self._admit_events)) if e[0] >= cutoff]
+        if len(events) < 2 or events[-1][0] <= events[0][0]:
+            return 0.0
+        return sum(n for _, n in events[1:]) / (events[-1][0] - events[0][0])
+
+    def _saturation_retry_after(self, depth: int) -> float:
+        """``depth`` over the drain rate, clamped to [1, 30] s (1 s when the
+        rate is unknown)."""
+        rate = self._drain_rate_per_s()
+        return 1.0 if rate <= 0 else float(min(30.0, max(1.0, depth / rate)))
+
+    def _tenant_slot_counts(self) -> dict[str, int]:
+        counts: dict[str, int] = {}
+        for state in list(self.slots):
+            if state is not None:
+                counts[state.tenant] = counts.get(state.tenant, 0) + 1
+        return counts
+
+    def _tenant_page_counts(self) -> dict[str, int]:
+        """Pool pages held by each tenant's slots (suspended requests hold
+        host memory, not pages)."""
+        counts: dict[str, int] = {}
+        for state in list(self.slots):
+            if state is not None:
+                counts[state.tenant] = counts.get(state.tenant, 0) + len(state.chain)
+        return counts
+
+    def _blocked_tenants(self) -> set:
+        """Tenants admission skips: at their slot cap, or holding their hard
+        page quota."""
+        blocked: set = set()
+        if not self._tenant_caps_armed:
+            return blocked
+        max_slots, max_pages = self.config.tenant_max_slots, self.config.tenant_max_pages
+        if max_slots:
+            blocked |= {t for t, n in self._tenant_slot_counts().items() if n >= max_slots}
+        if self.paged and max_pages:
+            blocked |= {t for t, n in self._tenant_page_counts().items() if n >= max_pages}
+        return blocked
+
+    def _service_tenant_caps(self) -> None:
+        """Round-boundary soft-quota sweep (bookkeeping only): a tenant over
+        ``tenant_soft_pages`` while another tenant waits in the queue (or a
+        request is suspended) has its youngest decode slot marked; the next
+        capacity pass yields it to host. One mark at a time."""
+        soft = self.config.tenant_soft_pages
+        if not self._tenant_caps_armed or not self.paged or soft <= 0 or self._soft_yield:
+            return
+        over = {t: n for t, n in self._tenant_page_counts().items() if n > soft}
+        if not over:
+            return
+        contention = bool(self._suspended) or any(
+            d > 0 for t, d in self._pending.depths().items() if t not in over)
+        if not contention:
+            return
+        victim = max(over, key=over.get)
+        best_slot, best_len = None, None
+        for slot in range(self.n_slots):
+            state = self.slots[slot]
+            if state is None or state.tenant != victim or not self.active[slot]:
+                continue
+            if best_len is None or int(self.lengths[slot]) < best_len:
+                best_slot, best_len = slot, int(self.lengths[slot])
+        if best_slot is None:
+            return
+        self._soft_yield.add(best_slot)
+        self.tenant_soft_yields[victim] = self.tenant_soft_yields.get(victim, 0) + 1
+
+    def tenant_snapshot(self) -> dict[str, dict[str, Any]]:
+        """Per-tenant live figures (advisory; any thread)."""
+        slots, pages = self._tenant_slot_counts(), self._tenant_page_counts()
+        depths = self._pending.depths()
+        vtc, charged = self._pending.vtc_snapshot(), self._pending.charged_snapshot()
+        rejections = {t: dict(per) for t, per in
+                      _snapshot(lambda: list(self.tenant_rejections.items()))}
+        yields = dict(_snapshot(lambda: list(self.tenant_soft_yields.items())))
+        tenants = set(slots) | set(pages) | set(depths) | set(charged) | set(rejections)
+        return {t: {"weight": self._weight(t), "active_slots": slots.get(t, 0),
+                    "pages": pages.get(t, 0), "pending": depths.get(t, 0),
+                    "virtual_counter": round(vtc.get(t, 0.0), 3),
+                    "charged_tokens": charged.get(t, 0),
+                    "soft_yields": yields.get(t, 0),
+                    "rejections": rejections.get(t, {})} for t in tenants}
+
+    # ------------------------------------------------------------ health surface
+    def pending_depth(self) -> int:
+        return self._pending.qsize()
+
+    def pending_oldest_age_s(self) -> Optional[float]:
+        return self._pending.oldest_age()
+
+    def heartbeat(self) -> dict[str, Any]:
+        """Round liveness for the doctor's watchdogs."""
+        durations = sorted(t["dispatch_ms"] + t["sync_wait_ms"] + t["host_emit_ms"]
+                           for t in _snapshot(lambda: list(self.round_timings)))
+        p95 = durations[int(0.95 * (len(durations) - 1))] if durations else 0.0
+        return {"last_round_age_s": round(time.monotonic() - self.last_round_at, 3),
+                "round_p95_ms": round(p95, 3), "rounds": sum(self.rounds.values()),
+                "active": self.active_slots, "prefilling": len(self._prefill_slots),
+                "pending": self._pending.qsize(), "suspended": len(self._suspended),
+                "oldest_pending_age_s": self.pending_oldest_age_s(),
+                "broken": self._broken}
+
     def stats(self) -> dict[str, Any]:
         pool = self.pool.stats() if self.pool is not None else None
         la = dict(self.lookahead)
         n_rounds = sum(self.rounds.values())
         timings = _snapshot(lambda: list(self.round_timings))
         depth_hist = _snapshot(lambda: sorted(self.depth_hist.items()))
+        waits = _snapshot(lambda: list(self.queue_wait_samples))
+        resumes = _snapshot(lambda: list(self.resume_latency_samples))
+
+        def p50_of(samples: list) -> float:
+            vals = sorted(samples)
+            return vals[len(vals) // 2] if vals else 0.0
 
         def p50(key: str) -> float:
-            vals = sorted(t[key] for t in timings)
-            return vals[len(vals) // 2] if vals else 0.0
+            return p50_of([t[key] for t in timings])
 
         pipeline = {
             "depth": self._depth,
@@ -479,8 +999,27 @@ class ContinuousBatchingEngine:
             "requests_completed": self.requests_completed,
             "rejected_saturated": self.rejected_saturated,
             "round_timings": timings,
+            "slots": self.n_slots,
             "active_slots": self.active_slots,
-            "pending": len(self._pending),
+            "active": self.active_slots,
+            "prefilling": len(self._prefill_slots),
+            "pending": self._pending.qsize(),
+            "suspended": len(self._suspended),
+            "preemptions": self.preemptions,
+            "queue_wait_ms": {"p50": round(p50_of(waits), 3),
+                              "max": round(max(waits), 3) if waits else 0.0,
+                              "count": len(waits)},
+            "queue": {"pending": self._pending.qsize(),
+                      "per_tenant": self._pending.depths(),
+                      "drain_rate_per_s": round(self._drain_rate_per_s(), 3),
+                      "retry_after_s": round(self._saturation_retry_after(
+                          self._pending.qsize()), 1)},
+            "tenants": self.tenant_snapshot(),
+            "cancellations": dict(_snapshot(lambda: list(self.cancellations.items()))),
+            "reclaimed_tokens": self.reclaimed_tokens,
+            "resume_recovery_ms": {"p50": round(p50_of(resumes) * 1e3, 3),
+                                   "count": len(resumes)},
+            "closed": self._closed,
             "pages_in_use": pool["pages_in_use"] if pool else 0,
             "pages_free": pool["pages_free"] if pool else 0,
             "pages_total": pool["pages_total"] if pool else 0,
@@ -503,6 +1042,10 @@ class ContinuousBatchingEngine:
         with torch.inference_mode():
             while not self._stop.is_set():
                 try:
+                    # cancels and deadlines apply before admission: a lapsed
+                    # request must not take the slot this pass hands out
+                    self._service_cancellations()
+                    self._service_tenant_caps()
                     admitted = self._admit()
                     if not self.active.any() and not self._prefill_slots:
                         if admitted == 0:
@@ -513,36 +1056,93 @@ class ContinuousBatchingEngine:
                 except Exception as e:  # noqa: BLE001 — device faults must not hang clients
                     logger.exception("scheduler loop failed; failing in-flight requests")
                     self._broken = str(e)[:500]
-                    self._fail_all_inflight()
+                    self._fail_all_inflight("scheduler loop failed")
                     return
 
-    def _fail_all_inflight(self) -> None:
+    def _fail_all_inflight(self, why: str) -> None:
+        """End every occupied, suspended, admitting and queued request with
+        ``error``: the loop-fault path and :meth:`close`. The queue and the
+        suspended list are drained under the submit lock (a racing submit
+        either lands before the drain or sees the engine dead); the emits
+        run after it."""
+        logger.warning("failing every request in flight: %s", why)
         self._ring.clear()
-        for slot, state in enumerate(self.slots):
-            if state is not None:
-                self.slots[slot] = None
-                state.emit(StepEvent(0, -1, "error"))
+        with self._cancel_lock:
+            self._cancel_requests.clear()
+        stranded = [st.emit for st in self.slots if st is not None]
+        self.slots = [None] * self.n_slots
         self.active[:] = False
         self._prefill_slots.clear()
+        self._soft_yield.clear()
         with self._submit_lock:
-            stranded = list(self._pending)
-            self._pending.clear()
-        stranded += self._admitting
+            stranded += [rec.state.emit for rec in self._suspended]
+            self._suspended.clear()
+            stranded += [req.emit for req in self._pending.drain_all()]
+        stranded += [st.emit for st in self._admitting]
         self._admitting = []
-        for req in stranded:
-            req.emit(StepEvent(0, -1, "error"))
+        for emit in stranded:
+            try:
+                emit(StepEvent(0, -1, "error"))
+            except Exception:  # noqa: BLE001 — one client's fault must not strand the rest
+                pass
 
     # ------------------------------------------------------------------ admission
     def _admit(self) -> int:
-        return self._admit_mixed() if self.mixed else self._admit_phase_separated()
+        """Resume suspended requests first (paged), then take pending ones
+        by fair order and place them (:meth:`_take_pending`)."""
+        admitted = self._resume_suspended() if self.paged else 0
+        if self.mixed:
+            return admitted + len(self._take_pending(place=self._admit_prefill_slot))
+        return admitted + self._admit_phase_separated()
 
-    def _pop_pending(self) -> Optional[_Pending]:
-        with self._submit_lock:
-            return self._pending.popleft() if self._pending else None
+    def _take_pending(self, place: Optional[Callable[[_Pending], None]] = None
+                      ) -> list[_Pending]:
+        """Pop requests by weighted-fair order (tenants at a cap skipped)
+        while slots are free; phase-separated, also while this round's
+        ``prefill_budget_tokens`` are not spent (always at least one). A
+        request whose deadline passed, or whose remaining budget cannot
+        cover its estimated prefill while the engine is busy, ends with
+        ``deadline`` and never takes a slot. ``place`` (mixed mode) puts
+        each request into its slot as it is taken, so a request that
+        arrives meanwhile still joins this pass; the order and the seeds
+        are those of taking all first."""
+        budget = self.config.prefill_budget_tokens
+        taken: list[_Pending] = []
+        spent = popped = 0
+        blocked = self._blocked_tenants()
+        max_slots = self.config.tenant_max_slots if self._tenant_caps_armed else 0
+        tenant_taken = self._tenant_slot_counts() if max_slots else {}
+        while len(self._free_slots) > (0 if place else len(taken)):
+            if not self.mixed and budget > 0 and spent >= budget and taken:
+                break
+            req = self._pending.pop_fair(blocked)
+            if req is None:
+                break
+            popped += 1
+            if req.deadline is not None:
+                now = time.monotonic()
+                busy = self.active.any() or bool(self._prefill_slots)
+                if now >= req.deadline or (busy and req.deadline - now <
+                                           self._estimate_prefill_s(len(req.prompt_ids))):
+                    self._cancel_finalize(req.emit, "deadline", "deadline_exceeded",
+                                          reclaimed=req.sampling.max_tokens)
+                    continue
+            taken.append(req)
+            spent += len(req.prompt_ids)
+            if max_slots:
+                tenant_taken[req.tenant] = tenant_taken.get(req.tenant, 0) + 1
+                if tenant_taken[req.tenant] >= max_slots:
+                    blocked.add(req.tenant)
+            self.queue_wait_samples.append((time.monotonic() - req.enqueued_at) * 1e3)
+            if place is not None:
+                place(req)
+        if popped:
+            self._admit_events.append((time.monotonic(), popped))
+        return taken
 
     def _new_state(self, req: _Pending) -> _SlotState:
         """Host state of an admitted request; its stream's seed is fixed here,
-        in admission (FIFO) order, whatever path prefills it."""
+        in the order requests leave the queue, whatever path prefills it."""
         s = req.sampling
         seed = s.seed if s.seed is not None else \
             (self.seed * 1_000_003 + self._admitted) & _SEED_MASK
@@ -552,58 +1152,120 @@ class ContinuousBatchingEngine:
             stops=frozenset(s.stop_token_ids) | frozenset(self.config.eos_token_ids),
             prompt_ids=list(req.prompt_ids), chain=[],
             generator=make_slot_generator(seed, self.device)
-            if self.paged and s.temperature > 0 else None)
+            if self.paged and s.temperature > 0 else None,
+            trace=req.trace, deadline=req.deadline, tenant=req.tenant)
 
-    def _admit_mixed(self) -> int:
-        """Claim free slots for pending requests, FIFO, in prefill phase: no
-        device work here — the round loop consumes their prompts chunk by
-        chunk, from the end of the prefix-cache match on."""
-        admitted = 0
-        while self._free_slots:
-            req = self._pop_pending()
-            if req is None:
-                break
+    def _admit_prefill_slot(self, req: _Pending) -> None:
+        """Claim a free slot in prefill phase with no device work: the round
+        loop consumes the prompt chunk by chunk, from the end of the
+        prefix-cache match on."""
+        slot = self._free_slots.popleft()
+        state = self._new_state(req)
+        state.phase, state.prefill_t0 = "prefill", time.monotonic()
+        cached_pages, cached_len = self.pool.match_prefix(req.prompt_ids)
+        if cached_pages:
+            # references, not the radix pin, hold the pages from here on
+            self.pool.ref_pages(cached_pages)
+        # load-bearing also when the match was trimmed to empty (a fully
+        # cached prompt): this is the only unpin of the matched nodes
+        self.pool.release(req.prompt_ids)
+        state.chain = list(cached_pages)
+        state.prefill_pos = state.cached_len = cached_len
+        self.slots[slot] = state
+        self.lengths[slot] = 0
+        self.page_table[slot, :] = 0
+        self.page_table[slot, :len(state.chain)] = state.chain
+        self._pt_dirty = True
+        self._patch_slot_device(slot, state, length=0, active=False,
+                                limit=len(state.prompt_ids) + req.sampling.max_tokens - 1)
+        self._prefill_slots.append(slot)
+        self._epoch += 1
+
+    def _resume_suspended(self) -> int:
+        """Put preempted requests back (FIFO) while slots and pool space
+        allow; they outrank new admissions. A soft-quota yield waits while
+        another tenant has pending work and its tenant is still over the
+        cap. A request that cannot fit an idle pool (or the whole pool) ends
+        with ``length`` instead of waiting for ever."""
+        resumed = 0
+        deferred: list[_Suspended] = []
+        while self._suspended and self._free_slots:
+            rec = self._suspended[0]
+            if rec.soft_yielded and self._defer_soft_yield(rec.state.tenant):
+                with self._submit_lock:
+                    deferred.append(self._suspended.popleft())
+                continue
+            try:
+                chain = self.pool.restore_chain_from_host(rec.host_kv)
+                try:
+                    self.pool.extend_chain(chain, rec.length + self._k_steps)
+                except MemoryError:
+                    self.pool.release_slot(chain)  # a half-resume must not leak
+                    raise
+            except MemoryError:
+                need = self.pool.pages_for(rec.length + self._k_steps)
+                if need > self.pool.capacity_pages or not self.active.any():
+                    with self._submit_lock:
+                        self._suspended.popleft()
+                    logger.warning("request %s (len=%d) cannot fit the pool; finishing "
+                                   "with 'length'", rec.state.request_id, rec.length)
+                    self.requests_completed += 1
+                    rec.state.emit(StepEvent(0, -1, "length"))
+                    continue
+                break  # no room yet; stay suspended
+            with self._submit_lock:
+                self._suspended.popleft()
             slot = self._free_slots.popleft()
-            state = self._new_state(req)
-            cached_pages, cached_len = self.pool.match_prefix(req.prompt_ids)
-            if cached_pages:
-                # references, not the radix pin, hold the pages from here on
-                self.pool.ref_pages(cached_pages)
-            # load-bearing also when the match was trimmed to empty (a fully
-            # cached prompt): this is the only unpin of the matched nodes
-            self.pool.release(req.prompt_ids)
-            state.chain = list(cached_pages)
-            state.prefill_pos = state.cached_len = cached_len
+            state = rec.state
+            state.chain = chain
             self.slots[slot] = state
-            self.lengths[slot] = 0
+            if state.generator is not None and rec.gen_state is not None:
+                state.generator.set_state(rec.gen_state)
+            s = state.sampling
+            if state.phase == "prefill":
+                # chunking continues from prefill_pos; nothing was drawn yet
+                self.active[slot] = False
+                self.lengths[slot] = 0
+                self._patch_slot_device(slot, state, length=0, active=False,
+                                        limit=len(state.prompt_ids) + s.max_tokens - 1)
+                self._prefill_slots.append(slot)
+            else:
+                self.active[slot] = True
+                self.lengths[slot] = rec.length
+                # L - emitted + max_tokens is the original T + max_tokens - 1
+                self._patch_slot_device(slot, state, length=rec.length, active=True,
+                                        limit=rec.length - state.emitted + s.max_tokens)
+                self._last_dev[slot].fill_(rec.last_token)
+            # the new page ids reach the device rows (and a decode graph's
+            # static page table) at the next dispatch's flush
             self.page_table[slot, :] = 0
-            self.page_table[slot, :len(state.chain)] = state.chain
+            self.page_table[slot, :len(chain)] = chain
             self._pt_dirty = True
-            self._patch_slot_device(slot, state, length=0, active=False,
-                                    limit=len(state.prompt_ids) + req.sampling.max_tokens - 1)
-            self._prefill_slots.append(slot)
             self._epoch += 1
-            admitted += 1
-        return admitted
+            resumed += 1
+            self.resume_latency_samples.append(time.monotonic() - rec.suspended_at)
+        if deferred:
+            with self._submit_lock:
+                self._suspended.extendleft(reversed(deferred))
+        return resumed
+
+    def _defer_soft_yield(self, tenant: str) -> bool:
+        """Keep a soft-quota yield parked while another tenant has pending
+        work and ``tenant`` still holds more than its soft cap."""
+        key = self._pending._key(tenant)
+        if not any(t != key and d > 0 for t, d in self._pending.depths().items()):
+            return False
+        soft = self.config.tenant_soft_pages
+        return soft > 0 and self._tenant_page_counts().get(tenant, 0) > soft
 
     def _admit_phase_separated(self) -> int:
-        """Take pending requests FIFO while slots are free and this round's
-        ``prefill_budget_tokens`` are not spent (always at least one), then
-        prefill them. With coalescing (paged mode) each request is matched
-        once here, its pin held until its prefill: cold requests of one
-        bucket share a dispatch in groups of up to ``prefill_coalesce``,
-        prefix hits and the rest prefill alone. Each request is in its slot,
-        first token emitted, when this returns."""
-        budget = self.config.prefill_budget_tokens
-        spent = 0
-        while len(self._admitting) < len(self._free_slots):
-            if budget > 0 and spent >= budget and self._admitting:
-                break
-            req = self._pop_pending()
-            if req is None:
-                break
-            self._admitting.append(self._new_state(req))
-            spent += len(req.prompt_ids)
+        """Take pending requests (:meth:`_take_pending`), then prefill them.
+        With coalescing (paged mode) each request is matched once here, its
+        pin held until its prefill: cold requests of one bucket share a
+        dispatch in groups of up to ``prefill_coalesce``, prefix hits and
+        the rest prefill alone. Each request is in its slot, first token
+        emitted, when this returns."""
+        self._admitting = [self._new_state(req) for req in self._take_pending()]
         taken = list(self._admitting)
         coalesce = max(1, self.config.prefill_coalesce) if self.paged else 1
         singles: list[tuple[_SlotState, Optional[tuple[list[int], int]]]] = []
@@ -699,6 +1361,10 @@ class ContinuousBatchingEngine:
         self._place_prefilled(states, kv, [[] for _ in states], first)
         self.coalesced_prefills += int(B > 1)
         self.prefill_ms += (time.perf_counter() - t0) * 1e3
+        self._note_prefill_rate(sum(len(st.prompt_ids) for st in states),
+                                time.perf_counter() - t0)
+        for st in states:
+            self._charge_tenant(st.tenant, len(st.prompt_ids))
 
     def _prefill_hit(self, state: _SlotState, cached_pages: list[int], cached_len: int,
                      bucket: int, suf_bucket: int) -> None:
@@ -720,6 +1386,9 @@ class ContinuousBatchingEngine:
         self._place_prefilled([state], kv, [cached_pages], self._sample_rows(logits, [state]))
         self.suffix_prefills += 1
         self.prefill_ms += (time.perf_counter() - t0) * 1e3
+        # only the uncached suffix is prefilled, and charged
+        self._note_prefill_rate(len(suffix), time.perf_counter() - t0)
+        self._charge_tenant(state.tenant, len(suffix))
 
     def _place_prefilled(self, states: list[_SlotState], kv: llama.KVCache,
                          cached: list[list[int]], first: torch.Tensor) -> None:
@@ -786,22 +1455,91 @@ class ContinuousBatchingEngine:
             self._page_table_dev.copy_(to_device(self.page_table, self.device))
             self._pt_dirty = False
 
-    def _grow_chain(self, slot: int, state: _SlotState, needed: int) -> None:
-        """Extend a slot's chain to cover ``needed`` tokens. The pool holds a
-        full-window chain for every slot beside what only the tree holds, so
-        the horizon of the current chunk cannot run dry; a MemoryError past
-        it caps the ring (preemption to host comes with a later slice)."""
+    def _extend_chain_to(self, slot: int, state: _SlotState, target: int) -> None:
+        """Grow one slot's chain to cover ``target`` tokens and patch its
+        page-table row; raises MemoryError when the pool cannot (nothing
+        allocated)."""
         before = len(state.chain)
-        if self.pool.pages_for(needed) <= before:
+        if self.pool.pages_for(target) <= before:
             return
-        self.pool.extend_chain(state.chain, needed)
+        self.pool.extend_chain(state.chain, target)
         self.page_table[slot, before: len(state.chain)] = state.chain[before:]
         self._pt_dirty = True
 
+    def _grow_chain(self, slot: int, state: _SlotState, horizon: int) -> None:
+        """Cover length + ``horizon`` for a decode slot. The horizon past the
+        next chunk is optional: a slot that still covers its next chunk is
+        never preempted for it (that would livelock: resume restores length
+        + k, the next round asks for the deeper horizon again, and the KV
+        round-trips for ever). Raises MemoryError only when even the next
+        chunk cannot be covered."""
+        L, max_seq = int(self.lengths[slot]), self.config.max_seq_len
+        try:
+            self._extend_chain_to(slot, state, min(L + horizon, max_seq))
+            return
+        except MemoryError:
+            mandatory = min(L + self._k_steps, max_seq)
+            if self.pool.pages_for(mandatory) <= len(state.chain):
+                return
+        self._extend_chain_to(slot, state, mandatory)
+
     def _ensure_chunk_capacity(self, horizon: int) -> None:
-        for slot in np.flatnonzero(self.active):
-            self._grow_chain(int(slot), self.slots[slot],
-                             min(int(self.lengths[slot]) + horizon, self.config.max_seq_len))
+        """Before a dispatch from committed state (the ring is empty): every
+        active chain covers length + ``horizon``; a slot the pool cannot
+        serve is preempted to host, and so is a slot the cap sweep marked
+        for a soft-quota yield while its tenant is still over the cap."""
+        soft = self.config.tenant_soft_pages
+        for slot in range(self.n_slots):
+            state = self.slots[slot]
+            if state is None or not self.active[slot]:
+                continue
+            if slot in self._soft_yield:
+                self._soft_yield.discard(slot)
+                if soft > 0 and self._tenant_page_counts().get(state.tenant, 0) > soft:
+                    self._preempt_slot(slot, state, soft_yielded=True)
+                    continue
+            try:
+                self._grow_chain(slot, state, horizon)
+            except MemoryError:
+                self._preempt_slot(slot, state)
+
+    def _preempt_slot(self, slot: int, state: _SlotState, soft_yielded: bool = False) -> None:
+        """Preempt to host, never shed: copy the chain's KV to host, free its
+        pages and the slot, and park the request with what resuming needs —
+        the valid length (``prefill_pos`` in prefill phase), the last token
+        and the generator's state. Only called with the ring empty, so the
+        committed state is the emitted one and the generator states are
+        put back."""
+        is_prefill = state.phase == "prefill"
+        length = state.prefill_pos if is_prefill else int(self.lengths[slot])
+        logger.info("preempting %s to host (%s, len=%d, %d pages)%s", state.request_id,
+                    state.phase, length, len(state.chain),
+                    " (tenant soft-quota yield)" if soft_yielded else "")
+        host_kv = self.pool.save_chain_to_host(state.chain)
+        gen_state = state.generator.get_state() if state.generator is not None else None
+        with self._submit_lock:
+            self._suspended.append(_Suspended(
+                state=state, host_kv=host_kv, length=length,
+                last_token=0 if is_prefill else state.last_token, gen_state=gen_state,
+                soft_yielded=soft_yielded))
+        self.preemptions += 1
+        if is_prefill:
+            self._prefill_slots.remove(slot)
+        self.active[slot] = False
+        self.slots[slot] = None
+        self._release_free_slot(slot)
+        self._deactivate_slot_device(slot)
+        self._epoch += 1
+        self.pool.release_slot(state.chain)
+        state.chain = []
+        self.page_table[slot, :] = 0
+        self._pt_dirty = True
+
+    def _release_free_slot(self, slot: int) -> None:
+        # a soft-yield mark dies with the occupancy: the next owner must not
+        # inherit it
+        self._soft_yield.discard(slot)
+        self._free_slots.append(slot)
 
     def _warp_rows(self, states: list) -> tuple[torch.Tensor, ...]:
         """(temperature, top_p, top_k) device rows for prefill rows."""
@@ -849,6 +1587,8 @@ class ContinuousBatchingEngine:
             raise RuntimeError(f"slot {slot}: the device froze a row the host "
                                "still runs (termination rules disagree)")
         state.emitted += 1
+        state.last_token = tok
+        self._charge_tenant(state.tenant, 1)
         if tok in state.stops:
             fin: Optional[str] = "stop"
         elif state.emitted >= state.sampling.max_tokens or force_length:
@@ -860,7 +1600,7 @@ class ContinuousBatchingEngine:
             self.active[slot] = False
             self.slots[slot] = None
             self.requests_completed += 1
-            self._free_slots.append(slot)
+            self._release_free_slot(slot)
             if fin == "stop" and not self._dev_term[slot]:
                 # a stop outside the device's stop row: the device ran the
                 # row on, so every in-flight chunk is stale
@@ -874,6 +1614,8 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------------ rounds
     def _decode_round(self) -> None:
+        """One round; a round whose slots were all preempted before its
+        dispatch dispatches nothing and is not counted."""
         t0 = time.perf_counter()
         if not self.paged:
             kind = self._decode_round_dense()
@@ -881,7 +1623,9 @@ class ContinuousBatchingEngine:
             kind = self._decode_round_mixed()
         else:
             kind = self._decode_round_chunk()
-        self.round_ms[kind] += (time.perf_counter() - t0) * 1e3
+        if kind is not None:
+            self.round_ms[kind] += (time.perf_counter() - t0) * 1e3
+            self.last_round_at = time.monotonic()
 
     def _record_round(self, kind: str, dispatch_ms: float, sync_wait_ms: float,
                       host_emit_ms: float, lookahead: bool, depth: int) -> None:
@@ -979,18 +1723,24 @@ class ContinuousBatchingEngine:
     def _can_extend_ring(self) -> bool:
         """Chain one more chunk off the ring's tail only while it is likely to
         be used: nothing changed since the ring's dispatches, no prompt chunk
-        is waiting (the next round would be mixed), no admission is due, and
-        every active chain covers the deeper horizon (a MemoryError only
-        caps the ring)."""
+        is waiting (the next round would be mixed), no admission or resume
+        is due, no soft-quota yield is marked (it waits for a synchronous
+        round), and every active chain covers the deeper horizon (a
+        MemoryError only caps the ring; the next synchronous round
+        preempts)."""
         if self._stop.is_set() or not self._ring or self._ring[-1].epoch != self._epoch:
             return False
-        if self._prefill_slots or (self._free_slots and self._pending):
+        if self._prefill_slots or self._soft_yield or (
+                self._free_slots and (self._suspended or not self._pending.empty())):
             return False
         horizon = (len(self._ring) + 1) * self._k_steps
-        try:
-            self._ensure_chunk_capacity(horizon)
-        except MemoryError:
-            return False
+        for slot in np.flatnonzero(self.active):
+            try:
+                self._extend_chain_to(int(slot), self.slots[slot],
+                                      min(int(self.lengths[slot]) + horizon,
+                                          self.config.max_seq_len))
+            except MemoryError:
+                return False
         return True
 
     def _drain(self, rec: _InflightChunk) -> np.ndarray:
@@ -1012,6 +1762,8 @@ class ContinuousBatchingEngine:
         used = bool(self._ring)
         if not used:
             self._ensure_chunk_capacity(k * (depth + 1))
+            if not self.active.any():
+                return None  # every slot was preempted
             self._ring.append(self._dispatch_chunk(None, self.active))
         while len(self._ring) <= depth and self._can_extend_ring():
             self._ring.append(self._dispatch_chunk(self._ring[-1], self.active))
@@ -1057,10 +1809,18 @@ class ContinuousBatchingEngine:
         n, dev, k = self.n_slots, self.device, self._k_steps
         if self._ring:
             self._discard_ring()
+        # decode rows keep a chunk of headroom, prompt rows cover their
+        # chunk; a slot the pool cannot serve is preempted to host
         self._ensure_chunk_capacity(k)
-        plan = self._plan_prefill_chunks()
-        for slot, state, chunk in plan:
-            self._grow_chain(slot, state, state.prefill_pos + chunk)
+        plan = []
+        for slot, state, chunk in self._plan_prefill_chunks():
+            try:
+                self._extend_chain_to(slot, state, state.prefill_pos + chunk)
+                plan.append((slot, state, chunk))
+            except MemoryError:
+                self._preempt_slot(slot, state)
+        if not plan:
+            return None  # every planned slot was preempted: the next pass decodes
         q_need = self.config.bucket_for(max(c for _, _, c in plan))
         q_max = -(-q_need // 8) * 8
         q_ids = np.zeros((n, q_max), np.int32)
@@ -1126,6 +1886,7 @@ class ContinuousBatchingEngine:
             state.prefill_pos += chunk
             self.prefill_chunks += 1
             self.chunked_prefill_tokens += chunk
+            self._charge_tenant(state.tenant, chunk)
         for slot, state in finals:
             self._finish_prefill(slot, state, int(toks_host[slot]), bump_epoch=spanned == 0)
         for slot in decode_rows:
@@ -1147,7 +1908,7 @@ class ContinuousBatchingEngine:
         for a synchronous round. Chains grow first; a MemoryError caps the
         span. Returns the chunks chained."""
         if (self._depth <= 0 or len(finals) != len(self._prefill_slots)
-                or self._pending or self._stop.is_set()):
+                or self._suspended or not self._pending.empty() or self._stop.is_set()):
             return 0
         k, max_seq = self._k_steps, self.config.max_seq_len
         flipping = np.zeros(self.n_slots, bool)
@@ -1161,7 +1922,7 @@ class ContinuousBatchingEngine:
                 for slot in np.flatnonzero(draw):
                     state = self.slots[slot]
                     L = int(self.lengths[slot]) if self.active[slot] else len(state.prompt_ids)
-                    self._grow_chain(int(slot), state, min(L + horizon, max_seq))
+                    self._extend_chain_to(int(slot), state, min(L + horizon, max_seq))
             except MemoryError:
                 break
             tail = self._dispatch_chunk(tail, draw)
@@ -1179,10 +1940,12 @@ class ContinuousBatchingEngine:
         T = len(state.prompt_ids)
         self.pool.commit_chain(state.prompt_ids, state.chain)
         self._prefill_slots.remove(slot)
+        state.phase = "decode"
         self.lengths[slot] = T
         self.active[slot] = True
         if bump_epoch:
             self._epoch += 1
+        self._note_prefill_rate(T - state.cached_len, time.monotonic() - state.prefill_t0)
         self._emit_token(slot, tok, force_length=T + self._k_steps > self.config.max_seq_len)
 
     def _decode_round_dense(self) -> str:

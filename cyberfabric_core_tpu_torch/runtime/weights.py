@@ -1,16 +1,27 @@
-"""Parameter conversion (counterpart of ``runtime/weights.py``).
+"""Parameter loading and conversion (counterpart of ``runtime/weights.py``).
+
+:func:`load_llama_params` reads a HF llama-family safetensors checkpoint
+(llama, qwen2 with its q/k/v bias, gemma, mixtral's experts) into the port's
+``state_dict``, and :func:`save_llama_params` writes one back in the HF
+layout. The format is read and written here (:class:`SafetensorsIndex`): an
+8-byte little-endian header length, a JSON header of name → dtype, shape and
+byte offsets, then the raw bytes; the port needs no ``safetensors`` package.
+F32, F16 and BF16 tensors are read; another dtype or a missing tensor
+raises.
 
 :func:`params_from_jax` turns the JAX package's parameter tree — handed over
-as numpy arrays, so this module never touches JAX — into the port's
+as numpy arrays, so this module never touches JAX — into the same
 ``state_dict``: the stacked ``[L, ...]`` layer leaves are unstacked into
 ``layers.<i>.<name>``. Both packages keep weight matrices ``[in, out]``, so no
-transpose is needed and both compute the same function. Loading HF
-safetensors checkpoints comes with a later slice.
+transpose is needed and both compute the same function.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+import json
+import struct
+from pathlib import Path
+from typing import Any, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -18,6 +29,196 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models.configs import ModelConfig
 from ..models.llama import LlamaModel, _leaf_shapes, check_supported
+
+# state_dict leaf → (HF name template, transpose?); {i} = layer, {e} = expert
+_LLAMA_MAP: dict[str, tuple[str, bool]] = {
+    "embed": ("model.embed_tokens.weight", False),
+    "final_norm": ("model.norm.weight", False),
+    "lm_head": ("lm_head.weight", True),
+    "attn_norm": ("model.layers.{i}.input_layernorm.weight", False),
+    "wq": ("model.layers.{i}.self_attn.q_proj.weight", True),
+    "wk": ("model.layers.{i}.self_attn.k_proj.weight", True),
+    "wv": ("model.layers.{i}.self_attn.v_proj.weight", True),
+    # qwen2-family attention biases (only when cfg.attention_bias)
+    "bq": ("model.layers.{i}.self_attn.q_proj.bias", False),
+    "bk": ("model.layers.{i}.self_attn.k_proj.bias", False),
+    "bv": ("model.layers.{i}.self_attn.v_proj.bias", False),
+    "wo": ("model.layers.{i}.self_attn.o_proj.weight", True),
+    "mlp_norm": ("model.layers.{i}.post_attention_layernorm.weight", False),
+    "gate": ("model.layers.{i}.mlp.gate_proj.weight", True),
+    "up": ("model.layers.{i}.mlp.up_proj.weight", True),
+    "down": ("model.layers.{i}.mlp.down_proj.weight", True),
+    # mixtral-family MoE (only when cfg.num_experts > 0): HF w1 = gate [I, H],
+    # w3 = up [I, H], w2 = down [H, I]; the router gate is [E, H]
+    "router": ("model.layers.{i}.block_sparse_moe.gate.weight", True),
+    "moe_gate": ("model.layers.{i}.block_sparse_moe.experts.{e}.w1.weight", True),
+    "moe_up": ("model.layers.{i}.block_sparse_moe.experts.{e}.w3.weight", True),
+    "moe_down": ("model.layers.{i}.block_sparse_moe.experts.{e}.w2.weight", True),
+}
+
+_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
+_DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
+
+PathLike = Union[str, Path]
+
+
+class SafetensorsIndex:
+    """Tensor name → file across one checkpoint directory's safetensors
+    files (sharded through ``model.safetensors.index.json``, or every
+    ``*.safetensors`` file)."""
+
+    def __init__(self, model_dir: PathLike) -> None:
+        self.model_dir = Path(model_dir)
+        self.name_to_file: dict[str, Path] = {}
+        self._headers: dict[Path, tuple[dict, int]] = {}
+        index_file = self.model_dir / "model.safetensors.index.json"
+        if index_file.exists():
+            for name, fname in json.loads(index_file.read_text())["weight_map"].items():
+                self.name_to_file[name] = self.model_dir / fname
+        else:
+            for f in sorted(self.model_dir.glob("*.safetensors")):
+                for name in self._header(f)[0]:
+                    self.name_to_file[name] = f
+
+    def _header(self, f: Path) -> tuple[dict, int]:
+        """(tensor entries, byte offset of the data) of one file."""
+        if f not in self._headers:
+            with open(f, "rb") as fh:
+                (n,) = struct.unpack("<Q", fh.read(8))
+                header = json.loads(fh.read(n))
+            header.pop("__metadata__", None)
+            self._headers[f] = (header, 8 + n)
+        return self._headers[f]
+
+    def has(self, name: str) -> bool:
+        return name in self.name_to_file
+
+    def load(self, name: str) -> torch.Tensor:
+        """One tensor as a CPU tensor of its stored dtype."""
+        f = self.name_to_file.get(name)
+        if f is None:
+            raise KeyError(f"tensor {name!r} not found in {self.model_dir}")
+        header, base = self._header(f)
+        meta = header[name]
+        dtype = _DTYPES.get(meta["dtype"])
+        if dtype is None:
+            raise ValueError(f"tensor {name!r} has dtype {meta['dtype']}; the loader "
+                             f"reads {sorted(_DTYPES)}")
+        start, end = meta["data_offsets"]
+        shape = tuple(meta["shape"])
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        if end - start != int(np.prod(shape, dtype=np.int64)) * itemsize:
+            raise ValueError(f"tensor {name!r}: {end - start} bytes for shape {shape} "
+                             f"of {meta['dtype']}")
+        with open(f, "rb") as fh:
+            fh.seek(base + start)
+            buf = bytearray(fh.read(end - start))  # writable, as frombuffer wants
+        if not buf:
+            return torch.empty(shape, dtype=dtype)
+        # safetensors is little-endian, as the hosts this runs on are
+        return torch.frombuffer(buf, dtype=dtype).reshape(shape)
+
+
+def write_safetensors(tensors: Mapping[str, torch.Tensor], path: PathLike) -> Path:
+    """Write ``tensors`` (CPU, F32 / F16 / BF16) as one safetensors file."""
+    header, offset, blobs = {}, 0, []
+    for name in sorted(tensors):
+        t = tensors[name].detach().contiguous().cpu()
+        data = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        header[name] = {"dtype": _DTYPE_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        offset += len(data)
+        blobs.append(data)
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)  # the data starts 8-byte aligned
+    path = Path(path)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(raw)))
+        fh.write(raw)
+        for data in blobs:
+            fh.write(data)
+    return path
+
+
+def _wanted(leaf: str, cfg: ModelConfig) -> bool:
+    if leaf in ("bq", "bk", "bv"):
+        return cfg.attention_bias
+    if leaf in ("router", "moe_gate", "moe_up", "moe_down"):
+        return cfg.num_experts > 0
+    if leaf in ("gate", "up", "down"):
+        return cfg.num_experts == 0
+    return True
+
+
+def load_llama_params(model_dir: PathLike, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
+                      device: DeviceLike = None, quantize: bool = False,
+                      quant_bits: int = 8) -> dict[str, torch.Tensor]:
+    """A HF llama-family checkpoint → the port's state_dict on ``device`` in
+    ``dtype`` (default the CUDA device): HF ``[out, in]`` matrices
+    transposed to ``[in, out]``, the qwen2 q/k/v bias when the config has
+    one, no ``lm_head`` for tied configs, and per layer the expert stacks
+    ``[E, ...]`` of a MoE config. Weight quantization is a later slice and
+    raises."""
+    if quantize:
+        raise NotImplementedError(f"quantized loading (int{quant_bits}) is not ported "
+                                  "yet (later slice: runtime/quant.py)")
+    check_supported(cfg)
+    dev = resolve_device(device)
+    idx = SafetensorsIndex(model_dir)
+
+    def put(t: torch.Tensor, transpose: bool) -> torch.Tensor:
+        t = t.t() if transpose else t
+        return t.to(device=dev, dtype=dtype).contiguous()
+
+    out: dict[str, torch.Tensor] = {}
+    for leaf, (tmpl, transpose) in _LLAMA_MAP.items():
+        if not _wanted(leaf, cfg):
+            continue
+        if leaf == "lm_head":
+            if not cfg.tie_embeddings:
+                out[leaf] = put(idx.load(tmpl), transpose)
+        elif "{i}" not in tmpl:
+            out[leaf] = put(idx.load(tmpl), transpose)
+        else:
+            for i in range(cfg.num_layers):
+                if "{e}" in tmpl:
+                    out[f"layers.{i}.{leaf}"] = torch.stack(
+                        [put(idx.load(tmpl.format(i=i, e=e)), transpose)
+                         for e in range(cfg.num_experts)])
+                else:
+                    out[f"layers.{i}.{leaf}"] = put(idx.load(tmpl.format(i=i)), transpose)
+    return out
+
+
+def save_llama_params(params: Union[LlamaModel, Mapping[str, torch.Tensor]],
+                      cfg: ModelConfig, out_dir: PathLike) -> Path:
+    """Write a state_dict (or a :class:`LlamaModel`) as a HF-layout
+    ``model.safetensors`` in f32: every tensor of the checkpoint the loader
+    reads, the experts fanned out per expert."""
+    state = params.state_dict() if isinstance(params, LlamaModel) else params
+    tensors: dict[str, torch.Tensor] = {}
+
+    def hf(t: torch.Tensor, transpose: bool) -> torch.Tensor:
+        t = t.detach().float().cpu()
+        return (t.t() if transpose else t).contiguous()
+
+    for leaf, (tmpl, transpose) in _LLAMA_MAP.items():
+        if "{i}" not in tmpl:
+            if leaf in state:
+                tensors[tmpl] = hf(state[leaf], transpose)
+            continue
+        for i in range(cfg.num_layers):
+            key = f"layers.{i}.{leaf}"
+            if key not in state:
+                continue
+            if "{e}" in tmpl:
+                for e in range(cfg.num_experts):
+                    tensors[tmpl.format(i=i, e=e)] = hf(state[key][e], transpose)
+            else:
+                tensors[tmpl.format(i=i)] = hf(state[key], transpose)
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    return write_safetensors(tensors, out_dir / "model.safetensors")
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig) -> dict[str, torch.Tensor]:
@@ -53,7 +254,7 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig) -> dict[str, torc
 
 def model_from_state_dict(state: Mapping[str, torch.Tensor], cfg: ModelConfig,
                           device: DeviceLike = None,
-                          dtype: torch.dtype | None = None) -> LlamaModel:
+                          dtype: Optional[torch.dtype] = None) -> LlamaModel:
     """Build a :class:`LlamaModel` on ``device`` from a state_dict (cast to
     ``dtype`` when given)."""
     dev = resolve_device(device)

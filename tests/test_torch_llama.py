@@ -112,11 +112,6 @@ def test_paged_forwards_match_jax_over_steps(models):
         np.testing.assert_allclose(tp[:, 1:].numpy(), np.asarray(jp)[:, 1:], **TOL)
 
 
-def test_moe_config_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tllama.init_params(get_config("tiny-moe"), device="cpu")
-
-
 @pytest.mark.parametrize("use_flash", [False, True])
 def test_prefill_collect_matches_jax(models, use_flash):
     """Both packages' prefill_collect (the JAX one through its Pallas flash

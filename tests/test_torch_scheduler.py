@@ -274,11 +274,9 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
         ContinuousBatchingEngine(_config())
 
 
-@pytest.mark.parametrize("override", [dict(tenant_max_slots=2),
-                                      dict(quantization="int8"),
+@pytest.mark.parametrize("override", [dict(quantization="int8"),
                                       dict(scheduler_spec_k=2), dict(tp=2),
-                                      dict(pd_role="prefill"),
-                                      dict(model="tiny-moe")])
+                                      dict(pd_role="prefill")])
 def test_path_changing_options_name_their_later_slice(override):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ContinuousBatchingEngine(_config(**override), device="cpu")
