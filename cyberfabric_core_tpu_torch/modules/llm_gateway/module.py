@@ -1,0 +1,352 @@
+"""The llm-gateway handlers (the port's copy of the chat path of
+``modules/llm_gateway/module.py``): ``POST /v1/chat/completions`` and
+``POST /v1/completions``, sync and SSE.
+
+validate against the wire schema → refuse what the port does not serve →
+request id, traceparent and tenant into the worker params → deadline →
+resolve the model and its fallback chain → one attempt per model under the
+TTFT and total timeouts → a JSON response, or an SSE stream of chunks (a
+role-bearing first delta, content deltas, a final chunk with
+``finish_reason`` and ``usage``, then ``data: [DONE]``; a failure after the
+stream started is an ``error`` event).
+
+A client that leaves an SSE stream, before its first token or after, is
+seen on the connection (EOF while waiting, a reset at a write); the stream's
+generators are closed, and the worker cancels the request in the engine.
+Request fields and config keys of the JAX module that the port does not
+serve (async jobs, tools, structured output, media parts, budgets, hooks)
+raise, naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import uuid
+from typing import Any, AsyncIterator, Optional
+
+from ...gateway.http import ClientDisconnected, Request, StreamResponse
+from ...gateway.middleware import REQUEST_ID_KEY, SECURITY_CONTEXT_KEY
+from ...gateway.router import RestRouter
+from ...gateway.validation import read_json, validate_against
+from ...modkit.errcat import ERR
+from ...modkit.errors import ProblemError
+from ...modkit.security import SecurityContext
+from ...modkit.sse import SSE_DONE, format_sse_json
+from ..sdk import ChatStreamChunk, LlmWorkerApi, ModelInfo, ModelRegistryApi
+from . import schemas
+
+logger = logging.getLogger("llm_gateway")
+
+#: config keys of the JAX module; ``budget_retry_after_s`` only paces
+#: budget rejections, so without ``budgets`` it is inert in both packages
+CONFIG_KEYS = frozenset({"ttft_timeout_s", "total_timeout_s", "default_deadline_ms",
+                         "budget_retry_after_s", "worker"})
+_UNPORTED_CONFIG = {
+    "budgets": "14 (usage budgets)",
+    "federation": "1 (the federated-worker entry)",
+    "remote_worker_endpoint": "1 (the federated-worker entry)",
+    "worker_service": "1 (the federated-worker entry)",
+    "video_poll_interval_s": "13 (media)",
+    "video_poll_timeout_s": "13 (media)",
+}
+#: request fields the port does not serve yet
+_UNPORTED_FIELDS = {
+    "async": "11 (async jobs and batches)",
+    "tools": "12 (tools and structured output)",
+    "response_schema": "12 (tools and structured output)",
+}
+
+
+def check_config(cfg: dict[str, Any]) -> None:
+    for key in cfg:
+        if key in _UNPORTED_CONFIG:
+            raise ValueError(f"llm_gateway config: {key!r} is not ported yet "
+                             f"(ROADMAP queue 1 item {_UNPORTED_CONFIG[key]})")
+        if key not in CONFIG_KEYS:
+            raise ValueError(f"llm_gateway config: unknown key {key!r}")
+
+
+class LlmGatewayModule:
+    def __init__(self, config: dict[str, Any], registry: ModelRegistryApi,
+                 worker: LlmWorkerApi) -> None:
+        check_config(config)
+        self.registry = registry
+        self.worker = worker
+        self.ttft_timeout_s = float(config.get("ttft_timeout_s", 120.0))
+        self.total_timeout_s = float(config.get("total_timeout_s", 600.0))
+        #: default per-request TTL (ms) threaded into the engine as a
+        #: deadline when the client sends no X-Request-Deadline-Ms; 0 = off
+        self.default_deadline_ms = float(config.get("default_deadline_ms", 0.0))
+        #: SSE consumers that left mid-stream
+        self.client_disconnects = 0
+
+    # ------------------------------------------------------------- application layer
+    async def _resolve_with_fallback(self, ctx: SecurityContext,
+                                     body: dict) -> list[tuple[bool, ModelInfo]]:
+        """Primary + fallback chain as (is_primary, model) pairs; resolution
+        errors are skipped so a dead primary still falls through."""
+        names = [body["model"]]
+        fb = body.get("fallback") or {}
+        names += [n for n in fb.get("models", []) if n not in names]
+        max_attempts = int(fb.get("max_attempts", len(names)))
+        resolved: list[tuple[bool, ModelInfo]] = []
+        errors: list[str] = []
+        for pos, name in enumerate(names[:max_attempts]):
+            try:
+                resolved.append((pos == 0, await self.registry.resolve(ctx, name)))
+            except ProblemError as e:
+                errors.append(f"{name}: {e.problem.detail or e.problem.title}")
+        if not resolved:
+            raise ERR.llm.model_not_found.error(
+                "no usable model in request chain: " + "; ".join(errors))
+        return resolved
+
+    async def _chat_once(self, model: ModelInfo, body: dict,
+                         mode: str = "chat") -> AsyncIterator[ChatStreamChunk]:
+        """One model attempt under the TTFT and total timeouts; the worker's
+        generator is closed on every exit, so its teardown cancels the
+        engine-side work of a consumer that is gone."""
+        if mode == "completion":
+            agen = self.worker.completion_stream(model, body["prompt"], body)
+        else:
+            agen = self.worker.chat_stream(model, body["messages"], body)
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + self.total_timeout_s
+        first = True
+        try:
+            while True:
+                timeout = self.ttft_timeout_s if first else max(0.05, deadline - loop.time())
+                try:
+                    chunk = await asyncio.wait_for(agen.__anext__(), timeout)
+                except StopAsyncIteration:
+                    return
+                except asyncio.TimeoutError:
+                    raise (ERR.llm.ttft_timeout if first else ERR.llm.total_timeout).error(
+                        f"model {model.canonical_id} {'TTFT' if first else 'total'} timeout")
+                first = False
+                yield chunk
+        finally:
+            await agen.aclose()
+
+    # ------------------------------------------------------------- REST handlers
+    @staticmethod
+    def _reject_unported(body: dict) -> None:
+        for key, item in _UNPORTED_FIELDS.items():
+            if body.get(key):
+                raise ERR.llm.not_ported.error(
+                    f"request field {key!r} is not served by the port yet "
+                    f"(ROADMAP queue 1 item {item})")
+        for msg in body.get("messages") or ():
+            for part in msg.get("content") or ():
+                if part.get("type") != "text":
+                    raise ERR.llm.not_ported.error(
+                        f"content parts of type {part.get('type')!r} are not served by the "
+                        "port yet (ROADMAP queue 1 item 13: media)")
+
+    async def handle_chat(self, request: Request):
+        body = read_json(await request.read(), schemas.REQUEST)
+        return await self._handle(request, body, "chat")
+
+    async def handle_completions(self, request: Request):
+        """Raw text completion: no chat template, prompt tokens in verbatim."""
+        body = read_json(await request.read(), schemas.COMPLETION_REQUEST)
+        return await self._handle(request, body, "completion")
+
+    async def _handle(self, request: Request, body: dict, mode: str):
+        ctx: SecurityContext = request[SECURITY_CONTEXT_KEY]
+        self._reject_unported(body)
+        self._inject_observability(request, body, ctx)
+        self._inject_deadline(request, body)
+        models = await self._resolve_with_fallback(ctx, body)
+        if body.get("stream"):
+            return await self._stream_response(request, body, models, mode)
+        return await self._sync_response(body, models, mode)
+
+    @staticmethod
+    def _inject_observability(request: Request, body: dict,
+                              ctx: Optional[SecurityContext] = None) -> None:
+        """The gateway's request id, the client's traceparent and the
+        authenticated tenant into the worker params: the engine keys the
+        request by the id the client holds and its fair queue by the tenant."""
+        rid = request.get(REQUEST_ID_KEY)
+        if rid and "_request_id" not in body:
+            body["_request_id"] = rid
+        if request.headers.get("traceparent"):
+            body["_traceparent"] = request.headers["traceparent"]
+        if ctx is not None:
+            body["_tenant_id"] = ctx.tenant_id
+
+    def _inject_deadline(self, request: Request, body: dict) -> None:
+        """``X-Request-Deadline-Ms`` (the client's budget in ms) over the
+        config's ``default_deadline_ms`` (0 = off); it rides to the worker
+        as ``_deadline_ms`` and becomes an engine deadline at submit."""
+        hdr = request.headers.get("x-request-deadline-ms")
+        if hdr is not None:
+            try:
+                ms = float(hdr)
+            except ValueError:
+                ms = float("nan")
+            if not ms > 0 or ms != ms or ms == float("inf"):
+                raise ProblemError.bad_request(
+                    "X-Request-Deadline-Ms must be a positive, finite number of "
+                    "milliseconds")
+            body["_deadline_ms"] = ms
+        elif self.default_deadline_ms > 0:
+            body["_deadline_ms"] = self.default_deadline_ms
+
+    async def _sync_response(self, body: dict, models: list[tuple[bool, ModelInfo]],
+                             mode: str = "chat") -> dict:
+        last_err: Optional[ProblemError] = None
+        for is_primary, model in models:
+            pieces: list[str] = []
+            usage: dict[str, Any] = {"input_tokens": 0, "output_tokens": 0}
+            finish = "stop"
+            try:
+                async for chunk in self._chat_once(model, body, mode):
+                    if chunk.text:
+                        pieces.append(chunk.text)
+                    if chunk.finish_reason:
+                        finish = chunk.finish_reason
+                        usage = chunk.usage or usage
+                cost = self._cost(model, usage)
+                if cost is not None:
+                    usage["cost_estimate"] = cost
+                resp = {"usage": usage, "model_used": model.canonical_id,
+                        "fallback_used": not is_primary, "finish_reason": finish,
+                        "content": [{"type": "text", "text": "".join(pieces)}]}
+                validate_against(schemas.RESPONSE, resp)
+                return resp
+            except ProblemError as e:
+                last_err = e
+                if e.problem.code in ("request_timeout", "deadline_exceeded"):
+                    # the clock failed, not the model: a fallback inherits the
+                    # same lapsed budget
+                    break
+                continue
+        assert last_err is not None
+        raise last_err
+
+    async def _stream_response(self, request: Request, body: dict,
+                               models: list[tuple[bool, ModelInfo]],
+                               mode: str = "chat") -> StreamResponse:
+        """SSE per the chunk contract. The connection is watched from the
+        start: a client gone before its first token is seen too."""
+        completion_id = (f"chatcmpl-{uuid.uuid4().hex[:20]}" if mode == "chat"
+                         else f"cmpl-{uuid.uuid4().hex[:20]}")
+        gone = request.wait_disconnected()
+        last_err: Optional[ProblemError] = None
+        try:
+            for is_primary, model in models:
+                agen = self._chat_once(model, body, mode)
+                try:
+                    first_chunk = await self._next(agen, gone)
+                except StopAsyncIteration:
+                    await agen.aclose()
+                    continue
+                except ProblemError as e:
+                    await agen.aclose()
+                    last_err = e
+                    if e.problem.code in ("request_timeout", "deadline_exceeded"):
+                        break  # a lapsed deadline lapses on every fallback too
+                    continue  # fall back before the stream starts; committed after
+                except ClientDisconnected:
+                    await agen.aclose()
+                    raise
+                headers = {"Content-Type": "text/event-stream", "Cache-Control": "no-cache",
+                           "X-Model-Used": model.canonical_id}
+                rid = request.get(REQUEST_ID_KEY)
+                if rid:
+                    headers["X-Request-Id"] = rid
+                resp = StreamResponse(request, headers=headers)
+                try:
+                    await resp.prepare()
+                    await self._stream_chunks(resp, agen, first_chunk, completion_id,
+                                              model, gone)
+                    await resp.write(SSE_DONE)
+                finally:
+                    # closing the stream's generators on every exit: the
+                    # worker's teardown cancels an abandoned request
+                    await agen.aclose()
+                return resp
+            raise last_err or ProblemError.service_unavailable(
+                "no model produced a stream")
+        except ClientDisconnected:
+            self.client_disconnects += 1
+            raise
+        finally:
+            gone.cancel()
+
+    @staticmethod
+    async def _next(agen: AsyncIterator[ChatStreamChunk],
+                    gone: "asyncio.Future[None]") -> ChatStreamChunk:
+        """The stream's next chunk, or :class:`ClientDisconnected` if the
+        peer leaves first."""
+        step = asyncio.ensure_future(agen.__anext__())
+        await asyncio.wait({step, gone}, return_when=asyncio.FIRST_COMPLETED)
+        if step.done():
+            return step.result()
+        step.cancel()
+        try:
+            await step
+        except (asyncio.CancelledError, StopAsyncIteration, ProblemError):
+            pass
+        raise ClientDisconnected("the client closed the stream")
+
+    async def _stream_chunks(self, resp: StreamResponse, agen, first_chunk,
+                             completion_id: str, model: ModelInfo, gone) -> None:
+        role_sent = False
+
+        async def emit(chunk: ChatStreamChunk) -> None:
+            nonlocal role_sent
+            delta: dict[str, Any] = {}
+            if not role_sent:
+                delta["role"] = "assistant"
+                role_sent = True
+            if chunk.text:
+                delta["content"] = chunk.text
+            payload: dict[str, Any] = {"id": completion_id, "model": model.canonical_id,
+                                       "delta": delta}
+            if chunk.finish_reason:
+                payload["finish_reason"] = chunk.finish_reason
+                usage = dict(chunk.usage or {})
+                cost = self._cost(model, usage)
+                if cost is not None:
+                    usage["cost_estimate"] = cost
+                payload["usage"] = usage
+            validate_against(schemas.STREAM_CHUNK, payload)
+            await resp.write(format_sse_json(payload))
+
+        try:
+            await emit(first_chunk)
+            while True:
+                try:
+                    chunk = await self._next(agen, gone)
+                except StopAsyncIteration:
+                    return
+                await emit(chunk)
+        except ProblemError as e:
+            # a failure after the stream started: a terminal error event
+            await resp.write(format_sse_json({"error": e.problem.to_dict()}, event="error"))
+
+    @staticmethod
+    def _cost(model: ModelInfo, usage: dict[str, int]) -> Optional[float]:
+        if not model.cost:
+            return None
+        cin = model.cost.get("input_per_1k", 0.0) * usage.get("input_tokens", 0) / 1000.0
+        cout = model.cost.get("output_per_1k", 0.0) * usage.get("output_tokens", 0) / 1000.0
+        return round(cin + cout, 8)
+
+    async def handle_models(self, request: Request):
+        """The registry's models (the JAX registry's list shape)."""
+        models = await self.registry.list_models(request[SECURITY_CONTEXT_KEY])
+        return {"items": [m.to_dict() for m in models],
+                "page_info": {"next_cursor": None, "prev_cursor": None,
+                              "limit": len(models)}}
+
+    # ------------------------------------------------------------- registration
+    def register_rest(self, router: RestRouter) -> None:
+        m = "llm_gateway"
+        router.route("POST", "/v1/chat/completions", self.handle_chat, sse=True, module=m)
+        router.route("POST", "/v1/completions", self.handle_completions, sse=True, module=m)
+        router.route("GET", "/v1/models", self.handle_models, module=m)

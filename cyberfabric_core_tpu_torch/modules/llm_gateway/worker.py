@@ -1,0 +1,593 @@
+"""LocalTorchWorker: the llm-gateway's worker on the port's engine (the
+port's copy of ``modules/llm_gateway/worker.py`` ``LocalTpuWorker``, its
+continuous path).
+
+One :class:`..runtime.scheduler.ContinuousBatchingEngine` per model,
+built on first use off the event loop from the registry entry's
+``engine_options``, mapped exactly as the JAX worker maps them
+(:func:`plan_engine`), and wrapped in an
+:class:`..runtime.lifecycle.EngineSupervisor` that rebuilds it in place if
+it breaks. The engine runs on the worker config's ``device`` (default the
+CUDA card; ``"cpu"`` runs the kernels' plain versions).
+
+Engine → event loop: the engine calls ``emit`` on its scheduler thread; the
+worker hands each event over with ``loop.call_soon_threadsafe`` and does
+nothing else there. A stream's generator turns events into text through an
+incremental detokenizer, applies stop strings, maps every terminal, and,
+when its consumer lets go before the engine ended the request (a client
+disconnect, a gateway timeout), cancels the request in the engine with
+``reason="client_disconnect"``.
+
+Options the JAX worker maps to paths the port does not have (replica and
+PD pools, tensor parallelism, quantization, the lockstep scheduler, the
+speculative rounds) raise a ``not_ported`` problem naming their ROADMAP
+item; none is ignored.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import gc
+import logging
+import time
+import uuid
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any, AsyncIterator, Callable, Optional, Sequence
+
+import torch
+
+from ...device import resolve_device
+from ...modkit.errcat import ERR
+from ...modkit.errors import ProblemError
+from ...models.configs import get_config
+from ...runtime.engine import (EngineConfig, SamplingParams, SchedulerSaturated,
+                               StepEvent, TenantQuotaExceeded, TenantSaturated)
+from ...runtime.lifecycle import EngineSupervisor, LifecycleConfig, ReplicaUnavailable
+from ...runtime.scheduler import ContinuousBatchingEngine
+from ...runtime.tokenizer import (CHAT_FAMILIES, ByteTokenizer, Tokenizer,
+                                  chat_family_for, load_tokenizer, render_chat)
+from ..sdk import ChatStreamChunk, LlmWorkerApi, ModelInfo
+
+logger = logging.getLogger("llm_worker")
+
+#: the worker config keys (``llm_gateway.config.worker``); ``batch_window_ms``
+#: paces the lockstep batcher only, which the continuous path never runs
+WORKER_KEYS = frozenset({"device", "scheduler", "max_engine_threads", "batch_window_ms",
+                         "max_loaded_models", "hbm_bytes", "hbm_headroom_frac"})
+
+
+def _parse_lookahead(raw: Any) -> int:
+    """Registry ``decode_lookahead`` → ring depth: digits are a depth, bool
+    words map to 0 / the default, unset keeps the default; an unparseable
+    string falls back to the default with a warning (as in JAX)."""
+    default = EngineConfig.decode_lookahead
+    if raw is None:
+        return default
+    if isinstance(raw, bool):
+        return default if raw else 0
+    word = str(raw).strip().lower()
+    if word in ("0", "false", "no", "off"):
+        return 0
+    if word in ("true", "yes", "on", ""):
+        return default
+    try:
+        return max(0, int(float(word)))
+    except ValueError:
+        logger.warning("engine_options.decode_lookahead=%r is not a depth or bool word; "
+                       "using the default depth %d", raw, default)
+        return default
+
+
+def _flag(raw: Any) -> bool:
+    """Registry options can arrive as strings: parse the words, not truthiness."""
+    return str(raw).strip().lower() not in ("0", "false", "no", "off")
+
+
+def _not_ported(model: ModelInfo, what: str, item: str) -> ProblemError:
+    return ERR.llm.not_ported.error(
+        f"engine_options for {model.canonical_id}: {what} is not ported yet "
+        f"(ROADMAP queue 1 item {item})")
+
+
+@dataclass
+class EnginePlan:
+    """What the worker builds for one registry entry."""
+
+    config: EngineConfig
+    chat_family: str
+    lifecycle: LifecycleConfig
+    #: the checkpoint directory, when the entry names one that exists
+    checkpoint: Optional[Path]
+
+
+def plan_engine(model: ModelInfo, scheduler: str = "continuous") -> EnginePlan:
+    """``engine_options`` → :class:`EngineConfig`, field for field as
+    ``worker.py:312-397`` maps them (the same defaults and the same default
+    page count), then the chat family, the lifecycle knobs and the
+    checkpoint. Raises a ``not_ported`` problem for an option or a
+    ``scheduler`` the port does not serve, and for an option the JAX worker
+    does not know."""
+    opts = dict(model.engine_options or {})
+    arch_config = opts.pop("model_config", None) or model.provider_model_id
+    chat_family = opts.pop("chat_family", None) or chat_family_for(arch_config)
+    if chat_family not in CHAT_FAMILIES:
+        raise ValueError(f"unknown engine_options.chat_family {chat_family!r} for "
+                         f"{model.canonical_id}; known: {CHAT_FAMILIES}")
+    max_seq_len = int(opts.pop("max_seq_len", 2048))
+    max_batch = int(opts.pop("max_batch", 8))
+    page_size = int(opts.pop("prefix_page_size", 64))
+    default_pages = max_batch * (-(-max_seq_len // page_size)) * 5 // 4 + 1
+    cfg = EngineConfig(
+        model=arch_config,
+        max_seq_len=max_seq_len,
+        max_batch=max_batch,
+        dtype=opts.pop("dtype", "bfloat16"),
+        eos_token_ids=tuple(opts.pop("eos_token_ids", ()) or ()),
+        decode_chunk=int(opts.pop("decode_chunk", 8)),
+        quantization=opts.pop("quantization", "none"),
+        prefix_cache_pages=int(opts.pop("prefix_cache_pages", default_pages)),
+        prefix_page_size=page_size,
+        decode_lookahead=_parse_lookahead(opts.pop("decode_lookahead", None)),
+        prefill_budget_tokens=int(opts.pop("prefill_budget_tokens", 512)),
+        prefill_coalesce=int(opts.pop("prefill_coalesce", 4)),
+        mixed_batch=_flag(opts.pop("mixed_batch", True)),
+        max_pending=int(opts.pop("max_pending", 2048)),
+        tenant_fair=_flag(opts.pop("tenant_fair", True)),
+        tenant_default_weight=float(opts.pop("tenant_default_weight", 1.0)),
+        tenant_weights={str(k): float(v) for k, v in
+                        (opts.pop("tenant_weights", None) or {}).items()},
+        tenant_max_slots=int(opts.pop("tenant_max_slots", 0)),
+        tenant_soft_pages=int(opts.pop("tenant_soft_pages", 0)),
+        tenant_max_pages=int(opts.pop("tenant_max_pages", 0)),
+        tenant_max_pending=int(opts.pop("tenant_max_pending", 0)),
+        speculative=opts.pop("speculative", "off"),
+        spec_k=int(opts.pop("spec_k", 8)),
+        draft_model=opts.pop("draft_model", ""),
+        draft_checkpoint=opts.pop("draft_checkpoint", ""),
+        scheduler_spec_k=int(opts.pop("scheduler_spec_k", 0)),
+        spec_min_accept=float(opts.pop("spec_min_accept", 0.0)),
+        spec_max_ngram=int(opts.pop("spec_max_ngram", 3)),
+        spec_min_ngram=int(opts.pop("spec_min_ngram", 1)),
+        tp=int(opts.pop("tp", 1)),
+        hbm_bytes_per_device=int(opts.pop("hbm_bytes_per_device", 0)),
+    )
+    dp_replicas = int(opts.pop("dp_replicas", 1))
+    lifecycle = LifecycleConfig.from_config(opts.pop("lifecycle", True))
+    pd_prefill = int(opts.pop("pd_prefill_replicas", 0))
+    pd_decode = int(opts.pop("pd_decode_replicas", 0))
+    unported = [
+        (scheduler != "continuous", f"scheduler: {scheduler}", "7 (lockstep engine)"),
+        (dp_replicas > 1, f"dp_replicas={dp_replicas}", "5 (replica pools)"),
+        (pd_prefill > 0 or pd_decode > 0,
+         f"pd_prefill_replicas={pd_prefill}, pd_decode_replicas={pd_decode}",
+         "5 (prefill/decode disaggregation)"),
+        (cfg.tp > 1, f"tp={cfg.tp}", "9 (multi-GPU)"),
+        (cfg.hbm_bytes_per_device > 0,
+         f"hbm_bytes_per_device={cfg.hbm_bytes_per_device}", "9 (feasibility gate)"),
+        (cfg.quantization != "none", f"quantization={cfg.quantization!r}",
+         "6 (quantization)"),
+        (cfg.scheduler_spec_k > 0, f"scheduler_spec_k={cfg.scheduler_spec_k}",
+         "3 (speculative rounds)"),
+        (cfg.speculative != "off", f"speculative={cfg.speculative!r}",
+         "7 (lockstep engine and draft speculation)"),
+    ]
+    for bad, what, item in unported:
+        if bad:
+            raise _not_ported(model, what, item)
+    if opts:
+        raise ERR.llm.not_ported.error(
+            f"engine_options for {model.canonical_id}: {sorted(opts)} are not options "
+            "of the JAX worker either")
+    ckpt = Path(model.checkpoint_path) if model.checkpoint_path else None
+    if ckpt is not None and not ckpt.exists():
+        ckpt = None
+    if ckpt is None and not cfg.eos_token_ids:
+        # synthetic weights: the byte tokenizer's end of sequence
+        cfg = EngineConfig(**{**cfg.__dict__, "eos_token_ids": (
+            ByteTokenizer(get_config(arch_config).vocab_size).eos_id,)})
+    return EnginePlan(cfg, chat_family, lifecycle, ckpt)
+
+
+class IncrementalDetokenizer:
+    """Streaming detokenization: only the unstable tail (tokens whose text
+    a later token may still change, through BPE or UTF-8 merges) is decoded
+    again; it moves into the stable text once it decodes cleanly and holds
+    at least 8 tokens. O(n) in all, as in JAX.
+
+    Unlike the JAX worker, the text offered for sending holds back a
+    trailing run of U+FFFD until the stream ends: a multi-byte character
+    split across tokens decodes to U+FFFD until its last byte arrives, and
+    a replacement character once sent cannot be taken back. So the streamed
+    text is the one-shot decode of the stream's tokens."""
+
+    def __init__(self, tokenizer: Tokenizer) -> None:
+        self._tok = tokenizer
+        self._tail: list[int] = []
+        self._stable = ""
+
+    def push(self, token_id: Optional[int], final: bool = False) -> str:
+        """Add a token (None adds nothing); returns the text that may be
+        sent so far: all of it when ``final``."""
+        if token_id is not None:
+            self._tail.append(token_id)
+        tail_text = self._tok.decode(self._tail)
+        if tail_text and not tail_text.endswith("\ufffd") and len(self._tail) >= 8:
+            self._stable += tail_text
+            self._tail = []
+            tail_text = ""
+        text = self._stable + tail_text
+        return text if final else text.rstrip("\ufffd")
+
+
+@dataclass
+class _EngineEntry:
+    config: EngineConfig
+    tokenizer: Tokenizer
+    scheduler: ContinuousBatchingEngine
+    supervisor: Optional[EngineSupervisor] = None
+    model_family: str = "llama"
+    last_used: float = 0.0
+    est_bytes: int = 0
+    #: worker streams open on this engine, from the entry lookup on (a
+    #: request is counted before it reaches the engine's queue)
+    streams: int = 0
+
+    @property
+    def idle(self) -> bool:
+        return self.streams == 0 and self.scheduler.in_flight() == 0
+
+
+class LocalTorchWorker(LlmWorkerApi):
+    """Engines keyed by canonical model id, built lazily from
+    ``ModelInfo.engine_options`` (+ the checkpoint when there is one)."""
+
+    def __init__(self, worker_config: Optional[dict[str, Any]] = None) -> None:
+        self._config = dict(worker_config or {})
+        unknown = sorted(set(self._config) - WORKER_KEYS)
+        if unknown:
+            raise ValueError(f"llm_gateway worker config: unknown keys {unknown}")
+        self._device = self._config.get("device")
+        self._entries: dict[str, _EngineEntry] = {}
+        self._entry_locks: dict[str, asyncio.Lock] = {}
+        self._executor = ThreadPoolExecutor(
+            max_workers=int(self._config.get("max_engine_threads", 4)),
+            thread_name_prefix="torch-worker")
+        self._started_at = time.monotonic()
+        self._requests_served = 0
+        self._tokens_out = 0
+        #: request ids with a stream open (a reused client id gets a suffix)
+        self._live: set[str] = set()
+
+    # ------------------------------------------------------------------ engines
+    def engine(self, canonical_id: str) -> Optional[ContinuousBatchingEngine]:
+        """The model's engine, once built."""
+        entry = self._entries.get(canonical_id)
+        return entry.scheduler if entry is not None else None
+
+    async def _entry_for(self, model: ModelInfo) -> _EngineEntry:
+        key = model.canonical_id
+        entry = self._entries.get(key)
+        if entry is not None:
+            entry.last_used = time.monotonic()
+            return entry
+        lock = self._entry_locks.setdefault(key, asyncio.Lock())
+        async with lock:
+            entry = self._entries.get(key)
+            if entry is not None:
+                entry.last_used = time.monotonic()
+                return entry
+            self._maybe_evict_for(model)
+            entry = await asyncio.get_running_loop().run_in_executor(
+                self._executor, self._build_entry, model)
+            entry.last_used = time.monotonic()
+            entry.est_bytes = self._estimate_bytes(model)
+            self._entries[key] = entry
+            return entry
+
+    def _estimate_bytes(self, model: ModelInfo) -> int:
+        """Weights at bf16 plus a dense cache of the engine's slots (the JAX
+        formula, used for hot-swap accounting only)."""
+        opts = dict(model.engine_options or {})
+        arch = opts.get("model_config") or model.provider_model_id
+        try:
+            cfg = get_config(arch)
+        except KeyError:
+            return 0
+        weights = cfg.param_count() * 2
+        max_seq = int(opts.get("max_seq", opts.get("max_seq_len", 2048)))
+        slots = int(opts.get("max_batch", 8))
+        cache = cfg.num_layers * slots * max_seq * cfg.num_kv_heads * cfg.head_dim * 2 * 2
+        return weights + cache
+
+    def _hbm_budget(self) -> Optional[int]:
+        """The card's memory; None on the CPU (count-capped eviction only)."""
+        dev = resolve_device(self._device)
+        if dev.type != "cuda":
+            return None
+        try:
+            return int(torch.cuda.mem_get_info(dev)[1])
+        except RuntimeError:
+            return int(self._config.get("hbm_bytes", 16 * 1024**3))
+
+    def _maybe_evict_for(self, model: ModelInfo) -> None:
+        """Evict idle least-recently-used engines until the incoming model's
+        estimated footprint fits: the engine is closed, its graphs and pool
+        dropped, and the allocator's cache returned before the next build."""
+        max_models = int(self._config.get("max_loaded_models", 0))
+        need = self._estimate_bytes(model)
+
+        def must_evict() -> bool:
+            if max_models and len(self._entries) >= max_models:
+                return True
+            budget = self._hbm_budget()
+            if budget is not None and need:
+                headroom = float(self._config.get("hbm_headroom_frac", 0.1))
+                in_use = sum(e.est_bytes for e in self._entries.values())
+                return in_use + need > budget * (1.0 - headroom)
+            return False
+
+        while self._entries and must_evict():
+            idle = [(k, e) for k, e in self._entries.items() if e.idle]
+            if not idle:
+                logger.warning("hot-swap needed but no idle engine to evict")
+                return
+            victim_key, victim = min(idle, key=lambda kv: kv[1].last_used)
+            logger.info("hot-swap: evicting engine %s (idle %.1fs)", victim_key,
+                        time.monotonic() - victim.last_used)
+            victim.scheduler.close(timeout=5.0)
+            del self._entries[victim_key]
+            del victim
+            gc.collect()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+
+    def _build_entry(self, model: ModelInfo) -> _EngineEntry:
+        """Runs on an executor thread: on CUDA the engine captures its decode
+        graphs here and replays them on its scheduler thread."""
+        plan = plan_engine(model, self._config.get("scheduler", "continuous"))
+        cfg = plan.config
+        params = None
+        tokenizer: Tokenizer
+        if plan.checkpoint is not None:
+            from ...runtime.weights import load_llama_params
+
+            params = load_llama_params(plan.checkpoint, get_config(cfg.model),
+                                       dtype=getattr(torch, cfg.dtype), device=self._device)
+            tokenizer = load_tokenizer(plan.checkpoint)
+        else:
+            tokenizer = ByteTokenizer(get_config(cfg.model).vocab_size)
+        scheduler = ContinuousBatchingEngine(cfg, params=params, device=self._device)
+        supervisor = None
+        if plan.lifecycle.enabled:
+            def _rebuild(old: ContinuousBatchingEngine) -> ContinuousBatchingEngine:
+                # a fresh engine off the spent one's weights
+                return ContinuousBatchingEngine(cfg, params=old.params, device=self._device)
+
+            supervisor = EngineSupervisor(_rebuild, plan.lifecycle, name=model.canonical_id)
+        logger.info("continuous engine ready for %s (%s on %s, slots=%d, max_seq=%d)",
+                    model.canonical_id, cfg.model, scheduler.device, cfg.max_batch,
+                    cfg.max_seq_len)
+        return _EngineEntry(config=cfg, tokenizer=tokenizer, scheduler=scheduler,
+                            supervisor=supervisor, model_family=plan.chat_family)
+
+    # ------------------------------------------------------------------ streams
+    def chat_stream(self, model: ModelInfo, messages: list[dict],
+                    params: dict) -> AsyncIterator[ChatStreamChunk]:
+        # the rendered template carries bos and specials literally: encoding
+        # must not add a second bos
+        return self._stream(model, params, lambda entry: entry.tokenizer.encode(
+            render_chat(messages, entry.model_family), add_specials=False))
+
+    def completion_stream(self, model: ModelInfo, prompt: str,
+                          params: dict) -> AsyncIterator[ChatStreamChunk]:
+        """Raw text completion: the prompt tokenized verbatim, no template."""
+        return self._stream(model, params, lambda entry: entry.tokenizer.encode(prompt))
+
+    async def _stream(self, model: ModelInfo, params: dict,
+                      encode: Callable[[_EngineEntry], list[int]]
+                      ) -> AsyncIterator[ChatStreamChunk]:
+        """One request: the model's engine (built on first use), the prompt's
+        ids, and :meth:`_generate_from_ids`, with the stream counted on the
+        entry from the lookup on, with no await between, so hot-swap never
+        closes an engine a stream is about to use. Closing this generator
+        does not close the inner one by itself, hence the explicit aclose."""
+        entry = await self._entry_for(model)
+        prompt_ids = encode(entry)
+        entry.streams += 1
+        agen = self._generate_from_ids(entry, model, prompt_ids, params)
+        try:
+            async for chunk in agen:
+                yield chunk
+        finally:
+            try:
+                await agen.aclose()
+            finally:
+                entry.streams -= 1
+
+    def _submit(self, entry: _EngineEntry, prompt_ids: Sequence[int],
+                sampling: SamplingParams, queue: asyncio.Queue, request_id: str,
+                params: dict) -> None:
+        loop = asyncio.get_running_loop()
+
+        def emit(ev: StepEvent) -> None:
+            # the scheduler thread: hand over, nothing else
+            try:
+                loop.call_soon_threadsafe(queue.put_nowait, ev)
+            except RuntimeError:  # the event loop closed: nobody is listening
+                pass
+
+        deadline: Optional[float] = None
+        raw_deadline = params.get("_deadline_ms")
+        if raw_deadline:
+            try:
+                deadline = time.monotonic() + float(raw_deadline) / 1000.0
+            except (TypeError, ValueError):
+                deadline = None
+        tenant = str(params.get("_tenant_id") or "default")
+        try:
+            entry.scheduler.submit(list(prompt_ids), sampling, emit=emit,
+                                   request_id=request_id, trace=params.get("_traceparent"),
+                                   deadline=deadline, tenant=tenant)
+        except TenantSaturated as e:
+            raise ERR.llm.tenant_saturated.error(str(e), retry_after_s=e.retry_after_s,
+                                                 tenant=e.tenant)
+        except TenantQuotaExceeded as e:
+            raise ERR.llm.tenant_quota_exceeded.error(str(e), retry_after_s=e.retry_after_s,
+                                                      tenant=e.tenant)
+        except SchedulerSaturated as e:
+            raise ERR.llm.scheduler_saturated.error(str(e), retry_after_s=e.retry_after_s)
+        except ValueError as e:
+            raise ERR.llm.unsupported_param.error(str(e))
+        except RuntimeError as e:
+            # a break or close racing the servable() probe: the supervisor
+            # rebuilds on the next request
+            raise ERR.llm.replica_unavailable.error(str(e), retry_after_s=1.0)
+
+    async def _generate_from_ids(self, entry: _EngineEntry, model: ModelInfo,
+                                 prompt_ids: list[int],
+                                 params: dict) -> AsyncIterator[ChatStreamChunk]:
+        limits = model.limits or {}
+        limits_max = int(limits.get("max_output_tokens", 1024))
+        sampling = SamplingParams(
+            max_tokens=min(int(params.get("max_tokens", 256)), limits_max),
+            temperature=float(params.get("temperature", 0.0)),
+            top_p=float(params.get("top_p", 1.0)),
+            top_k=int(params.get("top_k", 0)),
+            seed=params.get("seed"),
+        )
+        max_input = int(limits.get("max_input_tokens", 0))
+        if max_input and len(prompt_ids) > max_input:
+            raise ERR.llm.context_length_exceeded.error(
+                f"prompt of {len(prompt_ids)} tokens exceeds model limit {max_input}")
+        if len(prompt_ids) >= entry.config.max_seq_len:
+            raise ERR.llm.context_length_exceeded.error(
+                f"prompt of {len(prompt_ids)} tokens exceeds engine window "
+                f"{entry.config.max_seq_len}")
+        request_id = params.get("_request_id") or f"chat-{uuid.uuid4().hex[:20]}"
+        if request_id in self._live:
+            request_id = f"{request_id}-{uuid.uuid4().hex[:8]}"
+        if not entry.scheduler.servable() and entry.supervisor is not None:
+            # rebuild in place off the event loop before admitting
+            try:
+                entry.scheduler = await asyncio.get_running_loop().run_in_executor(
+                    self._executor, entry.supervisor.ensure, entry.scheduler)
+            except ReplicaUnavailable as e:
+                raise ERR.llm.replica_unavailable.error(str(e), retry_after_s=e.retry_after_s)
+        engine = entry.scheduler
+        queue: asyncio.Queue = asyncio.Queue()
+        self._submit(entry, prompt_ids, sampling, queue, request_id, params)
+        self._live.add(request_id)
+        stop_strings = tuple(params.get("stop", ()) or ())
+        max_stop_len = max((len(s) for s in stop_strings), default=0)
+        detok = IncrementalDetokenizer(entry.tokenizer)
+        sent_text = ""
+        stop_hit = False
+        n_tokens = 0
+        #: flips once the engine ended the request: the finally below
+        #: cancels engine work only for true abandonment
+        stream_done = False
+        try:
+            while True:
+                ev: StepEvent = await queue.get()
+                if ev.finished == "error":
+                    stream_done = True
+                    raise ProblemError.internal("generation failed in scheduler")
+                if ev.finished == "cancelled":
+                    stream_done = True
+                    raise ERR.llm.client_closed_request.error("request was cancelled")
+                if ev.finished == "deadline":
+                    stream_done = True
+                    if entry.supervisor is not None and n_tokens > 0:
+                        entry.supervisor.note_ok()
+                    if n_tokens == 0:
+                        # 408 when it lapsed while still queued (it never took
+                        # a slot), 504 when it lapsed after admission
+                        if engine.lapse_phase(request_id) == "queued":
+                            raise ERR.llm.request_timeout.error(
+                                "request deadline lapsed before admission "
+                                "(X-Request-Deadline-Ms / gateway default TTL); it never "
+                                "occupied a slot")
+                        raise ERR.llm.deadline_exceeded.error(
+                            "request deadline lapsed before any output "
+                            "(X-Request-Deadline-Ms / gateway default TTL)")
+                    # mid-stream lapse: the held-back text, then the finish
+                    # reason (no re-status once the stream flows)
+                    rest = detok.push(None, final=True)[len(sent_text):]
+                    if rest and not stop_hit:
+                        yield ChatStreamChunk(request_id=request_id, text=rest)
+                    self._requests_served += 1
+                    self._tokens_out += n_tokens
+                    yield ChatStreamChunk(request_id=request_id,
+                                          finish_reason="deadline_exceeded",
+                                          usage={"input_tokens": len(prompt_ids),
+                                                 "output_tokens": n_tokens})
+                    return
+                if ev.token_id >= 0:
+                    n_tokens += 1
+                full_text = detok.push(ev.token_id if ev.token_id >= 0
+                                       and ev.finished != "stop" else None,
+                                       final=ev.finished is not None)
+                delta = full_text[len(sent_text):]
+                if stop_strings and not stop_hit:
+                    # stop-string scan over the recent window only
+                    window_start = max(0, len(sent_text) - max_stop_len)
+                    window = full_text[window_start:]
+                    hit_rel = min((window.find(s) for s in stop_strings
+                                   if window.find(s) >= 0), default=-1)
+                    if hit_rel >= 0:
+                        delta = full_text[len(sent_text):window_start + hit_rel]
+                        stop_hit = True
+                if delta:
+                    sent_text += delta
+                    yield ChatStreamChunk(request_id=request_id, text=delta,
+                                          token_id=ev.token_id if ev.token_id >= 0 else None)
+                if ev.finished or stop_hit:
+                    stream_done = True
+                    self._requests_served += 1
+                    self._tokens_out += n_tokens
+                    if entry.supervisor is not None and (
+                            stop_hit or ev.finished in ("stop", "length")):
+                        entry.supervisor.note_ok()
+                    reason = "stop" if (stop_hit or ev.finished == "stop") else ev.finished
+                    yield ChatStreamChunk(request_id=request_id, finish_reason=reason,
+                                          usage={"input_tokens": len(prompt_ids),
+                                                 "output_tokens": n_tokens})
+                    if stop_hit and not ev.finished:
+                        # let the engine finish the request; drop its events
+                        while not (await queue.get()).finished:
+                            pass
+                    return
+        finally:
+            self._live.discard(request_id)
+            if not stream_done:
+                # the consumer let go first (client disconnect, gateway
+                # timeout, half-consumed stream): free the slot, pages and
+                # pins within one round instead of decoding for nobody
+                try:
+                    engine.cancel(request_id, reason="client_disconnect")
+                except Exception:  # noqa: BLE001 — teardown must not raise
+                    logger.exception("cancel-on-teardown failed for %s", request_id)
+
+    # ------------------------------------------------------------------ health
+    async def health(self) -> dict[str, Any]:
+        return {
+            "status": "ok",
+            "devices": [str(torch.device(self._device or "cuda"))],
+            "loaded_models": sorted(self._entries),
+            "schedulers": {k: {key: v for key, v in e.scheduler.stats().items()
+                               if key != "round_timings"}
+                           for k, e in self._entries.items()},
+            "requests_served": self._requests_served,
+            "tokens_out": self._tokens_out,
+            "uptime_s": round(time.monotonic() - self._started_at, 1),
+        }
+
+    def close(self) -> None:
+        """Retire every engine (ending whatever is in flight) and the
+        executor."""
+        for entry in list(self._entries.values()):
+            entry.scheduler.close(timeout=5.0)
+        self._entries.clear()
+        self._executor.shutdown(wait=False, cancel_futures=True)

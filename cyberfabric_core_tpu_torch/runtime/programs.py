@@ -27,10 +27,10 @@ the lookahead ring's generator restore keeps streams equal at every depth.
 The generators are not registered with the graph: a slot's generator
 changes at each admission.
 
-Capture happens once, in the constructor (the engine's start), never inside
-a round: two warm-up runs of each body on a side stream with every row
-inactive (their KV writes land on scratch page 0), then one capture per body
-into one shared memory pool. A capture that fails raises. The kernel
+Capture happens once, in the constructor (the engine's start, on whichever
+thread builds the engine), never inside a round: two warm-up runs of each
+body on a side stream with every row inactive (their KV writes land on
+scratch page 0), then one capture per body into one shared memory pool. A capture that fails raises. The kernel
 wrappers' ``launches`` counts move by replay: the launches recorded while
 capturing, added once per replay.
 """
@@ -141,7 +141,11 @@ class PagedDecodeChunk:
         for all_greedy in (True, False):
             before = [w.launches for w in _WRAPPERS]
             graph = torch.cuda.CUDAGraph()
-            with torch.inference_mode(), torch.cuda.graph(graph, pool=pool):
+            # thread_local: the worker builds an engine on an executor thread
+            # while other engines' scheduler threads keep running; the
+            # default (global) capture mode would fail their CUDA calls
+            with torch.inference_mode(), torch.cuda.graph(
+                    graph, pool=pool, capture_error_mode="thread_local"):
                 self._body(all_greedy)
             self._graph_launches[all_greedy] = [
                 (w, w.launches - b) for w, b in zip(_WRAPPERS, before)]

@@ -120,7 +120,7 @@ import logging
 import threading
 import time
 import uuid
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping, Optional
 
@@ -145,6 +145,8 @@ logger = logging.getLogger("scheduler")
 
 _SEED_MASK = 0x7FFF_FFFF_FFFF_FFFF
 _ROUND_KINDS = ("mixed", "prefill", "decode")
+#: lapses kept for :meth:`ContinuousBatchingEngine.lapse_phase`
+_LAPSE_RECORD = 1024
 
 
 def _reject_unported(config: EngineConfig, cfg: ModelConfig) -> None:
@@ -554,6 +556,12 @@ class ContinuousBatchingEngine:
         self._cancel_lock = threading.Lock()
         self._cancel_requests: dict[str, str] = {}
         self._has_deadlines = False
+        #: request id → the phase it lapsed in (queued, prefilling, decoding,
+        #: suspended), the newest _LAPSE_RECORD lapses: the worker tells a
+        #: 408 (lapsed while queued) from a 504 by it, as JAX does by the
+        #: flight recorder's last phase
+        self._lapse_lock = threading.Lock()
+        self._lapse_phases: OrderedDict[str, str] = OrderedDict()
         #: recent prefill rates (tokens/s) behind the admission estimate
         self._prefill_rates: deque[float] = deque(maxlen=32)
         self._suspended: deque[_Suspended] = deque()
@@ -760,7 +768,8 @@ class ContinuousBatchingEngine:
             reason = cancels.pop(req.request_id, None)
             self._cancel_finalize(req.emit, reason or "deadline",
                                   "cancelled" if reason else "deadline_exceeded",
-                                  reclaimed=req.sampling.max_tokens)
+                                  reclaimed=req.sampling.max_tokens,
+                                  request_id=req.request_id, phase="queued")
 
     def _cancel_suspended(self, cancels: dict[str, str], now: float) -> None:
         if not self._suspended:
@@ -778,7 +787,8 @@ class ContinuousBatchingEngine:
         for rec, reason, kind in victims:
             st = rec.state
             self._cancel_finalize(st.emit, reason, kind,
-                                  reclaimed=st.sampling.max_tokens - st.emitted)
+                                  reclaimed=st.sampling.max_tokens - st.emitted,
+                                  request_id=st.request_id, phase="suspended")
 
     def _cancel_slot(self, slot: int, state: _SlotState, reason: str, kind: str) -> None:
         """Free one occupied slot (prefill or decode phase): its chain, its
@@ -799,19 +809,32 @@ class ContinuousBatchingEngine:
             self.page_table[slot, :] = 0
             self._pt_dirty = True
         self._cancel_finalize(state.emit, reason, kind,
-                              reclaimed=state.sampling.max_tokens - state.emitted)
+                              reclaimed=state.sampling.max_tokens - state.emitted,
+                              request_id=state.request_id,
+                              phase="prefilling" if state.phase == "prefill" else "decoding")
 
     def _cancel_finalize(self, emit: Callable[[StepEvent], None], reason: str,
-                         kind: str, *, reclaimed: int) -> None:
+                         kind: str, *, reclaimed: int, request_id: str, phase: str) -> None:
         """One terminal per cancellation: the count by reason, the budget
-        reclaimed, and the client's event (a raising emit belongs to a
-        client that is gone)."""
+        reclaimed, where a lapsed request was (:meth:`lapse_phase`), and the
+        client's event (a raising emit belongs to a client that is gone)."""
+        if kind == "deadline_exceeded":
+            with self._lapse_lock:
+                self._lapse_phases[request_id] = phase
+                while len(self._lapse_phases) > _LAPSE_RECORD:
+                    self._lapse_phases.popitem(last=False)
         self.cancellations[reason] = self.cancellations.get(reason, 0) + 1
         self.reclaimed_tokens += max(0, int(reclaimed))
         try:
             emit(StepEvent(0, -1, "deadline" if kind == "deadline_exceeded" else "cancelled"))
         except Exception:  # noqa: BLE001 — the client is gone by definition
             pass
+
+    def lapse_phase(self, request_id: str) -> Optional[str]:
+        """The phase ``request_id`` was in when its deadline lapsed, while it
+        is among the newest lapses; None otherwise."""
+        with self._lapse_lock:
+            return self._lapse_phases.get(request_id)
 
     def _note_prefill_rate(self, tokens: int, dur_s: float) -> None:
         if tokens > 0 and dur_s > 0:
@@ -928,6 +951,13 @@ class ContinuousBatchingEngine:
     # ------------------------------------------------------------ health surface
     def pending_depth(self) -> int:
         return self._pending.qsize()
+
+    def in_flight(self) -> int:
+        """Requests the engine holds: in a slot (decoding or prefilling),
+        preempted to host, taken for admission, or queued. 0 means the
+        engine may be closed without ending anyone's stream."""
+        return (len(self.slots) - len(self._free_slots) + len(self._suspended)
+                + len(self._admitting) + self._pending.qsize())
 
     def pending_oldest_age_s(self) -> Optional[float]:
         return self._pending.oldest_age()
@@ -1125,7 +1155,8 @@ class ContinuousBatchingEngine:
                 if now >= req.deadline or (busy and req.deadline - now <
                                            self._estimate_prefill_s(len(req.prompt_ids))):
                     self._cancel_finalize(req.emit, "deadline", "deadline_exceeded",
-                                          reclaimed=req.sampling.max_tokens)
+                                          reclaimed=req.sampling.max_tokens,
+                                          request_id=req.request_id, phase="queued")
                     continue
             taken.append(req)
             spent += len(req.prompt_ids)

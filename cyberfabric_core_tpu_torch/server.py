@@ -1,0 +1,203 @@
+"""The port's serving entry point (counterpart of ``server.py:27-123``).
+
+    python -m cyberfabric_core_tpu_torch.server run --config cyberfabric_core_tpu_torch/config/quickstart.json
+
+boots one HTTP host serving ``POST /v1/chat/completions``,
+``POST /v1/completions`` (sync and SSE), ``GET /v1/models`` and
+``GET /health``, prints ``listening on http://HOST:PORT`` once it accepts
+connections, and stops gracefully on SIGINT or SIGTERM (exit code 0).
+
+The config is JSON: ``logging`` and ``modules`` with the quickstart's
+``api_gateway``, ``tenant_resolver``, ``authn_resolver``, ``model_registry``
+and ``llm_gateway`` sections (:class:`Host` checks them). Engines run
+on the CUDA card unless ``llm_gateway.config.worker.device`` says ``cpu``;
+without a card the first engine build raises. Any other module or key
+raises at boot, naming the ROADMAP item that brings it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import logging
+import signal
+import sys
+import threading
+from pathlib import Path
+from typing import Any, Optional, Sequence
+
+from .gateway.module import ApiGateway, GatewayConfig
+from .gateway.router import RestRouter
+from .modules.llm_gateway.module import LlmGatewayModule
+from .modules.llm_gateway.worker import LocalTorchWorker
+from .modules.model_registry import ModelRegistry
+
+logger = logging.getLogger("server")
+
+QUICKSTART = Path(__file__).parent / "config" / "quickstart.json"
+
+#: modules of the JAX host's configs the port does not serve, by ROADMAP item
+_UNPORTED_MODULES = {
+    "authz_resolver": "15 (auth modes)",
+    "grpc_hub": "1 (the federated-worker entry)",
+    "monitoring": "16 (monitoring endpoints and tracing)",
+    "types_registry": "17 (the other host modules)",
+    "types": "17 (the other host modules)",
+    "module_orchestrator": "17 (the other host modules)",
+    "nodes_registry": "17 (the other host modules)",
+    "file_storage": "17 (the other host modules)",
+    "credstore": "17 (the other host modules)",
+    "oagw": "17 (the other host modules)",
+    "file_parser": "17 (the other host modules)",
+    "serverless_runtime": "17 (the other host modules)",
+    "user_settings": "17 (the other host modules)",
+}
+_UNPORTED_TOP = {
+    "server": "17 (the other host modules: home_dir holds their databases)",
+    "tracing": "16 (monitoring endpoints and tracing)",
+}
+
+
+def _section(modules: dict[str, Any], name: str) -> dict[str, Any]:
+    raw = modules.get(name) or {}
+    unknown = sorted(set(raw) - {"config"})
+    if unknown:
+        raise ValueError(f"modules.{name}: unknown keys {unknown}")
+    return dict(raw.get("config") or {})
+
+
+def _tenant(modules: dict[str, Any], gateway: GatewayConfig) -> str:
+    """The one tenant every request runs as: ``tenant_resolver.single_tenant``
+    (else the gateway's ``default_tenant``)."""
+    tr = _section(modules, "tenant_resolver")
+    for key in tr:
+        if key != "single_tenant":
+            raise ValueError(f"tenant_resolver config: {key!r} is not ported yet "
+                             "(ROADMAP queue 1 item 15: tenant hierarchy and auth modes)")
+    authn = _section(modules, "authn_resolver")
+    for key, value in authn.items():
+        if key not in ("mode", "default_tenant") or (key == "mode" and value != "accept_all"):
+            raise ValueError(f"authn_resolver config: {key}={value!r} is not ported yet "
+                             "(ROADMAP queue 1 item 15: auth modes)")
+    return str(tr.get("single_tenant", gateway.default_tenant))
+
+
+class Host:
+    """The assembled host: registry, worker, llm-gateway handlers and the
+    HTTP server. Raises on a module or key the port does not serve; nothing
+    is bound or built until :meth:`start` and the first request."""
+
+    def __init__(self, config: dict[str, Any]) -> None:
+        for key in config:
+            if key in _UNPORTED_TOP:
+                raise ValueError(f"config section {key!r} is not served by the port yet "
+                                 f"(ROADMAP queue 1 item {_UNPORTED_TOP[key]})")
+            if key not in ("logging", "modules"):
+                raise ValueError(f"unknown config section {key!r}")
+        modules = dict(config.get("modules") or {})
+        for name in modules:
+            if name in _UNPORTED_MODULES:
+                raise ValueError(f"module {name!r} is not served by the port yet "
+                                 f"(ROADMAP queue 1 item {_UNPORTED_MODULES[name]})")
+            if name not in ("api_gateway", "tenant_resolver", "authn_resolver",
+                            "model_registry", "llm_gateway"):
+                raise ValueError(f"unknown module {name!r}")
+        gw_cfg = GatewayConfig.from_config(_section(modules, "api_gateway"))
+        tenant = _tenant(modules, gw_cfg)
+        self.registry = ModelRegistry(_section(modules, "model_registry"))
+        llm_cfg = _section(modules, "llm_gateway")
+        self.worker = LocalTorchWorker(llm_cfg.get("worker"))
+        self.llm = LlmGatewayModule(llm_cfg, self.registry, self.worker)
+        router = RestRouter()
+        self.llm.register_rest(router)
+        self.gateway = ApiGateway(gw_cfg, router, tenant, self._health)
+
+    async def _health(self) -> dict[str, Any]:
+        return {"status": "ok", "worker": await self.worker.health()}
+
+    @property
+    def port(self) -> Optional[int]:
+        return self.gateway.bound_port
+
+    async def start(self) -> None:
+        await self.gateway.start()
+
+    async def stop(self) -> None:
+        """Stop accepting, let requests in progress finish (a few seconds),
+        then retire the engines."""
+        await self.gateway.stop()
+        await asyncio.get_running_loop().run_in_executor(None, self.worker.close)
+
+
+class BackgroundServer:
+    """A host on an event loop of its own, in a daemon thread: for callers
+    that are not async (scripts, tests). ``port`` once started;
+    :meth:`stop` stops the host and the loop."""
+
+    def __init__(self, config: dict[str, Any]) -> None:
+        self.host = Host(config)
+        self._loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(target=self._loop.run_forever,
+                                        name="http-host", daemon=True)
+
+    def start(self, timeout: float = 30.0) -> "BackgroundServer":
+        self._thread.start()
+        asyncio.run_coroutine_threadsafe(self.host.start(), self._loop).result(timeout)
+        return self
+
+    @property
+    def port(self) -> int:
+        return int(self.host.port)
+
+    def stop(self, timeout: float = 60.0) -> None:
+        try:
+            asyncio.run_coroutine_threadsafe(self.host.stop(), self._loop).result(timeout)
+        finally:
+            self._loop.call_soon_threadsafe(self._loop.stop)
+            self._thread.join(timeout)
+            self._loop.close()
+
+
+async def serve(host: Host) -> None:
+    """Run ``host`` until SIGINT or SIGTERM, then stop it."""
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    await host.start()
+    print(f"listening on http://{host.gateway.config.bind_addr.rpartition(':')[0]}:"
+          f"{host.port}", flush=True)
+    try:
+        await stop.wait()
+    finally:
+        logger.info("stopping")
+        await host.stop()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m cyberfabric_core_tpu_torch.server",
+                                description="The PyTorch/CUDA port's serving host")
+    p.add_argument("command", choices=["run"], nargs="?", default="run")
+    p.add_argument("--config", "-c", default=str(QUICKSTART), help="JSON config path")
+    p.add_argument("--log-level", default=None)
+    return p
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    try:
+        config = json.loads(Path(args.config).read_text())
+        host = Host(config)  # checks the whole config before anything starts
+    except (OSError, ValueError) as e:
+        print(f"config error: {e}", file=sys.stderr)
+        return 2
+    level = args.log_level or (config.get("logging") or {}).get("level", "info")
+    logging.basicConfig(level=str(level).upper(),
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    asyncio.run(serve(host))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,9 +1,14 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX nor the JAX package, nor the JAX host
+tier's third-party packages.
 
 A fresh interpreter imports every module of ``cyberfabric_core_tpu_torch``
 and ``chip_smoke.py``'s imports; afterwards no ``jax*`` and no
-``cyberfabric_core_tpu`` module may have been loaded by them. An AST scan of
-the package's sources finds no such import statement either."""
+``cyberfabric_core_tpu`` module may have been loaded by them, and none of
+the packages the JAX host tier serves with (``aiohttp``, ``yaml``,
+``jsonschema``, ``pydantic``, ``grpc``, ``cryptography``, ``psycopg``): the
+port serves on PyTorch and the standard library alone, so it needs none of
+them on a GPU machine. An AST scan of the package's sources finds
+no such import statement either."""
 
 import ast
 import json
@@ -25,12 +30,23 @@ def _modules() -> list[str]:
     return out
 
 
+#: third-party packages of the JAX host tier the port does without (aiohttp
+#: and jsonschema leave the list when the port's HTTP tier moves onto them,
+#: ROADMAP queue 1 item 1)
+HOST_ONLY = ("aiohttp", "yaml", "jsonschema", "pydantic", "grpc", "cryptography", "psycopg")
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top == "jax" or top.startswith("jax") or top == "cyberfabric_core_tpu"
 
 
-def test_port_and_chip_smoke_load_no_jax():
+def _host_only(name: str) -> bool:
+    return name.split(".")[0] in HOST_ONLY
+
+
+def _loaded() -> list[str]:
+    """Modules a fresh interpreter loads importing the port and chip_smoke."""
     script = (
         "import importlib, json, sys\n"
         "before = set(sys.modules)\n"
@@ -40,13 +56,13 @@ def test_port_and_chip_smoke_load_no_jax():
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    loaded = json.loads(res.stdout.strip().splitlines()[-1])
-    assert "cyberfabric_core_tpu_torch.runtime.scheduler" in loaded
-    assert [m for m in loaded if _forbidden(m)] == []
+    return json.loads(res.stdout.strip().splitlines()[-1])
 
 
-def test_no_jax_import_statements_in_the_port():
-    bad = []
+def _import_statements() -> list[tuple[str, str]]:
+    """(file, imported module) for every absolute import of the port and
+    chip_smoke.py."""
+    out = []
     for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -55,5 +71,26 @@ def test_no_jax_import_statements_in_the_port():
                 names = [node.module or ""]
             else:
                 continue
-            bad += [f"{path.name}: {n}" for n in names if _forbidden(n)]
-    assert bad == []
+            out += [(path.name, n) for n in names]
+    return out
+
+
+def test_port_and_chip_smoke_load_no_jax():
+    loaded = _loaded()
+    assert "cyberfabric_core_tpu_torch.runtime.scheduler" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_no_jax_import_statements_in_the_port():
+    assert [f"{f}: {n}" for f, n in _import_statements() if _forbidden(n)] == []
+
+
+def test_port_and_chip_smoke_load_no_host_only_package():
+    loaded = _loaded()
+    assert "cyberfabric_core_tpu_torch.server" in loaded
+    assert "cyberfabric_core_tpu_torch.modules.llm_gateway.worker" in loaded
+    assert [m for m in loaded if _host_only(m)] == []
+
+
+def test_no_host_only_import_statements_in_the_port():
+    assert [f"{f}: {n}" for f, n in _import_statements() if _host_only(n)] == []
