@@ -65,6 +65,15 @@ fatal on failure:
    mid-decode and one mid chunked prefill equal their undisturbed runs;
    (iii) tenants: fair admission, ``tenant_max_slots`` held at every round,
    a soft-quota yield that resumes, the hard limits raising at ``submit``;
+   (iv) the speculative storm: the quickstart's options at
+   ``scheduler_spec_k`` 4 and at 0, two engines over the same weights, 8
+   greedy requests (a random 32-token pattern repeated to 256 tokens, 128
+   out) and one seeded sampled one from 3 threads, under the sync gate:
+   drafts proposed and accepted, the sampled request never armed and equal
+   to its k=0 twin, every greedy token through the oracle (on the card a
+   greedy stream may part from k=0 at a near-tie: how many are identical,
+   and where the others part, is printed), ttft, inter-token latency and
+   tokens/s of both;
 5. HTTP, the slice's main path: the port's server built in this process by
    ``server.Host`` (what ``server.main`` runs), serving
    ``local::llama-3-8b`` (random bf16 weights from seed 0, byte tokenizer)
@@ -87,10 +96,17 @@ fatal on failure:
    cancellation within two rounds, a later request served, I1; (d) a
    garbage ``X-Request-Deadline-Ms`` → 400, a lapse while queued behind 8
    busy slots → 408, a lapse mid-stream → ``deadline_exceeded``, a burst on
-   the ``max_pending: 1`` model → 429 with ``Retry-After``; (e) ``python3 -m
+   the ``max_pending: 1`` model → 429 with ``Retry-After``; (e) one chat
+   completion on the tiny-llama quickstart at ``scheduler_spec_k`` 4; (f)
+   ``/v1/embeddings`` on bge-base-en (random bf16 weights from a seeded
+   generator), 6 requests of 8 inputs of up to 128 tokens: unit norms,
+   cosine ≥ 0.999 to an f32 forward of the same weights on the card, usage
+   equal to the tokenizer's count, ms per request and vectors/s at the
+   socket and bare; (g) ``python3 -m
    cyberfabric_core_tpu_torch.server run --config`` on the port's
    quickstart at port 0 as a child process: ``/health``, one SSE chat
-   completion to ``data: [DONE]``, exit code 0 on SIGTERM;
+   completion to ``data: [DONE]``, ``default-embed`` answering, exit code 0
+   on SIGTERM;
 6. golden parity: the five committed HF checkpoints (llama, qwen2, gemma,
    mixtral MoE, outlier llama) through the port's loader at f32 on the
    card, TF32 off: logits through the f32 flash kernel within rtol = atol
@@ -99,8 +115,9 @@ fatal on failure:
    equal to transformers'; the f32 entry points and D 64 timed at the
    main-path shapes;
 7. a ``{"kernels": [...]}`` line (the paged kernels' launches from the HTTP
-   storm, flash's from the phase-separated run), then ``{"ok": true,
-   "device": {...}}`` last.
+   storm and the speculative storm at k=4, each read just after its run;
+   flash's from the phase-separated run), then ``{"ok": true, "device":
+   {...}}`` last.
 """
 
 from __future__ import annotations
@@ -700,14 +717,16 @@ def engine_config_from_options(opts: dict) -> EngineConfig:
                                  provider_model_id=name, engine_options=dict(opts))).config
 
 
-def serve(engine, requests, n_threads=3, timeout=600.0, at_once=False):
+def serve(engine, requests, n_threads=3, timeout=600.0, at_once=False, last_alone=False):
     """Submit (prompt, SamplingParams) from ``n_threads`` threads; wait for
     every terminal event. Returns per request (tokens, reasons, submit_t,
     first_t). ``at_once``: one thread submits every request while the
     engine's scheduler thread is stopped (a running one would admit them as
     they arrive; ``submit`` restarts it, and that start is held back until
     the last submit), so the first admission sees them all and two engines
-    run the same rounds."""
+    run the same rounds. ``last_alone``: the scheduler is held the same
+    way while ``n_threads`` threads submit all requests but the last, which
+    goes in after them: it is the last one taken from the queue."""
     recs = [{"toks": [], "fins": [], "t0": None, "t1": None, "ts": []} for _ in requests]
     lock, done, left = threading.Lock(), threading.Event(), [len(requests)]
 
@@ -732,21 +751,28 @@ def serve(engine, requests, n_threads=3, timeout=600.0, at_once=False):
             recs[i]["t0"] = time.perf_counter()
             engine.submit(requests[i][0], requests[i][1], emit_for(i))
 
-    if at_once:
+    def threaded(n):
+        threads = [threading.Thread(target=submitter, args=(range(t, n, n_threads),))
+                   for t in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout)
+
+    if at_once or last_alone:
         engine.shutdown()  # the scheduler thread an earlier request started
         engine.start = lambda: None  # shadows the method until every request is in
         try:
-            submitter(range(len(requests)))
+            if at_once:
+                submitter(range(len(requests)))
+            else:
+                threaded(len(requests) - 1)
+                submitter([len(requests) - 1])
         finally:
             del engine.start
         engine.start()
-    threads = [] if at_once else [
-        threading.Thread(target=submitter, args=(range(t, len(requests), n_threads),))
-        for t in range(n_threads)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout)
+    else:
+        threaded(len(requests))
     if not done.wait(timeout):
         raise AssertionError(f"requests did not finish: {engine.stats()}")
     return recs
@@ -899,22 +925,25 @@ def watch_syncs():
 
 def serving_phase(card: str, label: str, engine, ecfg, requests,
                   launched: tuple, never: tuple = (), sync_free: bool = False,
-                  at_once: bool = False, min_caught=MIN_RUNNER_UP_CAUGHT,
-                  check_oracle: bool = True) -> tuple[dict[str, int], dict, list]:
+                  at_once: bool = False, last_alone: bool = False,
+                  min_caught=MIN_RUNNER_UP_CAUGHT,
+                  check_oracle: bool = True,
+                  graphs_required: bool = True) -> tuple[dict[str, int], dict, list]:
     """Serve ``requests`` with every kernel count set to 0 just before and
     read just after; the kernels in ``launched`` must have run and those in
     ``never`` must not. Checks streams, pages and the dense oracle; prints
     ttft, tokens/s and the pipeline split. ``sync_free``: no synchronising
     CUDA call may be flagged while it serves. A paged engine's decode chunks
     must have run as it was built to (graph replays, or eager with its
-    private switch). Returns this run's launch counts, the engine's stats
-    and the streams."""
+    private switch; ``graphs_required=False``: none need have run, as in a
+    speculative storm whose rounds may all verify drafts). Returns this
+    run's launch counts, the engine's stats and the streams."""
     try:
         for _, _, wrapper in KERNELS.values():
             wrapper.launches = 0
         t0 = time.perf_counter()
         with watch_syncs() if sync_free else contextlib.nullcontext() as flagged:
-            recs = serve(engine, requests, at_once=at_once)
+            recs = serve(engine, requests, at_once=at_once, last_alone=last_alone)
         wall = time.perf_counter() - t0
     finally:
         engine.shutdown()
@@ -931,7 +960,7 @@ def serving_phase(card: str, label: str, engine, ecfg, requests,
         graphs = pipe["decode_graphs"]
         ran = pipe["decode_graph_replays"] if graphs else pipe["decode_eager_chunks"]
         other = pipe["decode_eager_chunks"] if graphs else pipe["decode_graph_replays"]
-        if ran <= 0 or other:
+        if (ran <= 0 and graphs_required) or other:
             raise AssertionError(f"[{label}] decode chunks: graphs={graphs}, replays "
                                  f"{pipe['decode_graph_replays']}, eager "
                                  f"{pipe['decode_eager_chunks']}")
@@ -963,6 +992,8 @@ def serving_phase(card: str, label: str, engine, ecfg, requests,
 
 #: label → the latency numbers of a serving run (read by the HTTP phase)
 STORM_NUMBERS: dict[str, dict] = {}
+#: the speculative storm's kernel launches (k=4), for the kernels line
+SPEC_LAUNCHES: dict[str, int] = {}
 
 
 def latency_numbers(starts, stamps, n_tokens: int, wall: float) -> dict:
@@ -1655,6 +1686,94 @@ def golden_phase(card: str) -> dict[str, int]:
     return launches
 
 
+SPEC_K = 4
+
+
+def spec_requests(vocab: int) -> list:
+    """8 greedy requests whose prompts are a random 32-token pattern
+    repeated to 256 tokens, 128 output tokens each, and one such request
+    sampled (temperature 0.8, seeded): repetitive prompts, as code edits and
+    templated documents send."""
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(3, vocab, 32).tolist() * 8 for _ in range(9)]
+    requests = [(p, SamplingParams(max_tokens=128)) for p in prompts]
+    requests[8] = (prompts[8], SamplingParams(max_tokens=128, temperature=0.8, seed=42))
+    return requests
+
+
+def first_divergence(a: list[int], b: list[int]) -> int | None:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def spec_phase(card: str, params) -> dict[str, int]:
+    """The speculative storm at llama-3-8b width: the quickstart's options
+    with ``scheduler_spec_k`` 4 (mixed, ring depth 2) and with k=0, two
+    engines over the same weights, the same :func:`spec_requests` (the 8
+    greedy ones from 3 threads, the scheduler held until they and then the
+    sampled one are in, so that both engines admit the same 8 first and the
+    sampled one when a slot frees), kernel counts set to 0 just before each
+    and read just after. Gates, on both: one terminal event a stream, every greedy token
+    through the oracle, ragged launched and flash not, no synchronising call
+    flagged, I1. At k=4 also: speculative rounds with drafts proposed and
+    accepted, the sampled request never armed a proposer, and its ids equal
+    its k=0 twin's. Greedy streams may part from k=0 at a near-tie on the
+    card (bf16 GEMM bits depend on the row count: a verify round runs 8
+    positions a row), so the oracle gates them; how many are identical, and
+    where the others part, is printed. Returns the k=4 run's launches."""
+    runs = {}
+    for k in (0, SPEC_K):
+        label = f"spec storm, k={k}"
+        engine, ecfg = build_engine(label, dict(QUICKSTART, scheduler_spec_k=k), params)
+        requests = spec_requests(engine.model_config.vocab_size)
+        armed: dict[str, bool] = {}
+        arm = engine._arm_spec
+
+        def arm_and_record(state, arm=arm, armed=armed):
+            arm(state)
+            armed[state.request_id] = state.proposer is not None
+
+        engine._arm_spec = arm_and_record
+        launches, stats, recs = serving_phase(
+            card, label, engine, ecfg, requests, launched=("ragged_paged_attention",),
+            never=("flash_self_attention",), sync_free=True, last_alone=True,
+            graphs_required=k == 0)
+        runs[k] = (launches, stats, recs, armed)
+        del engine
+        torch.cuda.empty_cache()
+    launches, stats, recs, armed = runs[SPEC_K]
+    spec, pipe = stats["speculative"], stats["pipeline"]
+    if pipe["verify_step_graph_replays"] <= 0 or pipe["verify_step_eager_runs"]:
+        raise AssertionError(f"[spec storm] the verify rounds' decode step: "
+                             f"{pipe['verify_step_graph_replays']} graph replays, "
+                             f"{pipe['verify_step_eager_runs']} eager")
+    if spec["k"] != SPEC_K or spec["rounds"] <= 0 or spec["proposed"] <= 0 \
+            or spec["accepted"] <= 0:
+        raise AssertionError(f"[spec storm] no draft was proposed and accepted: {spec}")
+    if len(armed) != len(recs) or sum(armed.values()) != 8:
+        raise AssertionError(f"[spec storm] proposers armed {armed}: want the 8 greedy "
+                             "requests and not the sampled one")
+    base = runs[0][2]
+    if recs[8]["toks"] != base[8]["toks"]:
+        raise AssertionError(f"[spec storm] the sampled request's ids left its k=0 twin's at "
+                             f"token {first_divergence(recs[8]['toks'], base[8]['toks'])}")
+    parted = {i: first_divergence(recs[i]["toks"], base[i]["toks"]) for i in range(8)}
+    same = sum(d is None for d in parted.values())
+    log(f"serving [spec storm]: k={SPEC_K} {spec['rounds']} speculative rounds "
+        f"({spec['mixed_rounds']} with prompt chunks), {spec['proposed']} drafts proposed, "
+        f"{spec['accepted']} accepted (rate {spec['accept_rate']}), {spec['emitted']} tokens "
+        f"emitted by speculating rows; accept-length histogram {spec['accept_hist']}; "
+        f"{pipe['verify_step_graph_replays']} verify-round decode steps replayed as graphs; "
+        f"{sum(armed.values())} of 9 requests armed (the sampled one not); the sampled "
+        f"request's {len(recs[8]['toks'])} ids equal its k=0 twin's; greedy streams "
+        f"identical to k=0: {same} of 8, the others part at token "
+        f"{ {i: d for i, d in parted.items() if d is not None} }")
+    for k in (0, SPEC_K):
+        log(f"info [{card}] serving [spec storm, k={k}]: "
+            f"{format_latency(STORM_NUMBERS[f'spec storm, k={k}'])}")
+    return launches
+
+
 def serving_phases(card: str) -> dict[str, int]:
     """The serving runs on one set of weights. Returns the kernels'
     main-path launch counts: the paged kernels from the mixed run, flash
@@ -1713,6 +1832,7 @@ def serving_phases(card: str) -> dict[str, int]:
     cancel_phase(card, params)
     preempt_phase(card, params)
     tenants_phase(card, params)
+    SPEC_LAUNCHES.update(spec_phase(card, params))
     del params
     torch.cuda.empty_cache()
     tiny_quickstart_run(card)
@@ -1724,13 +1844,16 @@ def serving_phases(card: str) -> dict[str, int]:
 # ------------------------------------------------------------------ HTTP phases
 HTTP_MODEL = "local::llama-3-8b"
 HTTP_ONE_SLOT = "local::tiny-llama-one-slot"
+HTTP_TINY_SPEC = "local::tiny-llama-spec"
+EMBED_MODEL = "local::bge-base-en"
 HTTP_STORM_LENS = (16, 96, 250, 511, 700, 1000, 1300, 1500)
 
 
 def http_config() -> dict:
     """The quickstart's sections serving llama-3-8b with the quickstart
-    worker's options (random bf16 weights from seed 0, the byte tokenizer)
-    and a one-slot tiny-llama with ``max_pending: 1``; port 0."""
+    worker's options (random bf16 weights from seed 0, the byte tokenizer),
+    a one-slot tiny-llama with ``max_pending: 1``, the tiny-llama quickstart
+    with ``scheduler_spec_k`` 4, and bge-base-en embeddings; port 0."""
     llama_entry = {"provider_slug": "local", "provider_model_id": "llama-3-8b",
                    "approval_state": "approved", "managed": True, "architecture": "llama",
                    "capabilities": {"chat": True, "streaming": True},
@@ -1740,10 +1863,18 @@ def http_config() -> dict:
                 "approval_state": "approved", "managed": True,
                 "engine_options": {"model_config": "tiny-llama", "max_seq_len": 2048,
                                    "max_batch": 1, "max_pending": 1}}
+    # the tiny-llama quickstart with speculative rounds; bge-base-en
+    # embeddings (random weights from a seed: no checkpoint)
+    tiny_spec = {"provider_slug": "local", "provider_model_id": "tiny-llama-spec",
+                 "approval_state": "approved", "managed": True,
+                 "engine_options": dict(TINY_QUICKSTART, scheduler_spec_k=SPEC_K)}
+    bge = {"provider_slug": "local", "provider_model_id": "bge-base-en",
+           "approval_state": "approved", "managed": True, "architecture": "bert",
+           "capabilities": {"embeddings": True}, "engine_options": {"model_config": "bge-base-en"}}
     return {"modules": {
         "api_gateway": {"config": {"bind_addr": "127.0.0.1:0", "auth_disabled": True}},
         "tenant_resolver": {"config": {"single_tenant": "default"}},
-        "model_registry": {"config": {"models": [llama_entry, one_slot]}},
+        "model_registry": {"config": {"models": [llama_entry, one_slot, tiny_spec, bge]}},
         "llm_gateway": {"config": {"worker": {}}}}}
 
 
@@ -2108,6 +2239,95 @@ def http_deadlines(port: int, engine) -> None:
         f"burst statuses {statuses}, Retry-After {[b[1]['retry-after'] for b in refused]}")
 
 
+def http_spec_chat(port: int, srv) -> None:
+    """One chat completion on the tiny-llama quickstart with
+    ``scheduler_spec_k`` 4, over HTTP: 200, the usage its engine emitted,
+    the engine at k=4, pages conserved; the speculation it did is printed."""
+    body = {"model": HTTP_TINY_SPEC, "max_tokens": 256, "temperature": 0.0, "messages": [
+        {"role": "user", "content": [{"type": "text", "text": "repeat after me: " * 12}]}]}
+    status, _, resp = http_json(port, "/v1/chat/completions", body)
+    engine = srv.host.worker.engine(HTTP_TINY_SPEC)
+    wait_idle(engine)
+    stats = engine.stats()
+    spec = stats["speculative"]
+    if status != 200 or resp["usage"]["output_tokens"] != stats["tokens_emitted"] \
+            or spec["k"] != SPEC_K:
+        raise AssertionError(f"[http spec chat] {status} {resp} {spec}")
+    check_pool("http spec chat", stats)
+    log(f"serving [http spec chat]: tiny-llama quickstart, scheduler_spec_k {SPEC_K}, one "
+        f"chat completion over HTTP, {resp['usage']['output_tokens']} tokens "
+        f"({resp['finish_reason']}); {spec['rounds']} speculative rounds, "
+        f"{spec['proposed']} drafts proposed, {spec['accepted']} accepted; pages conserved")
+
+
+EMBED_TOL_COS = 0.999
+
+
+def embeddings_phase(card: str, port: int, srv) -> None:
+    """``/v1/embeddings`` on bge-base-en (random bf16 weights from a seeded
+    generator, the byte tokenizer): a first request builds the encoder, then
+    6 requests of 8 inputs of 16..127 letters (17..128 tokens). Each vector
+    has unit norm and lies within cosine EMBED_TOL_COS of an f32 forward of
+    the same weights on the card (TF32 off); usage counts the tokenizer's
+    tokens. Prints ms per request and vectors/s at the socket and for the
+    bare ``embed_pooled`` of one batch (CUDA events)."""
+    from cyberfabric_core_tpu_torch.models import bert
+
+    rng = np.random.default_rng(23)
+    t = time.perf_counter()
+    status, _, body = http_json(port, "/v1/embeddings", {"model": EMBED_MODEL, "input": "warm"})
+    if status != 200:
+        raise AssertionError(f"[embeddings] first request: {status} {body}")
+    build_s = time.perf_counter() - t
+    entry = srv.host.worker._embed_entries[f"embed::{EMBED_MODEL}"]
+    cfg, tok, params = entry.cfg, entry.tokenizer, entry.params
+    f32 = bert.from_state_dict(params.state_dict(), cfg, params.device, torch.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst, ms, batch = 1.0, [], None
+    try:
+        for _ in range(6):
+            inputs = [letters(rng, int(n)) for n in rng.integers(16, 128, 8)]
+            t = time.perf_counter()
+            status, _, body = http_json(port, "/v1/embeddings",
+                                        {"model": EMBED_MODEL, "input": inputs})
+            ms.append((time.perf_counter() - t) * 1e3)
+            ids = [tok.encode(x)[:128] for x in inputs]
+            if status != 200 or len(body["data"]) != 8 or body["usage"] != {
+                    "input_tokens": sum(map(len, ids)), "output_tokens": 0}:
+                raise AssertionError(f"[embeddings] {status} usage {body.get('usage')}")
+            got = torch.tensor([d["embedding"] for d in body["data"]], dtype=torch.float64)
+            norms = torch.linalg.norm(got, dim=1)
+            if (norms - 1).abs().max() > 1e-5:
+                raise AssertionError(f"[embeddings] norms {norms.tolist()}")
+            batch = (torch.zeros((8, 128), dtype=torch.int32),
+                     torch.zeros((8, 128), dtype=torch.int32))
+            for j, row in enumerate(ids):
+                batch[0][j, :len(row)] = torch.tensor(row)
+                batch[1][j, :len(row)] = 1
+            batch = tuple(b.to(params.device) for b in batch)
+            with torch.inference_mode():
+                ref = bert.embed_pooled(f32, cfg, *batch).double().cpu()
+            cos = (got * ref).sum(1) / torch.linalg.norm(ref, dim=1)
+            worst = min(worst, float(cos.min()))
+            if cos.min() < EMBED_TOL_COS:
+                raise AssertionError(f"[embeddings] cosine to the f32 forward {cos.tolist()}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    with torch.inference_mode():
+        bare = cuda_ms(lambda: bert.embed_pooled(params, cfg, *batch), 20)
+    del f32
+    ms.sort()
+    log(f"serving [embeddings]: {EMBED_MODEL} built on first request in {build_s:.1f} s; "
+        f"6 requests of 8 inputs (17..128 tokens): unit norm, usage = tokenizer count, "
+        f"cosine to the f32 forward of the same weights >= {worst:.6f} (least allowed "
+        f"{EMBED_TOL_COS})")
+    log(f"info [{card}] serving [embeddings] at the socket: ms per request p50 "
+        f"{ms[len(ms) // 2]:.2f} max {ms[-1]:.2f}, {8e3 / ms[len(ms) // 2]:.1f} vectors/s; "
+        f"bare embed_pooled [8, 128] bf16: {bare:.3f} ms, {8e3 / bare:.1f} vectors/s "
+        "(CUDA events)")
+
+
 def http_phase(card: str) -> dict[str, int]:
     """The port's server, built in this process as ``server.main`` builds it,
     serving llama-3-8b over HTTP (see :func:`http_config`); ``card`` labels
@@ -2144,6 +2364,8 @@ def http_phase(card: str) -> dict[str, int]:
                     f"{format_latency(STORM_NUMBERS[label])}")
         http_disconnect(srv.port, engine)
         http_deadlines(srv.port, engine)
+        http_spec_chat(srv.port, srv)
+        embeddings_phase(card, srv.port, srv)
     finally:
         srv.stop()
     del srv
@@ -2199,6 +2421,12 @@ def boot_phase() -> None:
         frames = [f for f in text.split("\n\n") if f.startswith("data: ")]
         if resp.status != 200 or not frames or frames[-1] != "data: [DONE]":
             raise AssertionError(f"[boot] chat stream: {resp.status} {text[-300:]}")
+        status, _, emb = http_json(port, "/v1/embeddings",
+                                   {"model": "default-embed", "input": ["hello", "world"]})
+        norms = [math.hypot(*d["embedding"]) for d in emb.get("data", [])]
+        if status != 200 or emb["model"] != "local::tiny-bert" or len(norms) != 2 \
+                or max(abs(n - 1) for n in norms) > 1e-5:
+            raise AssertionError(f"[boot] default-embed: {status} {emb}")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(60)
         if rc != 0:
@@ -2210,7 +2438,8 @@ def boot_phase() -> None:
         reader.join(10)
     log(f"serving [boot]: python3 -m cyberfabric_core_tpu_torch.server run --config "
         f"(quickstart, port 0) answered /health {up:.1f} s after start, streamed a chat "
-        f"completion of {len(frames) - 1} chunks to data: [DONE], exit 0 on SIGTERM "
+        f"completion of {len(frames) - 1} chunks to data: [DONE], embedded 2 inputs with "
+        f"default-embed (local::tiny-bert), exit 0 on SIGTERM "
         f"({time.perf_counter() - t:.1f} s in all)")
 
 
@@ -2297,8 +2526,9 @@ def main() -> int:
     # the slice's main path: the paged kernels' launches from the HTTP storm
     # (flash is not on it; its count stays the phase-separated run's)
     http_launches = http_phase(smi)  # its numbers carry the card's name and power limit
+    # ... and the speculative storm's (its k=4 run), each read just after it
     for name in ("ragged_paged_attention", "paged_decode_attention"):
-        launches[name] = http_launches[name]
+        launches[name] = http_launches[name] + SPEC_LAUNCHES[name]
     boot_phase()
     f32_launches = golden_phase(card)
     log(f"info [{card}] kernels f32 entry points, main-path shapes (bound: bytes at "

@@ -373,8 +373,11 @@ def forward_paged_decode(
     k_pool, v_pool = pools
     page = k_pool.shape[2]
     lengths = lengths.to(torch.int32)
-    positions = lengths[:, None]
-    idx_page = (lengths // page).long()
+    # a frozen row may sit at the window (length == Pmax * page): its write
+    # goes to scratch and its output is dropped, but its indices must stay
+    # in range (JAX's gathers clamp them)
+    positions = torch.clamp_max(lengths, cos_t.shape[0] - 1)[:, None]
+    idx_page = torch.clamp_max(lengths // page, page_table.shape[1] - 1).long()
     pid = torch.gather(page_table, 1, idx_page[:, None])[:, 0].long()
     off = (lengths % page).long()
     if write_mask is not None:

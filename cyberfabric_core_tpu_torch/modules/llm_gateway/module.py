@@ -1,6 +1,6 @@
-"""The llm-gateway handlers (the port's copy of the chat path of
-``modules/llm_gateway/module.py``): ``POST /v1/chat/completions`` and
-``POST /v1/completions``, sync and SSE.
+"""The llm-gateway handlers (the port's copy of the chat and embeddings
+paths of ``modules/llm_gateway/module.py``): ``POST /v1/chat/completions``
+and ``POST /v1/completions``, sync and SSE, and ``POST /v1/embeddings``.
 
 validate against the wire schema → refuse what the port does not serve →
 request id, traceparent and tenant into the worker params → deadline →
@@ -337,6 +337,19 @@ class LlmGatewayModule:
         cout = model.cost.get("output_per_1k", 0.0) * usage.get("output_tokens", 0) / 1000.0
         return round(cin + cout, 8)
 
+    async def handle_embeddings(self, request: Request):
+        """One vector per input, in order; usage counts the inputs' tokens.
+        ``dimensions`` and ``encoding_format`` are checked by the schema and
+        otherwise unused, as in JAX (vectors are always full floats)."""
+        body = read_json(await request.read(), schemas.EMBEDDING_REQUEST)
+        ctx: SecurityContext = request[SECURITY_CONTEXT_KEY]
+        model = await self.registry.resolve(ctx, body["model"])
+        inputs = body["input"] if isinstance(body["input"], list) else [body["input"]]
+        vectors, input_tokens = await self.worker.embed(model, inputs, body)
+        return {"data": [{"index": i, "embedding": v} for i, v in enumerate(vectors)],
+                "model": model.canonical_id,
+                "usage": {"input_tokens": input_tokens, "output_tokens": 0}}
+
     async def handle_models(self, request: Request):
         """The registry's models (the JAX registry's list shape)."""
         models = await self.registry.list_models(request[SECURITY_CONTEXT_KEY])
@@ -349,4 +362,5 @@ class LlmGatewayModule:
         m = "llm_gateway"
         router.route("POST", "/v1/chat/completions", self.handle_chat, sse=True, module=m)
         router.route("POST", "/v1/completions", self.handle_completions, sse=True, module=m)
+        router.route("POST", "/v1/embeddings", self.handle_embeddings, module=m)
         router.route("GET", "/v1/models", self.handle_models, module=m)

@@ -1,6 +1,7 @@
 """The llm-gateway wire contract as JSON Schemas (the port's copy of
-``modules/llm_gateway/schemas.py``: the chat and completion requests, the
-response and the stream chunk, with every sub-schema they reference).
+``modules/llm_gateway/schemas.py``: the chat, completion and embedding
+requests, the response and the stream chunk, with every sub-schema they
+reference).
 
 Draft 2020-12, ``additionalProperties: false``, ``$id`` of the form
 gts://gts.x.llmgw.<group>.<name>.v1~. Messages' content is always an array
@@ -193,5 +194,19 @@ STREAM_CHUNK = _schema("core", "stream_chunk", {
                                    "content_filter", "deadline_exceeded",
                                    "cancelled", None]},
         "usage": USAGE,   # final chunk only
+    },
+})
+
+EMBEDDING_REQUEST = _schema("core", "embedding_request", {
+    "type": "object",
+    "required": ["model", "input"],
+    "properties": {
+        "model": {"type": "string"},
+        "input": {"oneOf": [{"type": "string"},
+                            {"type": "array", "minItems": 1,
+                             "items": {"type": "string"}}]},
+        "dimensions": {"type": "integer", "minimum": 1},
+        "encoding_format": {"type": "string", "enum": ["float", "base64"],
+                            "default": "float"},
     },
 })

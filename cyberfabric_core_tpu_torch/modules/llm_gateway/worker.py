@@ -19,9 +19,17 @@ disconnect, a gateway timeout), cancels the request in the engine with
 ``reason="client_disconnect"``.
 
 Options the JAX worker maps to paths the port does not have (replica and
-PD pools, tensor parallelism, quantization, the lockstep scheduler, the
-speculative rounds) raise a ``not_ported`` problem naming their ROADMAP
-item; none is ignored.
+PD pools, tensor parallelism, quantization, the lockstep scheduler and its
+draft speculation) raise a ``not_ported`` problem naming their ROADMAP
+item; none is ignored. The continuous scheduler's speculative rounds
+(``scheduler_spec_k``, ``spec_min_accept``, ``spec_max_ngram``,
+``spec_min_ngram``) are served.
+
+Embeddings (:meth:`LocalTorchWorker.embed`): one bert encoder per model,
+built once on first use (a named checkpoint that is missing raises; no
+checkpoint serves random weights, with a warning), run in fixed batches of
+8 × ``min(max_position, 128)`` tokens on an executor thread; the token
+count comes from the model's tokenizer.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from __future__ import annotations
 import asyncio
 import gc
 import logging
+import threading
 import time
 import uuid
 from concurrent.futures import ThreadPoolExecutor
@@ -36,12 +45,14 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, AsyncIterator, Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
-from ...device import resolve_device
+from ...device import resolve_device, to_device
 from ...modkit.errcat import ERR
 from ...modkit.errors import ProblemError
-from ...models.configs import get_config
+from ...models import bert
+from ...models.configs import ModelConfig, get_config
 from ...runtime.engine import (EngineConfig, SamplingParams, SchedulerSaturated,
                                StepEvent, TenantQuotaExceeded, TenantSaturated)
 from ...runtime.lifecycle import EngineSupervisor, LifecycleConfig, ReplicaUnavailable
@@ -168,8 +179,6 @@ def plan_engine(model: ModelInfo, scheduler: str = "continuous") -> EnginePlan:
          f"hbm_bytes_per_device={cfg.hbm_bytes_per_device}", "9 (feasibility gate)"),
         (cfg.quantization != "none", f"quantization={cfg.quantization!r}",
          "6 (quantization)"),
-        (cfg.scheduler_spec_k > 0, f"scheduler_spec_k={cfg.scheduler_spec_k}",
-         "3 (speculative rounds)"),
         (cfg.speculative != "off", f"speculative={cfg.speculative!r}",
          "7 (lockstep engine and draft speculation)"),
     ]
@@ -222,6 +231,13 @@ class IncrementalDetokenizer:
 
 
 @dataclass
+class _EmbedEntry:
+    tokenizer: Tokenizer
+    params: bert.BertModel
+    cfg: ModelConfig
+
+
+@dataclass
 class _EngineEntry:
     config: EngineConfig
     tokenizer: Tokenizer
@@ -250,6 +266,8 @@ class LocalTorchWorker(LlmWorkerApi):
             raise ValueError(f"llm_gateway worker config: unknown keys {unknown}")
         self._device = self._config.get("device")
         self._entries: dict[str, _EngineEntry] = {}
+        self._embed_entries: dict[str, _EmbedEntry] = {}
+        self._embed_build_lock = threading.Lock()
         self._entry_locks: dict[str, asyncio.Lock] = {}
         self._executor = ThreadPoolExecutor(
             max_workers=int(self._config.get("max_engine_threads", 4)),
@@ -570,12 +588,76 @@ class LocalTorchWorker(LlmWorkerApi):
                 except Exception:  # noqa: BLE001 — teardown must not raise
                     logger.exception("cancel-on-teardown failed for %s", request_id)
 
+    # ------------------------------------------------------------------ embeddings
+    async def embed(self, model: ModelInfo, inputs: list[str],
+                    params: dict) -> tuple[list[list[float]], int]:
+        """(one L2-normalised vector per input, the inputs' token count by
+        the model's tokenizer), computed on an executor thread."""
+        return await asyncio.get_running_loop().run_in_executor(
+            self._executor, self._embed_blocking, model, inputs, params)
+
+    def _embed_blocking(self, model: ModelInfo, inputs: list[str],
+                        params: dict) -> tuple[list[list[float]], int]:
+        key = f"embed::{model.canonical_id}"
+        with self._embed_build_lock:  # single-flight: one build a model
+            entry = self._embed_entries.get(key)
+            if entry is None:
+                entry = self._build_embed_entry(key, model)
+        cfg, dev = entry.cfg, entry.params.device
+        max_len = min(cfg.max_position, 128)
+        out: list[list[float]] = []
+        total_tokens = 0
+        # fixed batches of 8 rows, padded to max_len
+        for i in range(0, len(inputs), 8):
+            chunk = inputs[i:i + 8]
+            ids = np.zeros((8, max_len), np.int32)
+            mask = np.zeros((8, max_len), np.int32)
+            for j, text in enumerate(chunk):
+                toks = entry.tokenizer.encode(text)[:max_len]
+                total_tokens += len(toks)
+                ids[j, :len(toks)] = toks
+                mask[j, :len(toks)] = 1
+            with torch.inference_mode():
+                emb = bert.embed_pooled(entry.params, cfg, to_device(ids, dev),
+                                        to_device(mask, dev))
+            out.extend(emb[:len(chunk)].cpu().tolist())  # sync-point: the batch's one read
+        return out, total_tokens
+
+    def _build_embed_entry(self, key: str, model: ModelInfo) -> _EmbedEntry:
+        cfg = get_config(dict(model.engine_options or {}).get("model_config")
+                         or model.provider_model_id)
+        dev = resolve_device(self._device)
+        if model.checkpoint_path:
+            if not Path(model.checkpoint_path).exists():
+                # random vectors for a model that names its weights would
+                # poison the caller's vector store: fail instead
+                raise FileNotFoundError(f"checkpoint_path {model.checkpoint_path!r} for "
+                                        f"{model.canonical_id} does not exist")
+            from ...runtime.weights import load_bert_params
+
+            params = bert.from_state_dict(load_bert_params(model.checkpoint_path, cfg,
+                                                           device=dev), cfg, dev)
+            tokenizer = load_tokenizer(model.checkpoint_path, cfg.vocab_size)
+            if isinstance(tokenizer, ByteTokenizer):
+                logger.warning("checkpoint %s has no tokenizer.json: falling back to byte "
+                               "tokenization, embeddings will NOT match the original model",
+                               model.checkpoint_path)
+        else:
+            logger.warning("embedding model %s has no checkpoint_path: serving "
+                           "RANDOM-WEIGHT embeddings (dev/synthetic mode only)",
+                           model.canonical_id)
+            params = bert.init_params(cfg, 0, device=dev)
+            tokenizer = ByteTokenizer(cfg.vocab_size)
+        entry = _EmbedEntry(tokenizer=tokenizer, params=params, cfg=cfg)
+        self._embed_entries[key] = entry
+        return entry
+
     # ------------------------------------------------------------------ health
     async def health(self) -> dict[str, Any]:
         return {
             "status": "ok",
             "devices": [str(torch.device(self._device or "cuda"))],
-            "loaded_models": sorted(self._entries),
+            "loaded_models": sorted(self._entries) + sorted(self._embed_entries),
             "schedulers": {k: {key: v for key, v in e.scheduler.stats().items()
                                if key != "round_timings"}
                            for k, e in self._entries.items()},
@@ -590,4 +672,5 @@ class LocalTorchWorker(LlmWorkerApi):
         for entry in list(self._entries.values()):
             entry.scheduler.close(timeout=5.0)
         self._entries.clear()
+        self._embed_entries.clear()
         self._executor.shutdown(wait=False, cancel_futures=True)

@@ -56,10 +56,6 @@ class ModelRegistry(ModelRegistryApi):
         missing = [k for k in ("provider_slug", "provider_model_id") if not spec.get(k)]
         if missing:
             raise ValueError(f"model_registry model: missing fields {missing}")
-        if spec.get("architecture") == "bert":
-            raise ValueError(
-                f"model_registry model {spec['provider_model_id']!r}: architecture 'bert' "
-                "(embeddings) is not ported yet (ROADMAP queue 1 item 4: embeddings)")
         canonical = f"{spec['provider_slug']}::{spec['provider_model_id']}"
         if canonical in self._models:
             raise ValueError(f"model {canonical} already registered")

@@ -77,10 +77,10 @@ class LlmWorkerApi(abc.ABC):
                 {"role": "user", "content": [{"type": "text", "text": prompt}]}], params):
             yield chunk
 
+    @abc.abstractmethod
     async def embed(self, model: ModelInfo, inputs: list[str],
                     params: dict) -> tuple[list[list[float]], int]:
-        raise ERR.llm.not_ported.error(
-            "embeddings are not ported yet (ROADMAP queue 1 item 4: embeddings)")
+        """(one vector per input, the inputs' token count)."""
 
     @abc.abstractmethod
     async def health(self) -> dict[str, Any]:

@@ -1,8 +1,11 @@
-"""Attention over a dense KV cache (counterpart of ``ops/attention.py``).
+"""Dense attention (counterpart of ``ops/attention.py``).
 
-The dense oracle: GQA, causal, length-masked, optional sliding window. The
-serving path never calls it (it goes through the paged kernels); the tests
-and ``chip_smoke.py`` hold the paged paths against it."""
+:func:`attention_with_cache` is the dense oracle: GQA, causal,
+length-masked, optional sliding window. The serving path never calls it
+(it goes through the paged kernels); the tests and ``chip_smoke.py`` hold
+the paged paths against it. :func:`encoder_attention` is the bert
+encoder's bidirectional attention, which the JAX package also computes
+outside any kernel."""
 
 from __future__ import annotations
 
@@ -45,3 +48,20 @@ def attention_with_cache(
     out = torch.einsum("bhgts,bshd->bthgd", probs.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(B, T, Hq, D).to(q.dtype)
+
+
+def encoder_attention(
+    q: torch.Tensor,               # [B, T, H, D]
+    k: torch.Tensor,               # [B, T, H, D]
+    v: torch.Tensor,               # [B, T, H, D]
+    attention_mask: torch.Tensor,  # [B, T] 1 = token, 0 = padding
+) -> torch.Tensor:
+    """Bidirectional attention over every unpadded key. Scores and softmax
+    in f32; probabilities are cast to v's dtype before P·V, which
+    accumulates in f32 and rounds once to q's dtype."""
+    D = q.shape[-1]
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * (1.0 / D ** 0.5)
+    mask = attention_mask[:, None, None, :].bool()
+    probs = torch.softmax(torch.where(mask, scores, _NEG_INF), dim=-1)
+    out = torch.einsum("bhts,bshd->bthd", probs.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)

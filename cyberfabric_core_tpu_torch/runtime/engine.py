@@ -119,6 +119,13 @@ class EngineConfig:
     #: scheduler). Drafts come from each stream's own emitted-token history
     #: (prompt-lookup / NgramProposer). The legacy ``speculative``/``spec_k``
     #: fields keep driving only the lockstep InferenceEngine path.
+    #: On the card, a verify span of k+1 ≤ 8 positions (``scheduler_spec_k``
+    #: ≤ 7) takes the ragged kernel's short-span path, which computes each
+    #: position bitwise as decoding it alone; a larger k is served through
+    #: the kernel's chunk path, whose attention bits differ. Either way the
+    #: card's bf16 products depend on the row count (a verify round runs
+    #: N×(k+1) positions, a decode chunk N), so greedy streams there equal
+    #: k=0's except at near-ties; the exact identity is pinned on the CPU.
     scheduler_spec_k: int = 0
     #: adaptive per-stream speculation gate (continuous scheduler): after a
     #: probation window of 4*scheduler_spec_k proposed drafts, a stream whose

@@ -139,6 +139,7 @@ from .engine import (EngineConfig, SamplingParams, SchedulerSaturated, StepEvent
                      TenantQuotaExceeded, TenantSaturated, build_decode_chunk_fn)
 from .paged import PrefixKVPool
 from .programs import PagedDecodeChunk
+from .speculative import NgramProposer, greedy_accept_counts
 from .weights import model_from_state_dict
 
 logger = logging.getLogger("scheduler")
@@ -155,8 +156,6 @@ def _reject_unported(config: EngineConfig, cfg: ModelConfig) -> None:
     checks = [
         (config.quantization != "none", f"quantization={config.quantization!r} "
          "(weight quantization slice)"),
-        (config.scheduler_spec_k > 0, "scheduler_spec_k>0 (speculative "
-         "rounds slice)"),
         (config.tp > 1, "tp>1 (multi-GPU slice)"),
         (bool(config.pd_role), f"pd_role={config.pd_role!r} (replica pools "
          "and PD slice)"),
@@ -234,6 +233,15 @@ class _SlotState:
     deadline: Optional[float] = None
     tenant: str = "default"
     prefill_t0: float = 0.0
+    #: speculative rounds (``scheduler_spec_k`` > 0): the stream's
+    #: prompt-lookup proposer, fed every emitted token; armed at decode
+    #: activation for greedy, limit-bound requests only (:meth:`_arm_spec`).
+    #: None: this stream does not propose (also the sticky state the
+    #: ``spec_min_accept`` gate leaves)
+    proposer: Optional[NgramProposer] = None
+    #: acceptance evidence the ``spec_min_accept`` gate reads
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
 
 @dataclass
@@ -507,6 +515,23 @@ class ContinuousBatchingEngine:
         self._top_p_dev = torch.ones(n, dtype=torch.float32, device=dev)
         self._top_k_dev = torch.zeros(n, dtype=torch.int32, device=dev)
 
+        # speculative rounds: up to spec_k drafts a speculating slot, verified
+        # as one ragged span of spec_w = spec_k + 1 positions (paged only: the
+        # span rides the ragged kernel); 0 keeps every round as it was
+        self.spec_k = max(0, int(config.scheduler_spec_k)) if self.paged else 0
+        if config.scheduler_spec_k > 0 and not self.paged:
+            logger.info("scheduler_spec_k=%d needs the paged scheduler "
+                        "(prefix_cache_pages > 0); speculation disabled",
+                        config.scheduler_spec_k)
+        self._spec_w = self.spec_k + 1
+        #: rounds that carried a draft span (and of those, the ones that also
+        #: carried prompt chunks), drafts proposed and accepted, tokens the
+        #: speculating rows emitted, streams the spec_min_accept gate closed
+        self.spec_stats = {"rounds": 0, "mixed_rounds": 0, "proposed": 0,
+                           "accepted": 0, "emitted": 0, "slots_disabled": 0}
+        #: accepted drafts of a span → spans
+        self._spec_accept_hist: dict[int, int] = {}
+
         # the lookahead ring (paged decode rounds)
         self._depth = config.resolve_lookahead_depth() if self.paged else 0
         self._ring: deque[_InflightChunk] = deque()
@@ -515,6 +540,7 @@ class ContinuousBatchingEngine:
         #: discard gives it back
         self._pinned: dict[tuple, list[torch.Tensor]] = {}
         self._chunk: Optional[PagedDecodeChunk] = None
+        self._step = None
         if self.paged:
             if dev.type == "cuda":
                 self._pinned = {
@@ -522,6 +548,9 @@ class ContinuousBatchingEngine:
                                                      pin_memory=True)
                                          for _ in range(self._depth + 1)],
                     (n,): [torch.empty((n,), dtype=torch.int32, pin_memory=True)]}
+                if self.spec_k:  # a speculative round's emit matrix + accepts
+                    self._pinned.setdefault((n, self._spec_w + 1), []).append(torch.empty(
+                        (n, self._spec_w + 1), dtype=torch.int32, pin_memory=True))
             rows = {"page_table": self._page_table_dev, "stops": self._stops_dev,
                     "limit": self._limit_dev, "temperature": self._temp_dev,
                     "top_p": self._top_p_dev, "top_k": self._top_k_dev}
@@ -529,6 +558,14 @@ class ContinuousBatchingEngine:
                 self.params, cfg, (self.pool.k_pool, self.pool.v_pool), rows,
                 self.rope_tables, n, self._k_steps, config.max_seq_len,
                 graphs=dev.type == "cuda" and not _eager_decode)
+            #: a speculative round's first pass: one decode step over every
+            #: slot, the same program as a chunk's step (its termination
+            #: outputs unused), so a row that does not speculate gets a
+            #: decode step's bits (see :meth:`_dispatch_verify`)
+            self._step: Optional[PagedDecodeChunk] = PagedDecodeChunk(
+                self.params, cfg, (self.pool.k_pool, self.pool.v_pool), rows,
+                self.rope_tables, n, 1, config.max_seq_len,
+                graphs=dev.type == "cuda" and not _eager_decode) if self.spec_k else None
         #: bumped by every change the in-flight ring cannot have seen
         self._epoch = 0
 
@@ -1009,6 +1046,9 @@ class ContinuousBatchingEngine:
             "decode_graphs": bool(self._chunk and self._chunk.graphs),
             "decode_graph_replays": self._chunk.replays if self._chunk else 0,
             "decode_eager_chunks": self._chunk.eager_runs if self._chunk else 0,
+            # a speculative round's decode step (:meth:`_dispatch_verify`)
+            "verify_step_graph_replays": self._step.replays if self._step else 0,
+            "verify_step_eager_runs": self._step.eager_runs if self._step else 0,
         }
         return {
             "mode": "mixed" if self.mixed else
@@ -1061,9 +1101,19 @@ class ContinuousBatchingEngine:
                 "paged_decode_attention": pa.paged_decode_attention.launches,
                 "flash_self_attention": fa.flash_self_attention.launches,
             },
+            "speculative": self._spec_snapshot(),
             "device": str(self.device),
             "broken": self._broken,
         }
+
+    def _spec_snapshot(self) -> dict[str, Any]:
+        """``stats()["speculative"]``: the counts, the accept rate and the
+        accept-length histogram (accepted drafts of a span → spans)."""
+        spec = dict(self.spec_stats)
+        hist = _snapshot(lambda: sorted(self._spec_accept_hist.items()))
+        return {"k": self.spec_k, **spec,
+                "accept_rate": round(spec["accepted"] / max(1, spec["proposed"]), 3),
+                "accept_hist": {str(a): c for a, c in hist}}
 
     # ------------------------------------------------------------------ loop
     def _run_loop(self) -> None:
@@ -1249,6 +1299,10 @@ class ContinuousBatchingEngine:
             slot = self._free_slots.popleft()
             state = rec.state
             state.chain = chain
+            # a decode-phase request resumes with the proposer it was armed
+            # with at its activation (its history and gate evidence ride in
+            # the parked state, as in JAX); a prefill-phase one is armed when
+            # its last chunk flips it
             self.slots[slot] = state
             if state.generator is not None and rec.gen_state is not None:
                 state.generator.set_state(rec.gen_state)
@@ -1456,6 +1510,7 @@ class ContinuousBatchingEngine:
                                 limit=T + state.sampling.max_tokens - 1)
         self._last_dev[slot].fill_(tok)
         self._epoch += 1
+        self._arm_spec(state)
         self._emit_token(slot, tok, force_length=T + self._k_steps > self.config.max_seq_len)
 
     def _patch_slot_device(self, slot: int, state: _SlotState, length: int,
@@ -1617,6 +1672,9 @@ class ContinuousBatchingEngine:
         if tok < 0:
             raise RuntimeError(f"slot {slot}: the device froze a row the host "
                                "still runs (termination rules disagree)")
+        if state.proposer is not None:
+            # the next round's drafts come from the live history
+            state.proposer.extend([tok])
         state.emitted += 1
         state.last_token = tok
         self._charge_tenant(state.tenant, 1)
@@ -1653,13 +1711,23 @@ class ContinuousBatchingEngine:
         elif self._prefill_slots:
             kind = self._decode_round_mixed()
         else:
-            kind = self._decode_round_chunk()
+            kind = None
+            if self.spec_k and not self._ring and self._spec_round_safe() \
+                    and self._spec_candidates():
+                # draft spans through the ragged dispatch, only off a drained
+                # ring (in-flight chunks are valid and drain first; the ring
+                # stops growing while drafts are live); the plain chunk round
+                # runs when no draft survives planning
+                kind = self._decode_round_mixed(spec_only=True)
+            if kind is None:
+                kind = self._decode_round_chunk()
         if kind is not None:
             self.round_ms[kind] += (time.perf_counter() - t0) * 1e3
             self.last_round_at = time.monotonic()
 
     def _record_round(self, kind: str, dispatch_ms: float, sync_wait_ms: float,
-                      host_emit_ms: float, lookahead: bool, depth: int) -> None:
+                      host_emit_ms: float, lookahead: bool, depth: int,
+                      spec_tokens: int = 0) -> None:
         """Count a finished round (with ``lookahead``: served by the ring)
         and its dispatch / sync-wait / host-emit split."""
         self.rounds[kind] += 1
@@ -1672,7 +1740,8 @@ class ContinuousBatchingEngine:
         self.round_timings.append({"kind": kind, "dispatch_ms": dispatch_ms,
                                    "sync_wait_ms": sync_wait_ms,
                                    "host_emit_ms": host_emit_ms,
-                                   "lookahead": lookahead, "depth": depth})
+                                   "lookahead": lookahead, "depth": depth,
+                                   "spec_tokens": spec_tokens})
 
     def _note_sharing(self) -> None:
         """Track the most pages two live chains share (read at dispatch, on
@@ -1764,6 +1833,10 @@ class ContinuousBatchingEngine:
         if self._prefill_slots or self._soft_yield or (
                 self._free_slots and (self._suspended or not self._pending.empty())):
             return False
+        if self.spec_k and self._spec_round_safe() and self._spec_candidates():
+            # live drafts: let the ring drain so that the next dispatch
+            # verifies them (one weight pass for up to k+1 tokens a row)
+            return False
         horizon = (len(self._ring) + 1) * self._k_steps
         for slot in np.flatnonzero(self.active):
             try:
@@ -1830,33 +1903,191 @@ class ContinuousBatchingEngine:
             left -= chunk
         return plan
 
-    def _decode_round_mixed(self) -> str:
-        """One ragged mixed round: decode rows take their next token while
-        this round's prompt chunks run in the same forward. A ring in flight
-        is stale (the admission bumped the epoch) and is discarded; when this
-        round consumes the last prompt chunks, the ring chains straight off
-        its outputs (:meth:`_mixed_ring_span`)."""
-        t0 = time.perf_counter()
-        n, dev, k = self.n_slots, self.device, self._k_steps
-        if self._ring:
-            self._discard_ring()
-        # decode rows keep a chunk of headroom, prompt rows cover their
-        # chunk; a slot the pool cannot serve is preempted to host
-        self._ensure_chunk_capacity(k)
-        plan = []
-        for slot, state, chunk in self._plan_prefill_chunks():
+    # ------------------------------------------------------------------ speculation
+    def _arm_spec(self, state: _SlotState) -> None:
+        """At decode activation, give a greedy request whose token limit
+        fires before the window bound could (prompt + max_tokens - 1 +
+        decode_chunk ≤ max_seq_len) a proposer seeded with its prompt. A
+        window-bound stream's 'length' finish lands on a chunk boundary,
+        which a speculative round's variable advance would move, so those
+        streams never speculate; nor do sampled ones (acceptance is argmax
+        equality)."""
+        s = state.sampling
+        if not self.spec_k or s.temperature != 0.0:
+            return
+        if len(state.prompt_ids) + s.max_tokens - 1 + self._k_steps > self.config.max_seq_len:
+            return
+        state.proposer = NgramProposer(self.config.spec_max_ngram,
+                                       self.config.spec_min_ngram, self.spec_k)
+        state.proposer.extend(state.prompt_ids)
+
+    def _spec_candidates(self) -> bool:
+        """Some active row's proposer has a draft now."""
+        return any(state is not None and self.active[slot] and state.proposer is not None
+                   and state.proposer.propose() for slot, state in enumerate(self.slots))
+
+    def _spec_round_safe(self) -> bool:
+        """A pure-decode round may speculate only while every active row is
+        limit-bound (see :meth:`_arm_spec`): such a stream ends at exactly
+        max_tokens however rounds chunk its advance."""
+        max_seq = self.config.max_seq_len
+        for slot in np.flatnonzero(self.active):
+            state = self.slots[slot]
+            limit = int(self.lengths[slot]) - state.emitted + state.sampling.max_tokens
+            if limit + self._k_steps > max_seq:
+                return False
+        return True
+
+    def _spec_gate_closed(self, state: _SlotState) -> bool:
+        """``spec_min_accept``: after 4·k proposed drafts, a stream accepting
+        less than that share stops proposing for good."""
+        floor = self.config.spec_min_accept
+        if floor <= 0.0 or state.spec_proposed < 4 * self.spec_k:
+            return False
+        if state.spec_accepted < floor * state.spec_proposed:
+            state.proposer = None
+            self.spec_stats["slots_disabled"] += 1
+            return True
+        return False
+
+    def _plan_spec(self, budget_left: float) -> list[tuple[int, _SlotState, list[int]]]:
+        """This round's draft spans: one proposal per armed active row,
+        trimmed to what is left of the shared ragged token budget, to the
+        row's remaining tokens (a draft past max_tokens can never commit)
+        and the window; a row whose chain cannot grow to cover its span is
+        skipped this round, never preempted (the capacity pass already
+        covered its next chunk)."""
+        plan: list[tuple[int, _SlotState, list[int]]] = []
+        max_seq = self.config.max_seq_len
+        for slot, state in enumerate(self.slots):
+            if budget_left <= 0:
+                break
+            if state is None or not self.active[slot] or state.proposer is None \
+                    or self._spec_gate_closed(state):
+                continue
+            L = int(self.lengths[slot])
+            if L + self._spec_w + self._k_steps > max_seq:
+                continue
+            cap = int(min(self.spec_k, state.sampling.max_tokens - state.emitted - 1,
+                          budget_left))
+            drafts = state.proposer.propose() if cap > 0 else None
+            if not drafts:
+                continue
+            drafts = drafts[:cap]
             try:
-                self._extend_chain_to(slot, state, state.prefill_pos + chunk)
-                plan.append((slot, state, chunk))
+                self._extend_chain_to(slot, state, min(L + 1 + len(drafts), max_seq))
             except MemoryError:
-                self._preempt_slot(slot, state)
-        if not plan:
-            return None  # every planned slot was preempted: the next pass decodes
+                continue
+            plan.append((slot, state, drafts))
+            budget_left -= len(drafts)
+        return plan
+
+    def _spec_outputs(self, outs: torch.Tensor, drafts: torch.Tensor,
+                      spec_lens: torch.Tensor, run: torch.Tensor, sampled: torch.Tensor,
+                      final: torch.Tensor, final_lens: torch.Tensor
+                      ) -> tuple[torch.Tensor, ...]:
+        """The accept and commit of a speculative round (the tail of JAX
+        ``spec_mixed_step``), on the device. ``outs`` [N, spec_w]: the
+        model's token after each span position (column 0: each row's next
+        token, sampled or greedy); ``drafts`` [N, spec_w - 1]. Commits the
+        accepted drafts' continuation, cut at the first stop, limit or
+        window hit, and advances the lengths. Returns (the [N, spec_w] emit
+        matrix, -1 past each row's commit, with the accept counts in one
+        more column, -1 for rows that did not speculate; last tokens;
+        lengths; finished)."""
+        W, k = self._spec_w, self._k_steps
+        lengths, last = self._lengths_dev, self._last_dev
+        spec = (spec_lens > 0) & run
+        accepts = greedy_accept_counts(outs, drafts, spec_lens)
+        idx = torch.arange(W, dtype=torch.int32, device=outs.device)[None, :]
+        in_commit = idx < torch.where(spec, accepts + 1, torch.ones_like(accepts))[:, None]
+        is_stop = (outs[:, :, None] == self._stops_dev[:, None, :]).any(dim=2)
+        # a final-chunk row's device length is 0: its length after the first
+        # token is final_lens, as in the mixed round
+        eff = torch.where(run, lengths, torch.where(final, final_lens - 1, lengths))
+        after = eff[:, None] + idx + 1
+        hit = (after >= self._limit_dev[:, None]) | (after + k > self.config.max_seq_len)
+        fin_at = (is_stop | hit) & in_commit
+        # token i commits while nothing fired before it
+        alive = (torch.cumsum(fin_at.to(torch.int32), dim=1) - fin_at.to(torch.int32)) == 0
+        emit = in_commit & alive
+        n_emit = emit.sum(dim=1, dtype=torch.int32)
+        toks = torch.where(emit & sampled[:, None], outs, torch.full_like(outs, -1))
+        at_last = torch.clamp_min(n_emit - 1, 0).long()[:, None]
+        new_last = torch.where(sampled, outs.gather(1, at_last)[:, 0], last)
+        new_lens = torch.where(run, lengths + n_emit,
+                               torch.where(final, final_lens,
+                                           torch.where(self._active_dev, lengths,
+                                                       torch.zeros_like(lengths))))
+        fin = self._finished_dev | (sampled & (fin_at & emit).any(dim=1))
+        acc_col = torch.where(spec, accepts, torch.full_like(accepts, -1))
+        return (torch.cat([toks, acc_col[:, None]], dim=1), new_last,
+                new_lens.to(torch.int32), fin)
+
+    def _greedy_span(self, hidden: torch.Tensor, width: int) -> torch.Tensor:
+        """The argmax after each of the first ``width`` positions of every
+        row's span: [N, width] int32."""
+        N, H = hidden.shape[0], hidden.shape[-1]
+        logits = llama.lm_head_logits(self.params, self.model_config,
+                                      hidden[:, :width].reshape(N * width, H))
+        return torch.argmax(logits, dim=-1).to(torch.int32).reshape(N, width)
+
+    def _dispatch_verify(self, spec_plan: list[tuple[int, _SlotState, list[int]]]
+                         ) -> _InflightChunk:
+        """A speculative round with no prompt chunk, in two passes. First a
+        decode step over every slot (:attr:`_step`, the program a decode
+        chunk's step runs; a graph replay on CUDA) gives each row its next
+        token and writes its KV: a row that does not speculate, a sampled
+        one included, computes exactly what a decode chunk would, whatever
+        rows speculate beside it. (On the card bf16 products depend on the
+        row count, so a single ragged pass over every row's span would give
+        such a row other bits than the plain round k=0 runs there.) Then the
+        speculating rows' drafts run as ragged spans at positions L+1..L+d,
+        and :meth:`_spec_outputs` accepts and commits. Nothing is read back
+        here."""
+        n, dev, W = self.n_slots, self.device, self._spec_w
+        drafts = np.zeros((n, -(-(W - 1) // 8) * 8), np.int32)
+        spec_lens = np.zeros(n, np.int32)
+        for slot, _, d in spec_plan:
+            drafts[slot, :len(d)] = d
+            spec_lens[slot] = len(d)
+        self._flush_page_table()
+        self._note_sharing()
+        active, fin, lengths = self._active_dev, self._finished_dev, self._lengths_dev
+        step, _, _, _ = self._step(self._last_dev, lengths, fin, active,
+                                   *self._sampling_rows(self.active))
+        drafts_d, lens_d = to_device(drafts, dev), to_device(spec_lens, dev)
+        run = active & ~fin
+        spec = (lens_d > 0) & run
+        hidden, _ = llama.forward_paged_mixed(
+            self.params, self.model_config, drafts_d, (self.pool.k_pool, self.pool.v_pool),
+            self._page_table_dev, lengths + 1, torch.where(spec, lens_d, 0), self.rope_tables,
+            write_mask=spec)
+        outs = torch.cat([step[:, :1], self._greedy_span(hidden, W - 1)], dim=1)
+        none = torch.zeros_like(active)
+        toks, new_last, new_lens, new_fin = self._spec_outputs(
+            outs, drafts_d[:, :W - 1], lens_d, run, run, none, torch.zeros_like(lengths))
+        host, ready = self._readback(toks)
+        return _InflightChunk(toks, new_last, new_lens, new_fin, active, self._epoch,
+                              host, ready)
+
+    def _dispatch_mixed(self, plan: list[tuple[int, _SlotState, int]],
+                        spec_plan: list[tuple[int, _SlotState, list[int]]]
+                        ) -> tuple[_InflightChunk, list[tuple[int, _SlotState]]]:
+        """Enqueue a round with prompt chunks: decode rows (q_len 1), this
+        round's chunks and any draft spans (1 + d positions: the last token,
+        then the drafts) in one ragged forward, as JAX ``mixed_step`` /
+        ``spec_mixed_step``. Returns the round's record and the rows whose
+        final chunk ran (they flip to decode on the device)."""
+        n, dev, k = self.n_slots, self.device, self._k_steps
         q_need = self.config.bucket_for(max(c for _, _, c in plan))
+        if spec_plan:
+            q_need = max(q_need, self._spec_w)
         q_max = -(-q_need // 8) * 8
         q_ids = np.zeros((n, q_max), np.int32)
         q_lens = np.zeros(n, np.int32)
         hist = np.zeros(n, np.int32)
+        spec_lens = np.zeros(n, np.int32)
         q_lens[self.active] = 1  # decode rows
         sample = self.active.copy()
         final_mask = np.zeros(n, bool)
@@ -1871,6 +2102,11 @@ class ContinuousBatchingEngine:
                 finals.append((slot, state))
                 sample[slot] = final_mask[slot] = True
                 final_lens[slot] = len(state.prompt_ids)
+        for slot, _, drafts in spec_plan:
+            # position 0 (the last token) is filled on the device
+            q_ids[slot, 1:1 + len(drafts)] = drafts
+            q_lens[slot] = 1 + len(drafts)
+            spec_lens[slot] = len(drafts)
         self._flush_page_table()
         self._note_sharing()
         q_ids_d, q_lens_d, hist_d, sample_d, final_d, final_lens_d = (
@@ -1888,18 +2124,75 @@ class ContinuousBatchingEngine:
                                       llama.gather_last_hidden(hidden, q_lens_d))
         nxt = self._sample(logits, *self._sampling_rows(sample))
         sampled = sample_d & ~fin
-        new_lens = torch.where(run, lengths + 1,
-                               torch.where(final_d, final_lens_d,
-                                           torch.where(active, lengths,
-                                                       torch.zeros_like(lengths))))
-        is_stop = (nxt[:, None] == self._stops_dev).any(dim=1)
-        hit = (new_lens >= self._limit_dev) | (new_lens + k > self.config.max_seq_len)
-        toks = torch.where(sampled, nxt, torch.full_like(nxt, -1))
+        if spec_plan:
+            # the speculating rows (greedy) commit the argmax after each span
+            # position; the others the round's next token, as a mixed round
+            spec_lens_d = to_device(spec_lens, dev)
+            outs = self._greedy_span(hidden, self._spec_w)
+            outs[:, 0] = torch.where((spec_lens_d > 0) & run, outs[:, 0], nxt)
+            toks, new_last, new_lens, new_fin = self._spec_outputs(
+                outs, q_ids_d[:, 1:self._spec_w], spec_lens_d, run, sampled, final_d,
+                final_lens_d)
+        else:
+            new_lens = torch.where(run, lengths + 1,
+                                   torch.where(final_d, final_lens_d,
+                                               torch.where(active, lengths,
+                                                           torch.zeros_like(lengths))))
+            is_stop = (nxt[:, None] == self._stops_dev).any(dim=1)
+            hit = (new_lens >= self._limit_dev) | (new_lens + k > self.config.max_seq_len)
+            toks = torch.where(sampled, nxt, torch.full_like(nxt, -1))
+            new_last = torch.where(sampled, nxt, self._last_dev)
+            new_lens, new_fin = new_lens.to(torch.int32), fin | (sampled & (is_stop | hit))
         host, ready = self._readback(toks)
-        rec = _InflightChunk(toks, torch.where(sampled, nxt, self._last_dev),
-                             new_lens.to(torch.int32), fin | (sampled & (is_stop | hit)),
-                             active | final_d, self._epoch, host, ready)
-        spanned = self._mixed_ring_span(rec, finals)
+        rec = _InflightChunk(toks, new_last, new_lens, new_fin, active | final_d,
+                             self._epoch, host, ready)
+        return rec, finals
+
+    def _decode_round_mixed(self, spec_only: bool = False) -> Optional[str]:
+        """One ragged mixed round: decode rows take their next token while
+        this round's prompt chunks run in the same forward. A ring in flight
+        is stale (the admission bumped the epoch) and is discarded; when this
+        round consumes the last prompt chunks, the ring chains straight off
+        its outputs (:meth:`_mixed_ring_span`).
+
+        Speculative rounds (``scheduler_spec_k`` > 0): armed rows with a
+        draft verify it, sharing the round's token budget with the prompt
+        chunks (chunks first; drafts get what is left, at least k): in the
+        round's one ragged forward when it carries prompt chunks
+        (:meth:`_dispatch_mixed`), else as a decode step and a ragged pass
+        over the drafts (:meth:`_dispatch_verify`). Accept and commit run on
+        the device (:meth:`_spec_outputs`), and the round keeps its one
+        read. ``spec_only``: the pure-decode entry (no prompt chunk);
+        returns None without dispatching when no draft survives planning. A
+        speculative dispatch never chains the ring."""
+        t0 = time.perf_counter()
+        n, k = self.n_slots, self._k_steps
+        if self._ring:
+            self._discard_ring()
+        # decode rows keep a chunk of headroom, prompt rows cover their
+        # chunk; a slot the pool cannot serve is preempted to host
+        self._ensure_chunk_capacity(k)
+        plan = []
+        if not spec_only:
+            for slot, state, chunk in self._plan_prefill_chunks():
+                try:
+                    self._extend_chain_to(slot, state, state.prefill_pos + chunk)
+                    plan.append((slot, state, chunk))
+                except MemoryError:
+                    self._preempt_slot(slot, state)
+        spec_plan = []
+        if self.spec_k:
+            budget = self.config.prefill_budget_tokens
+            spec_plan = self._plan_spec(
+                max(budget - sum(c for _, _, c in plan), self.spec_k) if budget > 0
+                else float("inf"))
+        if not plan and not spec_plan:
+            return None  # every planned slot was preempted: the next pass decodes
+        if plan:
+            rec, finals = self._dispatch_mixed(plan, spec_plan)
+        else:
+            rec, finals = self._dispatch_verify(spec_plan), []
+        spanned = 0 if spec_plan else self._mixed_ring_span(rec, finals)
         t1 = time.perf_counter()
         toks_host = self._drain(rec)
         t2 = time.perf_counter()
@@ -1910,25 +2203,50 @@ class ContinuousBatchingEngine:
                           (self._active_dev, rec.active_dev)):
             mine.copy_(new)
 
+        # one emit loop for both: a speculative round's rows are -1-terminated
+        # token lists (accept counts in the last column), a plain one's one token
+        if spec_plan:
+            toks2d, accepts = toks_host[:, :-1], toks_host[:, -1]
+        else:
+            toks2d, accepts = toks_host[:, None], None
+        emitted = (toks2d >= 0).sum(axis=1).astype(np.int32)
         decode_rows = [s for s in range(n) if self.active[s]]
         old_lengths = self.lengths.copy()
-        self.lengths = np.where(self.active, self.lengths + 1, self.lengths).astype(np.int32)
+        self.lengths = np.where(self.active, self.lengths + emitted,
+                                self.lengths).astype(np.int32)
+        if spec_plan:
+            # before the emit loop: a finish clears the slot's state
+            self.spec_stats["rounds"] += 1
+            self.spec_stats["mixed_rounds"] += int(bool(plan))
+            for slot, state, drafts in spec_plan:
+                a = int(accepts[slot])
+                self.spec_stats["proposed"] += len(drafts)
+                self.spec_stats["accepted"] += a
+                self.spec_stats["emitted"] += int(emitted[slot])
+                self._spec_accept_hist[a] = self._spec_accept_hist.get(a, 0) + 1
+                state.spec_proposed += len(drafts)
+                state.spec_accepted += a
         for slot, state, chunk in plan:
             state.prefill_pos += chunk
             self.prefill_chunks += 1
             self.chunked_prefill_tokens += chunk
             self._charge_tenant(state.tenant, chunk)
         for slot, state in finals:
-            self._finish_prefill(slot, state, int(toks_host[slot]), bump_epoch=spanned == 0)
+            self._finish_prefill(slot, state, int(toks2d[slot, 0]), bump_epoch=spanned == 0)
         for slot in decode_rows:
-            if self.active[slot]:
-                no_room = int(old_lengths[slot]) + 1 + k > self.config.max_seq_len
-                self._emit_token(slot, int(toks_host[slot]), force_length=no_room)
+            # an active row always commits one token at least: a -1 here (the
+            # device froze a row the host runs) raises in _emit_token
+            for j in range(max(1, int(emitted[slot]))):
+                if not self.active[slot]:
+                    break  # a finish on the host ends the row's list
+                no_room = int(old_lengths[slot]) + j + 1 + k > self.config.max_seq_len
+                self._emit_token(slot, int(toks2d[slot, j]), force_length=no_room)
         if self._ring and self._ring[0].epoch != self._epoch:
             self._discard_ring()
-        kind = "mixed" if decode_rows else "prefill"
+        kind = ("mixed" if decode_rows else "prefill") if plan else "decode"
         self._record_round(kind, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
-                           (time.perf_counter() - t2) * 1e3, False, spanned)
+                           (time.perf_counter() - t2) * 1e3, False, spanned,
+                           spec_tokens=sum(len(d) for _, _, d in spec_plan))
         return kind
 
     def _mixed_ring_span(self, rec: _InflightChunk,
@@ -1972,6 +2290,7 @@ class ContinuousBatchingEngine:
         self.pool.commit_chain(state.prompt_ids, state.chain)
         self._prefill_slots.remove(slot)
         state.phase = "decode"
+        self._arm_spec(state)
         self.lengths[slot] = T
         self.active[slot] = True
         if bump_epoch:

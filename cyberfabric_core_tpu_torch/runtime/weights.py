@@ -14,6 +14,10 @@ as numpy arrays, so this module never touches JAX — into the same
 ``state_dict``: the stacked ``[L, ...]`` layer leaves are unstacked into
 ``layers.<i>.<name>``. Both packages keep weight matrices ``[in, out]``, so no
 transpose is needed and both compute the same function.
+
+The bert encoder has the same three: :func:`load_bert_params` (HF
+``BertModel`` names, with or without the ``bert.`` prefix of a wrapping
+head), :func:`save_bert_params` and :func:`bert_params_from_jax`.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..models import bert
 from ..models.configs import ModelConfig
 from ..models.llama import LlamaModel, _leaf_shapes, check_supported
 
@@ -54,6 +59,31 @@ _LLAMA_MAP: dict[str, tuple[str, bool]] = {
     "moe_gate": ("model.layers.{i}.block_sparse_moe.experts.{e}.w1.weight", True),
     "moe_up": ("model.layers.{i}.block_sparse_moe.experts.{e}.w3.weight", True),
     "moe_down": ("model.layers.{i}.block_sparse_moe.experts.{e}.w2.weight", True),
+}
+
+# bert state_dict leaf → (HF BertModel name template, transpose?); {i} = layer
+_BERT_MAP: dict[str, tuple[str, bool]] = {
+    "word_embed": ("embeddings.word_embeddings.weight", False),
+    "pos_embed": ("embeddings.position_embeddings.weight", False),
+    "type_embed": ("embeddings.token_type_embeddings.weight", False),
+    "embed_ln_w": ("embeddings.LayerNorm.weight", False),
+    "embed_ln_b": ("embeddings.LayerNorm.bias", False),
+    "wq": ("encoder.layer.{i}.attention.self.query.weight", True),
+    "bq": ("encoder.layer.{i}.attention.self.query.bias", False),
+    "wk": ("encoder.layer.{i}.attention.self.key.weight", True),
+    "bk": ("encoder.layer.{i}.attention.self.key.bias", False),
+    "wv": ("encoder.layer.{i}.attention.self.value.weight", True),
+    "bv": ("encoder.layer.{i}.attention.self.value.bias", False),
+    "wo": ("encoder.layer.{i}.attention.output.dense.weight", True),
+    "bo": ("encoder.layer.{i}.attention.output.dense.bias", False),
+    "attn_ln_w": ("encoder.layer.{i}.attention.output.LayerNorm.weight", False),
+    "attn_ln_b": ("encoder.layer.{i}.attention.output.LayerNorm.bias", False),
+    "ffn_in": ("encoder.layer.{i}.intermediate.dense.weight", True),
+    "ffn_in_b": ("encoder.layer.{i}.intermediate.dense.bias", False),
+    "ffn_out": ("encoder.layer.{i}.output.dense.weight", True),
+    "ffn_out_b": ("encoder.layer.{i}.output.dense.bias", False),
+    "ffn_ln_w": ("encoder.layer.{i}.output.LayerNorm.weight", False),
+    "ffn_ln_b": ("encoder.layer.{i}.output.LayerNorm.bias", False),
 }
 
 _DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
@@ -266,3 +296,57 @@ def model_from_state_dict(state: Mapping[str, torch.Tensor], cfg: ModelConfig,
               for i in range(cfg.num_layers)]
     return LlamaModel(cfg, put(state["embed"]), put(state["final_norm"]), layers,
                       put(state["lm_head"]) if "lm_head" in state else None)
+
+
+def load_bert_params(model_dir: PathLike, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
+                     device: DeviceLike = None) -> dict[str, torch.Tensor]:
+    """A HF bert-family checkpoint (``BertModel`` layout, bge-base-en et
+    al.; a ``bert.`` prefix is detected and stripped) → the port's bert
+    state_dict on ``device`` in ``dtype``, HF ``[out, in]`` matrices
+    transposed to ``[in, out]``."""
+    bert.check_supported(cfg)
+    dev = resolve_device(device)
+    idx = SafetensorsIndex(model_dir)
+    prefix = "bert." if idx.has("bert.embeddings.word_embeddings.weight") else ""
+    out: dict[str, torch.Tensor] = {}
+    for leaf, (tmpl, transpose) in _BERT_MAP.items():
+        names = ([(leaf, tmpl)] if "{i}" not in tmpl else
+                 [(f"layers.{i}.{leaf}", tmpl.format(i=i)) for i in range(cfg.num_layers)])
+        for key, name in names:
+            t = idx.load(prefix + name)
+            out[key] = (t.t() if transpose else t).to(device=dev, dtype=dtype).contiguous()
+    return out
+
+
+def save_bert_params(params: Union["bert.BertModel", Mapping[str, torch.Tensor]],
+                     cfg: ModelConfig, out_dir: PathLike) -> Path:
+    """Write a bert state_dict (or a :class:`models.bert.BertModel`) as a
+    HF-layout ``model.safetensors`` in f32."""
+    state = params.state_dict() if isinstance(params, bert.BertModel) else params
+    tensors: dict[str, torch.Tensor] = {}
+    for leaf, (tmpl, transpose) in _BERT_MAP.items():
+        names = ([(leaf, tmpl)] if "{i}" not in tmpl else
+                 [(f"layers.{i}.{leaf}", tmpl.format(i=i)) for i in range(cfg.num_layers)])
+        for key, name in names:
+            t = state[key].detach().float().cpu()
+            tensors[name] = (t.t() if transpose else t).contiguous()
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    return write_safetensors(tensors, out_dir / "model.safetensors")
+
+
+def bert_params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """JAX bert tree of numpy arrays → the port's bert state_dict (CPU
+    tensors): the stacked ``[L, ...]`` layer leaves unstacked, no
+    transposes."""
+    bert.check_supported(cfg)
+    top, layer = bert.leaf_shapes(cfg)
+    out = {name: torch.from_numpy(np.array(tree[name], copy=True)) for name in top}
+    for name in layer:
+        stacked = tree["layers"][name]
+        if stacked.shape[0] != cfg.num_layers:
+            raise ValueError(f"layer leaf {name!r} has {stacked.shape[0]} layers, "
+                             f"config has {cfg.num_layers}")
+        for i in range(cfg.num_layers):
+            out[f"layers.{i}.{name}"] = torch.from_numpy(np.array(stacked[i], copy=True))
+    return out

@@ -13,7 +13,12 @@ same requests over ``http.client``. The chat model is
 - the sync response and every SSE chunk carry the same JSON keys;
 - the SSE contract (``tests/test_e2e_server.py:224``), ``X-Request-Id`` on
   the SSE response (``:806``), and the disconnect-abort (``:187``), read
-  through the port engine's ``cancellations``.
+  through the port engine's ``cancellations``;
+- ``/v1/embeddings`` on a tiny-bert checkpoint the JAX package wrote: the
+  same JSON keys, model and usage on both servers, vectors within cosine
+  0.999 and 1e-2 per component (both serve bf16 and round at different
+  points), and the same problem for each bad body; the port's quickstart
+  answers ``default-embed``.
 """
 
 from __future__ import annotations
@@ -62,13 +67,23 @@ def _models():
     ]
 
 
-def _sections(worker: dict) -> dict:
+def _bert_model(checkpoint: str) -> dict:
+    return {"provider_slug": "local", "provider_model_id": "tiny-bert-ckpt",
+            "approval_state": "approved", "managed": True, "architecture": "bert",
+            "checkpoint_path": checkpoint, "capabilities": {"embeddings": True},
+            "engine_options": {"model_config": "tiny-bert"}}
+
+
+def _sections(worker: dict, bert_checkpoint: str | None = None) -> dict:
+    models, aliases = _models(), {"default-chat": f"local::{FAM}"}
+    if bert_checkpoint is not None:
+        models.append(_bert_model(bert_checkpoint))
+        aliases["default-embed"] = "local::tiny-bert-ckpt"
     return {
         "api_gateway": {"config": {"bind_addr": "127.0.0.1:0", "auth_disabled": True,
                                    "max_body_bytes": 65536}},
         "tenant_resolver": {}, "authn_resolver": {},
-        "model_registry": {"config": {"models": _models(),
-                                      "aliases": {"default-chat": f"local::{FAM}"}}},
+        "model_registry": {"config": {"models": models, "aliases": aliases}},
         "llm_gateway": {"config": {"worker": worker}},
     }
 
@@ -76,7 +91,7 @@ def _sections(worker: dict) -> dict:
 class _JaxStack:
     """The JAX host on a loop in a thread of its own."""
 
-    def __init__(self, home: Path) -> None:
+    def __init__(self, home: Path, bert_checkpoint: str | None = None) -> None:
         from cyberfabric_core_tpu.modkit import AppConfig, ClientHub, ModuleRegistry, RunOptions
         from cyberfabric_core_tpu.modkit.db import DbManager
         from cyberfabric_core_tpu.modkit.runtime import HostRuntime
@@ -84,7 +99,8 @@ class _JaxStack:
 
         cfg = AppConfig.load_or_default(environ={}, cli_overrides={
             "server": {"home_dir": str(home)},
-            "modules": {**_sections({"batch_window_ms": 2}), "authz_resolver": {}}})
+            "modules": {**_sections({"batch_window_ms": 2}, bert_checkpoint),
+                        "authz_resolver": {}}})
         registry = ModuleRegistry.discover_and_build(enabled=cfg.module_names())
         self.rt = HostRuntime(RunOptions(config=cfg, registry=registry,
                                          client_hub=ClientHub(),
@@ -103,10 +119,24 @@ class _JaxStack:
         self.loop.close()
 
 
+def _write_bert_checkpoint(path: Path) -> str:
+    """A tiny-bert checkpoint written by the JAX package's saver."""
+    import jax
+
+    from cyberfabric_core_tpu.models import bert as jbert
+    from cyberfabric_core_tpu.models.configs import get_config as jget_config
+    from cyberfabric_core_tpu.runtime.weights import save_bert_params
+
+    cfg = jget_config("tiny-bert")
+    save_bert_params(jbert.init_params(cfg, jax.random.PRNGKey(7), jnp.float32), cfg, path)
+    return str(path)
+
+
 @pytest.fixture(scope="module")
 def servers(tmp_path_factory):
-    jax_stack = _JaxStack(tmp_path_factory.mktemp("jax-home"))
-    port = BackgroundServer({"modules": _sections({"device": "cpu"})}).start()
+    bert_checkpoint = _write_bert_checkpoint(tmp_path_factory.mktemp("tiny-bert"))
+    jax_stack = _JaxStack(tmp_path_factory.mktemp("jax-home"), bert_checkpoint)
+    port = BackgroundServer({"modules": _sections({"device": "cpu"}, bert_checkpoint)}).start()
     yield {"jax": jax_stack.port, "port": port.port, "port_server": port}
     port.stop()
     jax_stack.stop()
@@ -282,7 +312,82 @@ def test_models_and_health(servers):
     status, _, body = request(servers["port"], "GET", "/v1/models")
     assert status == 200
     assert [m["canonical_id"] for m in body["items"]] == sorted(
-        f"local::{m['provider_model_id']}" for m in _models())
+        [f"local::{m['provider_model_id']}" for m in _models()] + ["local::tiny-bert-ckpt"])
     status, _, body = request(servers["port"], "GET", "/health")
     assert status == 200 and body["status"] == "ok"
     assert body["worker"]["devices"] == ["cpu"]
+
+
+# ------------------------------------------------------------ embeddings
+EMBED_INPUTS = ["hello world", "the quick brown fox " * 12, "x", "héllo ✓",
+                "a", "b", "c", "d", "a ninth input, past one batch of 8"]
+
+
+def test_embeddings_match_the_jax_stack(servers):
+    """The same keys, model and usage on both servers; vectors of unit norm
+    within cosine 0.999 and 1e-2 per component of the JAX stack's; a bare
+    string is one input; ``dimensions`` and ``encoding_format`` are taken
+    and do not change the answer, as in JAX."""
+    for body in ({"model": "default-embed", "input": EMBED_INPUTS},
+                 {"model": "local::tiny-bert-ckpt", "input": "one string"},
+                 {"model": "default-embed", "input": ["x", "y"], "dimensions": 8,
+                  "encoding_format": "base64"}):
+        got = both(servers, "POST", "/v1/embeddings", body)
+        (js, _, jbody), (ps, _, pbody) = got["jax"], got["port"]
+        assert js == ps == 200, (jbody, pbody)
+        assert _shape(pbody) == _shape(jbody)
+        assert pbody["model"] == jbody["model"] == "local::tiny-bert-ckpt"
+        assert pbody["usage"] == jbody["usage"] and pbody["usage"]["output_tokens"] == 0
+        assert [d["index"] for d in pbody["data"]] == [d["index"] for d in jbody["data"]]
+        mine = np.asarray([d["embedding"] for d in pbody["data"]])
+        ref = np.asarray([d["embedding"] for d in jbody["data"]])
+        n_in = len(body["input"]) if isinstance(body["input"], list) else 1
+        assert mine.shape == ref.shape == (n_in, 32)
+        np.testing.assert_allclose(np.linalg.norm(mine, axis=1), 1.0, rtol=1e-5)
+        assert ((mine * ref).sum(1) / np.linalg.norm(ref, axis=1)).min() >= 0.999
+        np.testing.assert_allclose(mine, ref, atol=1e-2)
+
+
+@pytest.mark.parametrize("body", [
+    {},
+    {"model": "default-embed"},
+    {"model": "default-embed", "input": []},
+    {"model": "default-embed", "input": 3},
+    {"model": "default-embed", "input": ["ok", 4]},
+    {"model": "default-embed", "input": "x", "dimensions": 0},
+    {"model": "default-embed", "input": "x", "encoding_format": "hex"},
+    {"model": "default-embed", "input": "x", "user": "extra"},
+    {"model": "local::no-such-model", "input": "x"},
+])
+def test_embeddings_bad_bodies_give_the_jax_problem(servers, body):
+    got = both(servers, "POST", "/v1/embeddings", body)
+    (js, _, jbody), (ps, _, pbody) = got["jax"], got["port"]
+    assert ps == js >= 400, (jbody, pbody)
+    for key in ("code", "status", "errors"):
+        assert pbody.get(key) == jbody.get(key), (key, jbody, pbody)
+
+
+def test_the_quickstart_answers_default_embed():
+    """The port's quickstart config (its worker on the CPU) serves tiny-bert
+    under ``default-embed``, with random weights from a seed."""
+    from cyberfabric_core_tpu_torch import server
+
+    cfg = json.loads(server.QUICKSTART.read_text())
+    cfg["modules"]["api_gateway"]["config"]["bind_addr"] = "127.0.0.1:0"
+    cfg["modules"]["llm_gateway"]["config"]["worker"]["device"] = "cpu"
+    srv = BackgroundServer(cfg).start()
+    try:
+        status, _, body = request(srv.port, "POST", "/v1/embeddings",
+                                  {"model": "default-embed", "input": ["hello", "world"]})
+    finally:
+        srv.stop()
+    assert status == 200, body
+    assert body["model"] == "local::tiny-bert"
+    vecs = np.asarray([d["embedding"] for d in body["data"]])
+    assert vecs.shape == (2, 32)
+    np.testing.assert_allclose(np.linalg.norm(vecs, axis=1), 1.0, rtol=1e-5)
+    from cyberfabric_core_tpu_torch.runtime.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer(384)
+    assert body["usage"] == {"input_tokens": len(tok.encode("hello")) + len(tok.encode("world")),
+                             "output_tokens": 0}

@@ -275,7 +275,7 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
 
 
 @pytest.mark.parametrize("override", [dict(quantization="int8"),
-                                      dict(scheduler_spec_k=2), dict(tp=2),
+                                      dict(quantization="int4"), dict(tp=2),
                                       dict(pd_role="prefill")])
 def test_path_changing_options_name_their_later_slice(override):
     with pytest.raises(NotImplementedError, match="not ported yet"):

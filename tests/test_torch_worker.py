@@ -57,11 +57,13 @@ SERVED_SETS = {
               "eos_token_ids": [2, 7], "lifecycle": {"max_strikes": 5}},
     "lookahead-off": {**QUICKSTART_OPTS, "decode_lookahead": "off", "max_batch": 4,
                       "max_seq_len": 512, "prefix_cache_pages": 0},
+    "spec": {**QUICKSTART_OPTS, "scheduler_spec_k": 4, "spec_min_accept": 0.0,
+             "spec_max_ngram": 3, "spec_min_ngram": 1},
+    "spec-words": {**QUICKSTART_OPTS, "scheduler_spec_k": "7", "spec_min_accept": "0.25",
+                   "spec_max_ngram": "4", "spec_min_ngram": "2"},
 }
 #: (option set, worker config, the ROADMAP item the problem names)
 UNPORTED_SETS = {
-    "spec": ({**QUICKSTART_OPTS, "scheduler_spec_k": 4, "spec_min_accept": 0.0,
-              "spec_max_ngram": 3, "spec_min_ngram": 1}, {}, "item 3"),
     "tp": ({**QUICKSTART_OPTS, "tp": 8, "hbm_bytes_per_device": 0}, {}, "item 9"),
     "feasibility": ({**QUICKSTART_OPTS, "hbm_bytes_per_device": 1 << 34}, {}, "item 9"),
     "pd": ({**QUICKSTART_OPTS, "pd_prefill_replicas": 1, "pd_decode_replicas": 1}, {},
@@ -70,6 +72,8 @@ UNPORTED_SETS = {
     "quant": ({**QUICKSTART_OPTS, "quantization": "int8"}, {}, "item 6"),
     "lockstep": (QUICKSTART_OPTS, {"scheduler": "lockstep"}, "item 7"),
     "draft": ({**QUICKSTART_OPTS, "speculative": "ngram"}, {}, "item 7"),
+    "draft-beside-spec": ({**QUICKSTART_OPTS, "scheduler_spec_k": 4, "speculative": "draft",
+                           "draft_model": "tiny-llama"}, {}, "item 7"),
     "unknown": ({**QUICKSTART_OPTS, "warp_factor": 9}, {}, "not options"),
 }
 
@@ -299,10 +303,10 @@ def test_quickstart_json_matches_the_yaml_sections():
             assert section == ref["modules"][name], name
     reg, ref_reg = port["modules"]["model_registry"]["config"], \
         ref["modules"]["model_registry"]["config"]
-    # the chat model; the embeddings model waits for ROADMAP queue 1 item 4
-    assert reg["models"] == [m for m in ref_reg["models"] if m.get("architecture") != "bert"]
-    ids = {f"{m['provider_slug']}::{m['provider_model_id']}" for m in reg["models"]}
-    assert reg["aliases"] == {k: v for k, v in ref_reg["aliases"].items() if v in ids}
+    # the chat model and the embeddings model, under their aliases
+    assert reg["models"] == ref_reg["models"]
+    assert reg["aliases"] == ref_reg["aliases"] == {"default-chat": "local::tiny-llama",
+                                                    "default-embed": "local::tiny-bert"}
 
 
 # ------------------------------------------------------------ engines
@@ -444,3 +448,148 @@ def test_the_engine_records_the_phase_a_request_lapsed_in():
     assert eng.lapse_phase("late") == "queued"
     assert eng.lapse_phase("other") is None  # never lapsed
     eng.close()
+
+
+# ------------------------------------------------------------ speculation
+def test_the_worker_serves_speculative_rounds():
+    """``scheduler_spec_k`` reaches the engine the worker builds, and a
+    repetitive prompt's greedy completion speculates (drafts accepted) and
+    gives the same tokens as the same engine options at k=0."""
+    import asyncio
+
+    def run(spec_k: int):
+        info = ModelInfo(canonical_id="local::tiny-llama", provider_slug="local",
+                         provider_model_id="tiny-llama", managed=True,
+                         engine_options={"model_config": "tiny-llama", "max_seq_len": 256,
+                                         "max_batch": 2, "dtype": "float32",
+                                         "decode_lookahead": 0, "scheduler_spec_k": spec_k})
+        worker = LocalTorchWorker({"device": "cpu"})
+        try:
+            chunks = asyncio.run(_complete_text(worker, info, "abcabcabcabcabcabc", 96))
+            engine = worker.engine(info.canonical_id)
+            return ([c.token_id for c in chunks if c.token_id is not None],
+                    chunks[-1].usage, engine.spec_k, engine.stats()["speculative"])
+        finally:
+            worker.close()
+
+    toks0, usage0, k0, _ = run(0)
+    toks4, usage4, k4, spec = run(4)
+    assert (k0, k4) == (0, 4)
+    assert spec["rounds"] > 0 and spec["accepted"] > 0, spec
+    assert toks4 == toks0 and usage4 == usage0
+
+
+async def _complete_text(worker, model, prompt, n):
+    return [c async for c in worker.completion_stream(model, prompt, {"max_tokens": n})]
+
+
+# ------------------------------------------------------------ embeddings
+def _bert_info(name="tiny-bert", checkpoint=None, info_cls=ModelInfo):
+    return info_cls(canonical_id=f"local::{name}", provider_slug="local",
+                      provider_model_id=name, managed=True, architecture="bert",
+                      checkpoint_path=checkpoint, engine_options={"model_config": name})
+
+
+@pytest.fixture(scope="module")
+def bert_checkpoint(tmp_path_factory):
+    """A tiny-bert checkpoint written by the JAX package's saver."""
+    import jax
+    import jax.numpy as jnp
+
+    from cyberfabric_core_tpu.models import bert as jbert
+    from cyberfabric_core_tpu.models.configs import get_config as jget_config
+    from cyberfabric_core_tpu.runtime.weights import save_bert_params
+
+    path = tmp_path_factory.mktemp("tiny-bert")
+    cfg = jget_config("tiny-bert")
+    save_bert_params(jbert.init_params(cfg, jax.random.PRNGKey(2), jnp.float32), cfg, path)
+    return path
+
+
+TEXTS = ["hello world", "the quick brown fox " * 12, "x", "héllo ✓", "a", "b", "c", "d",
+         "a ninth input, past one batch of 8"]
+
+
+def test_embed_matches_the_jax_worker_on_a_shared_checkpoint(bert_checkpoint):
+    """Both workers serve the checkpoint at bf16 (the JAX loader's default):
+    the same token count, the same number of vectors, each of unit norm and
+    within cosine 0.999 and 1e-2 per component of JAX's (two bf16 forwards
+    round at different points)."""
+    jax_vecs, jax_n = LocalTpuWorker()._embed_blocking(
+        _bert_info(checkpoint=str(bert_checkpoint), info_cls=jax_sdk.ModelInfo), TEXTS, {})
+    worker = LocalTorchWorker({"device": "cpu"})
+    try:
+        vecs, n = worker._embed_blocking(_bert_info(checkpoint=str(bert_checkpoint)), TEXTS, {})
+    finally:
+        worker.close()
+    mine, ref = np.asarray(vecs), np.asarray(jax_vecs)
+    assert n == jax_n == sum(len(ByteTokenizer(384).encode(t)[:128]) for t in TEXTS)
+    assert mine.shape == ref.shape == (len(TEXTS), 32)
+    np.testing.assert_allclose(np.linalg.norm(mine, axis=1), 1.0, rtol=1e-5)
+    cos = (mine * ref).sum(1) / np.linalg.norm(ref, axis=1)
+    assert cos.min() >= 0.999, cos
+    np.testing.assert_allclose(mine, ref, atol=1e-2)
+
+
+def test_without_a_card_embed_raises_at_the_encoder_build():
+    """No silent CPU fallback on the embeddings path either."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device builds there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LocalTorchWorker()._embed_blocking(_bert_info(), ["x"], {})
+
+
+def test_embed_with_a_missing_checkpoint_raises():
+    worker = LocalTorchWorker({"device": "cpu"})
+    try:
+        with pytest.raises(FileNotFoundError, match="does not exist"):
+            worker._embed_blocking(_bert_info(checkpoint="/nonexistent/bert"), ["x"], {})
+    finally:
+        worker.close()
+
+
+def test_embed_without_a_checkpoint_serves_seeded_random_weights(caplog):
+    """Random weights from a seeded generator, with a warning: two workers
+    give the same vectors."""
+    out = []
+    for _ in range(2):
+        worker = LocalTorchWorker({"device": "cpu"})
+        try:
+            with caplog.at_level("WARNING", logger="llm_worker"):
+                out.append(worker._embed_blocking(_bert_info(), ["same text"], {}))
+        finally:
+            worker.close()
+    assert out[0] == out[1] and out[0][1] == len(ByteTokenizer(384).encode("same text"))
+    assert "RANDOM-WEIGHT" in caplog.text
+
+
+def test_embed_builds_once_and_lists_the_model():
+    """Concurrent first requests build the encoder once (single-flight);
+    ``health`` lists it beside the chat engines."""
+    import asyncio
+
+    worker = LocalTorchWorker({"device": "cpu"})
+    builds = []
+    build = worker._build_embed_entry
+
+    def counted(key, model):
+        builds.append(key)
+        return build(key, model)
+
+    worker._build_embed_entry = counted
+
+    async def go():
+        info = _bert_info()
+        got = await asyncio.gather(*(worker.embed(info, [f"text {i}"], {}) for i in range(4)))
+        await _complete(worker, _tiny("a"), 2)
+        return got, await worker.health()
+
+    try:
+        got, health = asyncio.run(go())
+    finally:
+        worker.close()
+    assert builds == ["embed::local::tiny-bert"]
+    assert all(len(vecs) == 1 and len(vecs[0]) == 32 for vecs, _ in got)
+    assert health["loaded_models"] == ["local::a", "embed::local::tiny-bert"]
