@@ -107,13 +107,37 @@ fatal on failure:
    quickstart at port 0 as a child process: ``/health``, one SSE chat
    completion to ``data: [DONE]``, ``default-embed`` answering, exit code 0
    on SIGTERM;
+   At llama-3-8b width also: (v) quant-8b, the storm on int8 and
+   on int4 engines (random weights quantized as drawn on the card) with
+   the storm's gates, the oracle over the same quantized tree, the trees'
+   bytes, peak memory, and the decode step's device time of bf16, int8 and
+   int4 in turns; (vi) dp, a ``DataParallelServingPool`` of two bf16
+   replicas on ``[cuda:0, cuda:0]`` sharing one params tree: a 16-request
+   storm (beside one engine on the same requests), a stream whose replica
+   breaks after its first token failing over with its full count through
+   the oracle, and the lifecycle manager rebuilding the replica into
+   probation and promoting it; (vii) pd, a ``PDServingPool`` of 1 prefill
+   + 1 decode replica on the storm: one handoff a stream, role-pure rounds,
+   I1 on both, the oracle, the handoff ms and the streams identical to the
+   unified engine's. Then (viii) mixtral-8x7b int8 at full width (random
+   weights from seed 0, quantized as drawn; 43.5 GiB) at the worker's
+   options: in bf16 the storm's gates, its numbers, the decode step's
+   device time and the peak memory; then the same requests again with
+   every eager routed-MoE call within one bf16 ulp of the output's scale
+   of its plain per-expert version at the same routing and capacity, the
+   bucket drops and the dense-MoE oracle's distances printed; in f32 the
+   same per-call check, no bucket drop and every greedy token within the
+   margin of the dense forward with the dense MoE oracle;
 6. golden parity: the five committed HF checkpoints (llama, qwen2, gemma,
    mixtral MoE, outlier llama) through the port's loader at f32 on the
    card, TF32 off: logits through the f32 flash kernel within rtol = atol
    = 1e-4 of transformers' and the greedy continuation through a paged
    mixed engine at f32 (mixtral's routed MoE inside the decode graph)
    equal to transformers'; the f32 entry points and D 64 timed at the
-   main-path shapes;
+   main-path shapes; then the quantization bounds: the llama,
+   qwen2 and outlier fixtures through the quantizing loader at 8 and 4
+   bits, mean |Δlogit| against transformers' under 0.02 / 0.12, W8 below
+   W4, and the outlier fixture's CE moved less than 0.01 / 0.05 nats;
 7. a ``{"kernels": [...]}`` line (the paged kernels' launches from the HTTP
    storm and the speculative storm at k=4, each read just after its run;
    flash's from the phase-separated run), then ``{"ok": true, "device":
@@ -124,6 +148,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import http.client
 import json
 import math
@@ -151,6 +176,10 @@ from cyberfabric_core_tpu_torch.modules.llm_gateway.worker import plan_engine
 from cyberfabric_core_tpu_torch.modules.sdk import ModelInfo
 from cyberfabric_core_tpu_torch.ops.timing import graph_ms
 from cyberfabric_core_tpu_torch.runtime.engine import EngineConfig, SamplingParams
+from cyberfabric_core_tpu_torch.runtime.lifecycle import LifecycleConfig
+from cyberfabric_core_tpu_torch.runtime.pd import PDServingPool
+from cyberfabric_core_tpu_torch.runtime.quant import QuantWeight, quantized_bytes
+from cyberfabric_core_tpu_torch.runtime.replicas import DataParallelServingPool
 from cyberfabric_core_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
 from cyberfabric_core_tpu_torch.runtime.tokenizer import ByteTokenizer
 from cyberfabric_core_tpu_torch.server import BackgroundServer
@@ -1774,13 +1803,537 @@ def spec_phase(card: str, params) -> dict[str, int]:
     return launches
 
 
-def serving_phases(card: str) -> dict[str, int]:
+# ------------------------------------------------- quantization, pools and PD
+QUANT_GOLDEN = ("tiny-llama-golden", "tiny-qwen2-golden", "tiny-llama-outlier")
+#: (bits → max allowed mean |Δlogit| against transformers'), the bounds of
+#: tests/test_golden_parity.py
+QUANT_BOUNDS = {8: 0.02, 4: 0.12}
+#: next-token CE budgets on the outlier fixture (nats)
+CE_BUDGETS = {8: 0.01, 4: 0.05}
+DECODE_LENS = [127, 383, 639, 895, 1151, 1407, 1663, 2046]
+#: the one card every replica of the pool phases sits on
+CARD = torch.device("cuda:0")
+
+
+def gib(n: float) -> str:
+    return f"{n / 1024 ** 3:.2f} GiB"
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def decode_step(params, rope, pools):
+    """One decode step at 8 rows of lengths 127..2046 through ``pools`` and
+    the head: what a replayed decode chunk runs ``decode_chunk`` times."""
+    cfg, dev = params.cfg, params.device
+    pt = make_table(8, 32, pools[0].shape[1], 9, dev)
+    ids = torch.from_numpy(np.random.default_rng(9).integers(
+        3, cfg.vocab_size, (8, 1)).astype(np.int32)).to(dev)
+    lens = i32(DECODE_LENS, dev)
+
+    def step():
+        h, _ = llama.forward_paged_decode(params, cfg, ids, pools, pt, lens, rope)
+        llama.lm_head_logits(params, cfg, h[:, 0])
+
+    return step
+
+
+def decode_step_ms(params, rope, pools, iters: int = 4, reps: int = 3) -> float:
+    """Device time (CUDA-graph replay) of :func:`decode_step`."""
+    with torch.inference_mode():
+        return graph_ms(decode_step(params, rope, pools), iters=iters, reps=reps)
+
+
+@contextlib.contextmanager
+def dense_moe():
+    """The dense MoE oracle (every expert, top-k mask) in place of the routed
+    form while the oracle's dense forward runs."""
+    routed = llama._moe_mlp
+    llama._moe_mlp = lambda x, lp, cfg, *_: llama._moe_mlp_dense(x, lp, cfg)
+    try:
+        yield
+    finally:
+        llama._moe_mlp = routed
+
+
+def quant_phase(card: str, smi: str, bf16) -> None:
+    """quant-8b: llama-3-8b at full width, int8 and int4 (random weights from
+    seed 0, quantized as drawn on the card), each on the mixed storm with
+    the storm's gates (one terminal a stream, ragged and decode launched and
+    flash not, decode graphs replayed, I1, every greedy token within the
+    margin of the dense forward over the SAME quantized tree); then the
+    decode step's device time of bf16, int8 and int4 in turns, and the
+    trees' bytes."""
+    trees, rope = {}, None
+    for bits in (8, 4):
+        label = f"quant-8b int{bits}"
+        torch.cuda.reset_peak_memory_stats()
+        engine, ecfg = build_engine(label, dict(QUICKSTART, quantization=f"int{bits}"))
+        built_peak = torch.cuda.max_memory_allocated()
+        wq = engine.params.layers[0].wq
+        if not isinstance(wq, QuantWeight) or wq.bits != bits:
+            raise AssertionError(f"[{label}] the engine's tree is not int{bits}: {wq}")
+        requests = storm_requests(engine, ecfg)
+        serving_phase(card, label, engine, ecfg, requests,
+                      launched=("ragged_paged_attention", "paged_decode_attention"),
+                      never=("flash_self_attention",))
+        trees[bits], rope = engine.params, engine.rope_tables
+        log(f"info [{smi}] {label}: tree {gib(quantized_bytes(engine.params))} (bf16 "
+            f"{gib(quantized_bytes(bf16))}); peak allocated {gib(built_peak)} after the build, "
+            f"{gib(torch.cuda.max_memory_allocated())} over the storm; "
+            f"{format_latency(STORM_NUMBERS[label])} (bf16 mixed storm: "
+            f"{format_latency(STORM_NUMBERS['mixed'])})")
+        del engine
+        free_card()
+    cfg = bf16.cfg
+    shape = (cfg.num_layers, 321, 64, cfg.num_kv_heads, cfg.head_dim)
+    pools = (torch.zeros(shape, dtype=torch.bfloat16, device=CARD),
+             torch.zeros(shape, dtype=torch.bfloat16, device=CARD))
+    trees["bf16"] = bf16
+    order = ["bf16", 8, 4, 4, 8, "bf16"]
+    times = {k: [] for k in ("bf16", 8, 4)}
+    for key in order:
+        times[key].append(decode_step_ms(trees[key], rope, pools))
+    log(f"info [{smi}] quant-8b decode step (8 rows at lengths 127..2046 and the head, "
+        f"device ms, graph replay, in turns): " + "; ".join(
+            f"{'bf16' if k == 'bf16' else f'int{k}'} "
+            + ", ".join(f"{t:.3f}" for t in v) for k, v in times.items()))
+    del trees, pools
+    free_card()
+
+
+def golden_quant_phase(card: str, smi: str) -> None:
+    """The quantization bounds of ``tests/test_golden_parity.py`` at f32 on
+    the card, TF32 off: each fixture loaded by the port's quantizing loader
+    at 8 and 4 bits, its logits' mean |Δ| against transformers' under
+    QUANT_BOUNDS and W8 below W4; on the outlier fixture the next-token CE
+    moves less than CE_BUDGETS, W8 less than W4."""
+    from cyberfabric_core_tpu_torch.ops.rope import rope_frequencies
+    from cyberfabric_core_tpu_torch.runtime.weights import load_llama_params, model_from_state_dict
+
+    def ce(logits, targets):
+        lp = torch.log_softmax(torch.from_numpy(logits[:, :-1]).double(), dim=-1)
+        return float(-lp.gather(-1, torch.from_numpy(targets).long()[..., None]).mean())
+
+    out = {}
+    for fam in QUANT_GOLDEN:
+        cfg = get_config(fam)
+        golden = np.load(f"{GOLDEN_DIR}/{fam}/golden.npz")
+        ids = torch.from_numpy(golden["input_ids"].astype(np.int32)).to(CARD)
+        B, T = ids.shape
+        rope = rope_frequencies(cfg.head_dim, cfg.max_position, cfg.rope_theta, device=CARD)
+        errs, ces = {}, {}
+        for bits in (8, 4):
+            params = model_from_state_dict(load_llama_params(
+                f"{GOLDEN_DIR}/{fam}", cfg, torch.float32, CARD, quantize=True,
+                quant_bits=bits), cfg, CARD)
+            with torch.inference_mode():
+                hidden, _ = llama.forward(
+                    params, cfg, ids, torch.arange(T, dtype=torch.int32, device=CARD)[None]
+                    .expand(B, T), llama.init_cache(cfg, B, T, torch.float32, device=CARD),
+                    torch.zeros(B, dtype=torch.int32, device=CARD), rope)
+                logits = llama.lm_head_logits(params, cfg, hidden).cpu().numpy()
+            errs[bits] = float(np.abs(logits - golden["logits"]).mean())
+            targets = golden["input_ids"][:, 1:]
+            ces[bits] = abs(ce(logits, targets) - ce(golden["logits"], targets))
+            if errs[bits] >= QUANT_BOUNDS[bits]:
+                raise AssertionError(f"[golden quant {fam}] int{bits} mean |dlogit| "
+                                     f"{errs[bits]:.5f} >= {QUANT_BOUNDS[bits]}")
+            if fam == "tiny-llama-outlier" and ces[bits] >= CE_BUDGETS[bits]:
+                raise AssertionError(f"[golden quant {fam}] int{bits} CE moved {ces[bits]:.5f}")
+        if not errs[8] < errs[4]:
+            raise AssertionError(f"[golden quant {fam}] W8 not below W4: {errs}")
+        out[fam] = {"mean_abs_dlogit": errs, "ce_delta": ces}
+    if not out["tiny-llama-outlier"]["ce_delta"][8] < out["tiny-llama-outlier"]["ce_delta"][4]:
+        raise AssertionError(f"[golden quant] outlier CE: W8 not below W4: {out}")
+    log(f"golden quant (f32 on the card, bounds {QUANT_BOUNDS}, CE budgets {CE_BUDGETS}): "
+        + json.dumps(out))
+
+
+MIXTRAL = {"model_config": "mixtral-8x7b", "max_seq_len": 2048, "max_batch": 8,
+           "prefix_page_size": 64, "decode_chunk": 8, "prefill_budget_tokens": 512,
+           "mixed_batch": True, "quantization": "int8"}
+MIXTRAL_LENS = (16, 64, 100, 180, 256, 333, 420, 512)
+
+
+def routed_moe_plain(x, lp, cfg, valid=None, n_tokens=None):
+    """The routed MoE one expert at a time, as plainly as it can be said:
+    each real token's top-k experts (the router product of the served
+    call), gates softmaxed over those k; each expert's real tokens in token
+    order, the first ``llama.moe_capacity`` of them kept; their gated MLP on
+    the widened weights in f32, rounded to the activation dtype where the
+    served form rounds, then scaled and summed in f32. Returns (the f32
+    output [B, T, H], real assignments, dropped assignments)."""
+    K = cfg.experts_per_token
+    B, T, H = x.shape
+    N = B * T
+    flat = x.reshape(N, H)
+    real = torch.ones(N, dtype=torch.bool, device=x.device) if valid is None \
+        else valid.reshape(N)
+    capacity = llama.moe_capacity(cfg, N, N if n_tokens is None else n_tokens)
+    top_vals, top_idx = torch.topk(llama._mm_f32(flat, lp.router), K, dim=-1)
+    gates = torch.softmax(top_vals, dim=-1)
+
+    def product(a, w, e):
+        if isinstance(w, QuantWeight):
+            return (a @ w.values()[e].float()) * w.s[e]
+        return a @ w[e].float()
+
+    out = torch.zeros((N, H), dtype=torch.float32, device=x.device)
+    assigned = dropped = 0
+    for e in range(cfg.num_experts):
+        hit = (top_idx == e) & real[:, None]                  # [N, K]
+        rows = hit.any(dim=1).nonzero()[:, 0]                 # token order
+        keep = rows[:capacity]
+        assigned, dropped = assigned + rows.numel(), dropped + rows.numel() - keep.numel()
+        if not keep.numel():
+            continue
+        xe = flat[keep].float()
+        act = (llama._act(product(xe, lp.moe_gate, e), cfg)
+               * product(xe, lp.moe_up, e)).to(x.dtype)
+        gate = (gates * hit).sum(dim=1)[keep]
+        out[keep] += product(act.float(), lp.moe_down, e) * gate[:, None]
+    return out.reshape(B, T, H), assigned, dropped
+
+
+#: the served routed MoE against its plain version, a call at a time: within
+#: one bf16 ulp of the call's largest output (the two differ in f32 sum order
+#: and, rarely, in a bf16 rounding of the activation; a dropped or misrouted
+#: assignment moves its row by its whole contribution)
+MOE_TOL = 2.0 ** -8
+
+
+@contextlib.contextmanager
+def moe_checked():
+    """Hold every eager routed-MoE call while the block runs (the mixed
+    rounds; a decode chunk's graph replays no Python) against
+    :func:`routed_moe_plain` on the same inputs, within MOE_TOL of the
+    output's scale, padding rows zero; count the real tokens' expert
+    assignments and those the bucket capacity drops. Its reference and host
+    reads sit on the served path: a run inside it is not timed. Yields
+    ``{"assigned", "dropped", "calls", "max_rel_err"}``."""
+    routed, out = llama._moe_mlp, {"assigned": 0, "dropped": 0, "calls": 0,
+                                   "max_rel_err": 0.0}
+
+    def checked(x, lp, cfg, valid=None, n_tokens=None):
+        got = routed(x, lp, cfg, valid, n_tokens)
+        ref, assigned, dropped = routed_moe_plain(x, lp, cfg, valid, n_tokens)
+        rel = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        if rel > MOE_TOL or not torch.isfinite(got).all():
+            raise AssertionError(f"routed MoE call {out['calls']}: {rel:.3e} of the "
+                                 f"output's scale from its plain version (tolerance "
+                                 f"{MOE_TOL:.3e})")
+        out["assigned"] += assigned
+        out["dropped"] += dropped
+        out["calls"] += 1
+        out["max_rel_err"] = max(out["max_rel_err"], rel)
+        return got
+
+    llama._moe_mlp = checked
+    try:
+        yield out
+    finally:
+        llama._moe_mlp = routed
+
+
+def oracle_spread(label: str, engine, recs, requests) -> None:
+    """Printed, not a gate: each greedy stream's largest distance below the
+    dense forward's max logit."""
+    cfg = engine.model_config
+    with torch.inference_mode():
+        gaps = [round(dense_margin(engine.params, cfg, engine.rope_tables, p, r["toks"])[0], 4)
+                for r, (p, sp) in zip(recs, requests) if sp.temperature == 0]
+    log(f"serving [{label}] dense-oracle distance by greedy stream (printed): {gaps}; "
+        f"{sum(g <= LOGIT_MARGIN for g in gaps)} of {len(gaps)} within {LOGIT_MARGIN}")
+
+
+def mixtral_phase(card: str, smi: str) -> None:
+    """mixtral-8x7b at full width (H 4096, 32 layers, 8 experts top-2, I
+    14336, V 32000), random weights from seed 0 quantized int8 as drawn,
+    the worker's options (512-token rounds, its pages): 8 requests of
+    16..512 tokens, 32 out, one seeded sample, with the storm's gates (the
+    routed MoE inside the decode graphs). The buckets keep JAX's capacity
+    for a round's padded rows, capped at its real tokens
+    (``llama.moe_capacity``), so a round of these prompts drops nothing.
+
+    (a) bf16 (what the worker serves): the storm timed; then, cold again,
+    the same requests with every eager routed-MoE call held against its
+    plain version at the same routing and capacity (:func:`moe_checked`),
+    the drops counted, and the dense-MoE oracle's distances printed (with
+    no drop they stay far above 0.1 at bf16: two paths' bf16 roundings
+    differ, a near-tie between experts can route a token to another
+    expert, and a whole expert moves its row, so 0.1 cannot gate bf16). The decode
+    step's routed MoE once eagerly under the same check, the tree's bytes,
+    the peak allocated and the decode step's device time.
+
+    (b) f32 at the same options, served once inside :func:`moe_checked`:
+    no assignment may drop, and every greedy token lies within the margin
+    of the dense forward with the dense MoE oracle over the same (f32-drawn)
+    int8 tree."""
+    for dtype in ("bfloat16", "float32"):
+        label = f"mixtral-8x7b int8, {dtype}"
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        engine, ecfg = build_engine(label, dict(MIXTRAL, dtype=dtype))
+        build_s, built_peak = time.perf_counter() - t, torch.cuda.max_memory_allocated()
+        rng = np.random.default_rng(5)
+        vocab = engine.model_config.vocab_size
+        requests = [(rng.integers(3, vocab, n).tolist(), SamplingParams(max_tokens=32))
+                    for n in MIXTRAL_LENS]
+        requests[6] = (requests[6][0], SamplingParams(max_tokens=32, temperature=0.8, seed=42))
+        gates = dict(launched=("ragged_paged_attention", "paged_decode_attention"),
+                     never=("flash_self_attention",), check_oracle=False)
+        if dtype == "bfloat16":
+            serving_phase(card, label, engine, ecfg, requests, **gates)
+            serve_peak = torch.cuda.max_memory_allocated()
+            flush_prefix_cache(engine)
+            with moe_checked() as moe:
+                recs = serve(engine, requests)
+            engine.shutdown()
+            check_pool(label + ", checked", engine.stats())
+        else:
+            with moe_checked() as moe:
+                _, _, recs = serving_phase(card, label + ", MoE checked a call at a time",
+                                           engine, ecfg, requests, **gates)
+            serve_peak = torch.cuda.max_memory_allocated()
+        log(f"serving [{label}] routed MoE against its plain version over {moe['calls']} "
+            f"eager layer calls: within {moe['max_rel_err']:.3e} of the output's scale "
+            f"(tolerance {MOE_TOL:.3e}); {moe['dropped']} of {moe['assigned']} expert "
+            f"assignments dropped by the bucket capacity (budget "
+            f"{ecfg.prefill_budget_tokens})")
+        if not moe["calls"]:
+            raise AssertionError(f"[{label}] no eager routed-MoE call was checked")
+        with dense_moe():
+            if dtype == "float32":
+                if moe["dropped"]:
+                    raise AssertionError(f"[{label}] {moe['dropped']} assignments dropped")
+                oracle(label + ", dense MoE oracle", engine, recs, requests)
+            else:
+                oracle_spread(label + ", dense MoE oracle", engine, recs, requests)
+        pools = (engine.pool.k_pool, engine.pool.v_pool)
+        # the decode chunk's routed MoE (8 rows, inside a graph when served)
+        # called eagerly once at its shape under the same check
+        with moe_checked() as dec, torch.inference_mode():
+            decode_step(engine.params, engine.rope_tables, pools)()
+        log(f"serving [{label}] routed MoE at the decode step's shape (eager, once): "
+            f"{dec['calls']} layer calls within {dec['max_rel_err']:.3e} of the output's "
+            f"scale, {dec['dropped']} of {dec['assigned']} assignments dropped")
+        if dec["calls"] != engine.model_config.num_layers or dec["dropped"]:
+            raise AssertionError(f"[{label}] decode-shape MoE check: {dec}")
+        step = [decode_step_ms(engine.params, engine.rope_tables, pools, iters=2, reps=2)
+                for _ in range(2 if dtype == "bfloat16" else 1)]
+        timed = label if dtype == "bfloat16" else label + ", MoE checked a call at a time"
+        log(f"info [{smi}] {label}: tree {gib(quantized_bytes(engine.params))}; built in "
+            f"{build_s:.1f} s (init, quantization and graph capture), peak allocated "
+            f"{gib(built_peak)} after the build, {gib(serve_peak)} over the storm, "
+            f"{gib(torch.cuda.max_memory_allocated())} with the checks, the oracle and the "
+            f"timing; decode step (8 rows, head included, device ms) "
+            f"{', '.join(f'{x:.2f}' for x in step)}; [{timed}] "
+            f"{format_latency(STORM_NUMBERS[timed])}")
+        del engine, pools
+        free_card()
+
+
+DP_LENS = (16, 96, 250, 511, 700, 1000, 1300, 1500)
+
+
+def dp_requests(vocab: int) -> list:
+    """16 greedy prompts of 16..1500 tokens (the storm's lengths twice), 32
+    out each."""
+    rng = np.random.default_rng(11)
+    return [(rng.integers(3, vocab, n).tolist(), SamplingParams(max_tokens=32))
+            for n in DP_LENS * 2]
+
+
+def pool_storm(card: str, label: str, pool, requests, eos) -> tuple[list, dict]:
+    """Serve ``requests`` through a pool with the kernel counts set to 0
+    just before and read just after; the storm's gates over its replicas."""
+    for _, _, wrapper in KERNELS.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    recs = serve(pool, requests)
+    wall = time.perf_counter() - t0
+    for r in pool.replicas:
+        r.shutdown()
+    launches = {name: wrapper.launches for name, (_, _, wrapper) in KERNELS.items()}
+    check_streams(recs, requests, lambda sp: set(sp.stop_token_ids) | set(eos))
+    if launches["ragged_paged_attention"] <= 0 or launches["paged_decode_attention"] <= 0 \
+            or launches["flash_self_attention"]:
+        raise AssertionError(f"[{label}] launches {launches}")
+    for i, r in enumerate(pool.replicas):
+        st = r.stats()
+        check_pool(f"{label} replica {i}", st)
+        if st["pipeline"]["decode_graphs"] and st["pipeline"]["decode_eager_chunks"]:
+            raise AssertionError(f"[{label}] replica {i} ran eager decode chunks")
+    numbers = latency_numbers([r["t0"] for r in recs], [r["ts"] for r in recs],
+                              sum(len(r["toks"]) for r in recs), wall)
+    STORM_NUMBERS[label] = numbers
+    return recs, launches
+
+
+def dp_phase(card: str, smi: str, params) -> None:
+    """dp: a DataParallelServingPool of two bf16 llama-3-8b replicas on
+    ``[cuda:0, cuda:0]`` sharing one params tree, lifecycle on: a 16-request
+    storm (its tokens/s beside one engine's on the same requests,
+    information only) with the storm's gates on each replica and the
+    oracle; then a stream whose replica breaks after its first token fails
+    over and ends with its full count through the oracle, and the census
+    returns to two healthy through rebuild and probation."""
+    label = "dp, 2 replicas"
+    ecfg = engine_config_from_options(QUICKSTART)
+    dev = CARD
+    requests = dp_requests(params.cfg.vocab_size)
+    one, _ = build_engine("dp baseline, one engine", QUICKSTART, params)
+    serving_phase(card, "dp baseline, one engine", one, ecfg, requests,
+                  launched=("ragged_paged_attention", "paged_decode_attention"),
+                  never=("flash_self_attention",), check_oracle=False)
+    del one
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    pool = DataParallelServingPool(ecfg, n_replicas=2, devices=[dev, dev], seed=0,
+                                   params=params, lifecycle=LifecycleConfig(
+                                       check_interval_s=0.05, rebuild_backoff_s=0.05,
+                                       probation_successes=1))
+    build_s = time.perf_counter() - t
+    try:
+        if not pool.replicas[0].params is pool.replicas[1].params is params:
+            raise AssertionError("[dp] the replicas do not share the one params tree")
+        recs, launches = pool_storm(card, label, pool, requests, ecfg.eos_token_ids)
+        served = [r.stats()["requests_completed"] for r in pool.replicas]
+        if min(served) <= 0:
+            raise AssertionError(f"[dp] a replica served nothing: {served}")
+        oracle(label, pool.replicas[0], recs, requests)
+        log(f"serving [{label}]: built in {build_s:.1f} s, {len(requests)} requests "
+            f"({served} a replica), launches {launches}, pages conserved on both")
+        log(f"info [{smi}] serving [{label}]: {format_latency(STORM_NUMBERS[label])}; one "
+            f"engine on the same requests: "
+            f"{format_latency(STORM_NUMBERS['dp baseline, one engine'])}; tree "
+            f"{gib(quantized_bytes(params))} shared by both replicas, peak allocated "
+            f"{gib(torch.cuda.max_memory_allocated())}")
+        # failover: the serving replica breaks after the stream's first token
+        rid, prompt = "dp-failover", requests[4][0]
+        broke = []
+
+        def hook(ev, rec):
+            if ev.token_id >= 0 and len(rec["toks"]) == 1:
+                victim = pool._requests[rid].replica
+                pool.replicas[victim]._decode_round = _boom
+                broke.append(victim)
+
+        streams = Streams()
+        t_fail = time.perf_counter()
+        pool.submit(prompt, SamplingParams(max_tokens=32), streams.emit_for(rid, hook), rid)
+        streams.wait(pool.replicas[0], 120)
+        stream_s = time.perf_counter() - t_fail
+        rec = streams.recs[rid]
+        if rec["fins"] not in (["length"], ["stop"]) or (
+                rec["fins"] == ["length"] and len(rec["toks"]) != 32):
+            raise AssertionError(f"[dp failover] {len(rec['toks'])} tokens, {rec['fins']}")
+        if pool.failovers != 1 or not broke:
+            raise AssertionError(f"[dp failover] failovers {pool.failovers}, broke {broke}")
+        survivor = pool.replicas[1 - broke[0]]
+        oracle("dp failover", survivor, [{"toks": rec["toks"]}],
+               [(prompt, SamplingParams(max_tokens=32))], min_caught=None)
+        # self-heal: quarantine, rebuild (a fresh engine and its graphs on
+        # the shared params), probation, promotion by canaries
+        lc, t_heal = pool.lifecycle, time.monotonic()
+        deadline = t_heal + 120
+        while lc.counts()["probation"] + lc.counts()["healthy"] < 2:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[dp self-heal] no rebuild: {lc.status()}")
+            time.sleep(0.05)
+        rebuilt_s = time.monotonic() - t_heal
+        canaries = 0
+        while lc.counts()["healthy"] < 2 and canaries < 4:
+            serve(pool, [(requests[0][0], SamplingParams(max_tokens=8))], 1)
+            canaries += 1
+        if lc.counts()["healthy"] != 2 or pool.stats()["healthy"] != 2:
+            raise AssertionError(f"[dp self-heal] census {lc.counts()}")
+        if pool.replicas[broke[0]].params is not params:
+            raise AssertionError("[dp self-heal] the rebuilt replica did not reuse the params")
+        log(f"serving [dp failover and self-heal]: replica {broke[0]} broke after the "
+            f"stream's first token; the stream failed over and ended "
+            f"{rec['fins'][0]} with {len(rec['toks'])} tokens in {stream_s:.2f} s through "
+            f"the oracle; the census "
+            f"came back to 2 healthy: rebuilt into probation {rebuilt_s:.2f} s after the "
+            f"break, promoted after {canaries} canary request(s); lifecycle "
+            f"{json.dumps({k: v for k, v in lc.status().items() if k != 'replicas'})}")
+        for r in pool.replicas:
+            r.shutdown()
+        check_pool("dp after self-heal", pool.replicas[broke[0]].stats())
+    finally:
+        pool.close()
+    del pool
+    free_card()
+
+
+def _boom():
+    raise RuntimeError("injected device fault")
+
+
+def pd_phase(card: str, smi: str, params, requests, unified: list) -> None:
+    """pd: a PDServingPool of 1 prefill + 1 decode bf16 llama-3-8b replica
+    on ``[cuda:0, cuda:0]`` on the mixed storm: every stream handed off
+    exactly once, the prefill engine's rounds only prefill / mixed and the
+    decode engine's only decode (its chunks graph replays), I1 on both,
+    every greedy token through the oracle. Prints how many streams equal
+    the unified engine's, the handoff ms (export to pinned host, waited
+    for, plus the import's enqueue) and ttft beside the unified storm."""
+    label = "pd, 1 prefill + 1 decode"
+    ecfg = engine_config_from_options(QUICKSTART)
+    dev = CARD
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    pool = PDServingPool(ecfg, n_prefill=1, n_decode=1, devices=[dev, dev], seed=0,
+                         params=params)
+    build_s = time.perf_counter() - t
+    try:
+        recs, launches = pool_storm(card, label, pool, requests, ecfg.eos_token_ids)
+        st = pool.stats()
+        pre, dec = st["per_replica"]
+        if st["pd"]["handoffs"] != len(requests) or st["pd"]["handoffs_failed"] \
+                or pre["pd"]["exported"] != len(requests) \
+                or dec["pd"]["imported"] != len(requests):
+            raise AssertionError(f"[pd] handoffs {st['pd']}, {pre['pd']}, {dec['pd']}")
+        if pre["rounds"]["decode"] or not pre["rounds"]["prefill"] + pre["rounds"]["mixed"] \
+                or dec["rounds"]["mixed"] or dec["rounds"]["prefill"] \
+                or not dec["rounds"]["decode"]:
+            raise AssertionError(f"[pd] rounds not role-pure: prefill {pre['rounds']}, "
+                                 f"decode {dec['rounds']}")
+        pipe = dec["pipeline"]
+        if (pipe["decode_graph_replays"] if pipe["decode_graphs"]
+                else pipe["decode_eager_chunks"]) <= 0 or dec["preemptions"]:
+            raise AssertionError(f"[pd] decode engine: {dec['pipeline']}, preemptions "
+                                 f"{dec['preemptions']}")
+        oracle(label, pool.replicas[1], recs, requests)
+        same = sum(a["toks"] == b["toks"] for a, b in zip(recs, unified))
+        hand = dec["pd"]["handoff_ms"]
+        log(f"serving [{label}]: built in {build_s:.1f} s; {st['pd']['handoffs']} handoffs, "
+            f"rounds prefill engine {pre['rounds']}, decode engine {dec['rounds']}, "
+            f"{dec['pipeline']['decode_graph_replays']} decode graph replays, launches "
+            f"{launches}, pages conserved on both")
+        log(f"info [{smi}] serving [{label}]: {format_latency(STORM_NUMBERS[label])}; "
+            f"unified mixed storm: {format_latency(STORM_NUMBERS['mixed'])}; handoff ms "
+            f"p50={hand['p50']:.3f} max={hand['max']:.3f} over {hand['count']}; streams "
+            f"identical to the unified engine's: {same} of {len(requests)}; tree "
+            f"{gib(quantized_bytes(params))} shared by both engines, peak allocated "
+            f"{gib(torch.cuda.max_memory_allocated())}")
+    finally:
+        pool.close()
+    del pool
+    free_card()
+
+
+def serving_phases(card: str, smi: str) -> dict[str, int]:
     """The serving runs on one set of weights. Returns the kernels'
     main-path launch counts: the paged kernels from the mixed run, flash
     from the phase-separated run."""
     engine, ecfg = build_engine("mixed", QUICKSTART)
     requests = storm_requests(engine, ecfg)
-    mixed, stats, _ = serving_phase(card, "mixed", engine, ecfg, requests,
+    mixed, stats, unified = serving_phase(card, "mixed", engine, ecfg, requests,
                                     launched=("ragged_paged_attention", "paged_decode_attention"),
                                     never=("flash_self_attention",), sync_free=True)
     if stats["pipeline"]["lookahead_rounds"] <= 0:
@@ -1833,8 +2386,12 @@ def serving_phases(card: str) -> dict[str, int]:
     preempt_phase(card, params)
     tenants_phase(card, params)
     SPEC_LAUNCHES.update(spec_phase(card, params))
+    quant_phase(card, smi, params)
+    dp_phase(card, smi, params)
+    pd_phase(card, smi, params, requests, unified)
     del params
-    torch.cuda.empty_cache()
+    free_card()
+    mixtral_phase(card, smi)
     tiny_quickstart_run(card)
     return {"ragged_paged_attention": mixed["ragged_paged_attention"],
             "paged_decode_attention": mixed["paged_decode_attention"],
@@ -2522,7 +3079,7 @@ def main() -> int:
     log("info kernels at the other head dims, main-path shapes: " + json.dumps(by_dim))
     torch.cuda.empty_cache()
 
-    launches = serving_phases(card)
+    launches = serving_phases(card, smi)
     # the slice's main path: the paged kernels' launches from the HTTP storm
     # (flash is not on it; its count stays the phase-separated run's)
     http_launches = http_phase(smi)  # its numbers carry the card's name and power limit
@@ -2531,6 +3088,7 @@ def main() -> int:
         launches[name] = http_launches[name] + SPEC_LAUNCHES[name]
     boot_phase()
     f32_launches = golden_phase(card)
+    golden_quant_phase(card, smi)
     log(f"info [{card}] kernels f32 entry points, main-path shapes (bound: bytes at "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, operations at the f32 CUDA-core peak "
         f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s; library: SDPA in f32; launches: the golden "

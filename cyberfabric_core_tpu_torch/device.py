@@ -8,7 +8,8 @@ raises when no GPU is present and the CPU was not asked for.
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import ContextManager, Union
 
 import torch
 
@@ -41,3 +42,25 @@ def to_device(host, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one: ``cuda`` (no index) is the current
+    card."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (current if b.index is None
+                                                         else b.index)
+
+
+def on_card(device: torch.device) -> ContextManager:
+    """A block whose work lands on ``device`` (``cuda:i``): the thread's
+    current card is ``i`` inside it and what it was before after it. A
+    builder thread that builds engines on several cards in turn is left on
+    its own card, never on the last one built. Anything else: no change."""
+    if device.type == "cuda" and device.index is not None:
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

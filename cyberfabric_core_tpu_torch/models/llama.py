@@ -19,8 +19,21 @@ an f32 result too (:func:`_mm_f32`) and rounds where JAX rounds.
 
 Mixture-of-experts configs run the routed MLP (:func:`_moe_mlp`, with
 :func:`_moe_mlp_dense` as its oracle); it reads no device value on the host,
-so it runs inside the paged decode chunk's CUDA graph. Quantized leaves are
-not in this slice: they raise ``NotImplementedError``.
+so it runs inside the paged decode chunk's CUDA graph.
+
+Quantized leaves (:mod:`..runtime.quant`: a :class:`QuantWeight` per matmul
+leaf and head, a :class:`QuantEmbed` embedding) go through the same
+products: the int values are converted to the activation dtype (exact for
+|q| ≤ 127 in bf16), the product is taken in f32 (:func:`_linear_f32`),
+multiplied by the per-channel scale in f32 and only then rounded, as JAX's
+``_wmat`` / ``_scaled`` do. So a quantized product is an f32-result product
+wherever the bf16 one rounds once (q/k/v, ``wo``, ``down``), and the f32
+points keep their meaning. On CUDA a product makes a transient copy of the
+weight in the activation dtype (``torch.mm(..., out_dtype=f32)`` takes bf16
+operands), and the MoE expert products widen all E experts to f32 (one
+transient per projection); in the decode chunk these live in the graph's
+pool. The routed MoE scales each expert's product by that expert's scales
+(``s[:, None, :]``).
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from ..ops.flash_attention import flash_self_attention
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import paged_decode_attention, ragged_paged_attention
 from ..ops.rope import apply_rope
+from ..runtime.quant import QuantEmbed, QuantWeight, quantize_leaf
 from .configs import ModelConfig
 
 KVCache = tuple[torch.Tensor, torch.Tensor]    # (k, v): [L, B, S, Hkv, D]
@@ -72,12 +86,20 @@ class LlamaLayer(nn.Module):
     def __init__(self, leaves: dict[str, torch.Tensor]) -> None:
         super().__init__()
         for name, t in leaves.items():
-            setattr(self, name, nn.Parameter(t, requires_grad=False))
+            setattr(self, name, _leaf(t))
+
+
+def _leaf(t):
+    """A tensor becomes a frozen parameter; a quantized leaf stays the
+    module it is."""
+    return t if isinstance(t, (QuantWeight, QuantEmbed)) else nn.Parameter(
+        t, requires_grad=False)
 
 
 class LlamaModel(nn.Module):
     """The parameter tree: ``embed [V, H]``, ``final_norm [H]``, ``layers``
-    and, for untied configs, ``lm_head [H, V]``."""
+    and, for untied configs, ``lm_head [H, V]``; quantized trees hold a
+    :class:`QuantEmbed` and :class:`QuantWeight` leaves in their place."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
                  final_norm: torch.Tensor, layers: list[dict[str, torch.Tensor]],
@@ -85,7 +107,7 @@ class LlamaModel(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.embed = _leaf(embed)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.layers = nn.ModuleList(LlamaLayer(lv) for lv in layers)
         if cfg.tie_embeddings:
@@ -93,7 +115,7 @@ class LlamaModel(nn.Module):
         else:
             if lm_head is None:
                 raise ValueError(f"{cfg.name} has an untied head: lm_head is required")
-            self.lm_head = nn.Parameter(lm_head, requires_grad=False)
+            self.lm_head = _leaf(lm_head)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -105,30 +127,32 @@ class LlamaModel(nn.Module):
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
-                device: DeviceLike = None) -> LlamaModel:
+                device: DeviceLike = None, quant_bits: Optional[int] = None) -> LlamaModel:
     """Random weights at the JAX package's scales (normal · 1/sqrt(fan-in),
     norms at one), drawn by a seeded generator directly on ``device`` in
-    ``dtype`` — an 8B model never passes through host memory."""
+    ``dtype`` — an 8B model never passes through host memory. With
+    ``quant_bits`` (8 or 4) each leaf is quantized as soon as it is drawn
+    (:func:`..runtime.quant.quantize_leaf`), from the same draws."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
-    def w(*shape: int) -> torch.Tensor:
+    def w(name: str, *shape: int):
         scale = 1.0 / (shape[-2] if len(shape) > 1 else shape[-1]) ** 0.5
-        t = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
-        return t.mul_(scale)
+        t = torch.randn(shape, generator=gen, device=dev, dtype=dtype).mul_(scale)
+        return t if quant_bits is None else quantize_leaf(name, t, quant_bits)
 
     layers = []
     for _ in range(cfg.num_layers):
         leaves = {}
         for name, shape in _leaf_shapes(cfg).items():
             leaves[name] = (torch.ones(shape, dtype=dtype, device=dev)
-                            if name.endswith("norm") else w(*shape))
+                            if name.endswith("norm") else w(name, *shape))
         layers.append(leaves)
     H, V = cfg.hidden_size, cfg.vocab_size
-    embed = w(V, H)
-    lm_head = None if cfg.tie_embeddings else w(H, V)
+    embed = w("embed", V, H)
+    lm_head = None if cfg.tie_embeddings else w("lm_head", H, V)
     return LlamaModel(cfg, embed, torch.ones(H, dtype=dtype, device=dev),
                       layers, lm_head)
 
@@ -148,7 +172,11 @@ def _embed_scale(h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return h
 
 
-def embed_lookup(embed: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def embed_lookup(embed, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Rows of the table; int8 rows are rescaled in f32 and rounded to
+    ``dtype`` (the tree's activation dtype)."""
+    if isinstance(embed, QuantEmbed):
+        return embed.lookup(ids, dtype)
     return embed[ids.long()]
 
 
@@ -170,6 +198,22 @@ def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
+def _linear_f32(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` as an unrounded f32 result; a quantized ``w`` is converted
+    to x's dtype inside the product and the product scaled in f32 (JAX's
+    ``_scaled(einsum(x, _wmat(w)), s)``)."""
+    if isinstance(w, QuantWeight):
+        return _mm_f32(x, w.values().to(x.dtype)) * w.s
+    return _mm_f32(x, w)
+
+
+def _linear(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` rounded once to x's dtype."""
+    if isinstance(w, QuantWeight):
+        return _linear_f32(x, w).to(x.dtype)
+    return x @ w
+
+
 def _qkv_proj(lp: LlamaLayer, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, cos_t: torch.Tensor, sin_t: torch.Tensor):
     """Shared q/k/v projection + reshape + rope for one layer (any T). The
@@ -177,27 +221,39 @@ def _qkv_proj(lp: LlamaLayer, x: torch.Tensor, cfg: ModelConfig,
     B, T = x.shape[0], x.shape[1]
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if cfg.attention_bias:
-        q, k, v = ((_mm_f32(x, w) + b).to(x.dtype)
+        q, k, v = ((_linear_f32(x, w) + b).to(x.dtype)
                    for w, b in ((lp.wq, lp.bq), (lp.wk, lp.bk), (lp.wv, lp.bv)))
     else:
-        q, k, v = x @ lp.wq, x @ lp.wk, x @ lp.wv
+        q, k, v = _linear(x, lp.wq), _linear(x, lp.wk), _linear(x, lp.wv)
     q = apply_rope(q.reshape(B, T, Hq, D), positions, cos_t, sin_t)
     k = apply_rope(k.reshape(B, T, Hkv, D), positions, cos_t, sin_t)
     return q, k, v.reshape(B, T, Hkv, D)
 
 
 def _attn_out(lp: LlamaLayer, h: torch.Tensor, attn_flat: torch.Tensor) -> torch.Tensor:
-    return h + (attn_flat @ lp.wo).to(h.dtype)
+    return h + _linear(attn_flat, lp.wo).to(h.dtype)
 
 
-def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _bmm_f32(a: torch.Tensor, b) -> torch.Tensor:
     """Batched ``a [E, M, K] @ b [E, K, N]`` as an f32 result nothing has
     rounded (JAX's batched einsum with ``preferred_element_type=f32``): the
     operands are widened first (a product of two bf16 values is exact in
-    f32), a transient f32 copy of the expert weights at bf16."""
+    f32, and so is an int8 value), a transient f32 copy of all E experts'
+    weights, bf16 or int. A quantized ``b`` is widened from its int values
+    and the product scaled per expert and output channel."""
+    if isinstance(b, QuantWeight):
+        return torch.bmm(a.float(), b.values().float()) * b.s[:, None, :]
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.bmm(a, b)
     return torch.bmm(a.float(), b.float())
+
+
+def _experts_f32(w) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """An expert stack widened to f32, and its scales [E, out] (None when
+    unquantized)."""
+    if isinstance(w, QuantWeight):
+        return w.values().float(), w.s
+    return w.float(), None
 
 
 def _moe_mlp_dense(x: torch.Tensor, lp: LlamaLayer, cfg: ModelConfig) -> torch.Tensor:
@@ -211,25 +267,53 @@ def _moe_mlp_dense(x: torch.Tensor, lp: LlamaLayer, cfg: ModelConfig) -> torch.T
                          torch.full_like(router_logits, -1e30))
     weights = torch.softmax(masked, dim=-1)                    # zeros off the top k
     xf = x.float()
-    gate = torch.einsum("bth,ehi->btei", xf, lp.moe_gate.float())
-    up = torch.einsum("bth,ehi->btei", xf, lp.moe_up.float())
+
+    def expert_product(spec: str, a: torch.Tensor, w) -> torch.Tensor:
+        m, s = _experts_f32(w)
+        y = torch.einsum(spec, a, m)
+        return y if s is None else y * s  # [..., E, out] * [E, out]
+
+    gate = expert_product("bth,ehi->btei", xf, lp.moe_gate)
+    up = expert_product("bth,ehi->btei", xf, lp.moe_up)
     act = (_act(gate, cfg) * up).to(x.dtype)
-    expert_out = torch.einsum("btei,eih->bteh", act.float(), lp.moe_down.float())
+    expert_out = expert_product("btei,eih->bteh", act.float(), lp.moe_down)
     return torch.einsum("bteh,bte->bth", expert_out, weights)
 
 
-def _moe_mlp(x: torch.Tensor, lp: LlamaLayer, cfg: ModelConfig) -> torch.Tensor:
+def moe_capacity(cfg: ModelConfig, N: int, n: int) -> int:
+    """Slots of each expert's bucket in a routed MoE call over N rows of
+    which n are real tokens: JAX's capacity for the N rows,
+    max(ceil(N·k/E)·``moe_capacity_factor``, min(N, 256), 1), capped at n.
+    A token picks k distinct experts, so no bucket receives more than n
+    real assignments: the cap drops nothing that JAX's buckets keep, and
+    the buffer is no larger than the real tokens can fill."""
+    E, K = cfg.num_experts, cfg.experts_per_token
+    jax_capacity = max(int(-(-N * K // E) * cfg.moe_capacity_factor), min(N, 256), 1)
+    return min(jax_capacity, max(1, int(n)))
+
+
+def _moe_mlp(x: torch.Tensor, lp: LlamaLayer, cfg: ModelConfig,
+             valid: Optional[torch.Tensor] = None, n_tokens: Optional[int] = None
+             ) -> torch.Tensor:
     """The routed MoE MLP (the JAX ``_moe_mlp``): each token's top-k
     experts by router logit, gates softmaxed over those k; the N·k
     assignments sorted by expert (stable) land in an ``[E, C, H]`` dispatch
-    buffer of capacity C = max(ceil(N·k/E)·``moe_capacity_factor``,
-    min(N, 256), 1); overflow assignments lose that expert's contribution
-    (they land in a sacrificial row E). One batched product per projection
-    runs every expert's bucket, and a weighted scatter-add combines them.
-    Every shape is static and nothing is read on the host (the bucket
-    counts are a ``scatter_add_`` into a zero ``[E]`` count; no
-    ``bincount``, ``nonzero`` or boolean-mask indexing), so it runs inside a
-    CUDA graph. Returns f32 [B, T, H]."""
+    buffer of capacity C = :func:`moe_capacity` (JAX's for the N rows,
+    capped at the real count); overflow assignments lose that expert's
+    contribution (they land in a sacrificial row E). One
+    batched product per projection runs every expert's bucket, and a
+    weighted scatter-add combines them. Every shape is static and nothing is
+    read on the host (the bucket counts are a ``scatter_add_`` into a zero
+    count; no ``bincount``, ``nonzero`` or boolean-mask indexing), so it
+    runs inside a CUDA graph. Returns f32 [B, T, H].
+
+    ``valid`` [B, T] (a padded batch's real tokens): the other positions'
+    assignments sort past every expert and take no capacity, and their rows
+    get no MLP output. JAX routes a mixed round's padding like real tokens:
+    identical padding rows all pick the same k experts and, at mixtral's 8
+    experts, fill those buckets before later rows' real tokens, which are
+    then dropped. ``n_tokens`` (the real token count, known on the host)
+    caps the buckets at what the real tokens can fill."""
     E, K = cfg.num_experts, cfg.experts_per_token
     B, T, H = x.shape
     N = B * T
@@ -240,15 +324,18 @@ def _moe_mlp(x: torch.Tensor, lp: LlamaLayer, cfg: ModelConfig) -> torch.Tensor:
     weights = torch.softmax(top_vals, dim=-1)                 # [N, K]
     NK = N * K
     expert_of = top_idx.reshape(NK)
+    if valid is not None:
+        real = valid.reshape(N, 1).expand(N, K).reshape(NK)
+        expert_of = torch.where(real, expert_of, torch.full_like(expert_of, E))
     token_of = torch.arange(NK, device=dev) // K  # repeat_interleave would read its size back
     order = torch.argsort(expert_of, stable=True)
     se, st, sg = expert_of[order], token_of[order], weights.reshape(NK)[order]
-    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+    counts = torch.zeros(E + 1, dtype=torch.long, device=dev).scatter_add_(
         0, se, torch.ones_like(se))
     offsets = torch.cumsum(counts, 0) - counts
     pos = torch.arange(NK, device=dev) - offsets[se]          # slot in its bucket
-    capacity = max(int(-(-NK // E) * cfg.moe_capacity_factor), min(N, 256), 1)
-    keep = pos < capacity
+    capacity = moe_capacity(cfg, N, N if n_tokens is None else n_tokens)
+    keep = (pos < capacity) & (se < E)
     safe_e = torch.where(keep, se, torch.full_like(se, E))
     safe_p = torch.where(keep, pos, torch.zeros_like(pos))
     dispatch = torch.zeros((E + 1, capacity, H), dtype=x.dtype, device=dev)
@@ -264,14 +351,17 @@ def _moe_mlp(x: torch.Tensor, lp: LlamaLayer, cfg: ModelConfig) -> torch.Tensor:
     return out.reshape(B, T, H)
 
 
-def _mlp_residual(lp: LlamaLayer, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mlp_residual(lp: LlamaLayer, h: torch.Tensor, cfg: ModelConfig,
+                  valid: Optional[torch.Tensor] = None,
+                  n_tokens: Optional[int] = None) -> torch.Tensor:
     """Post-attention norm + (routed MoE or dense gated) MLP + residual;
-    gate and up stay f32 until ``act(gate) * up`` is rounded."""
+    gate and up stay f32 until ``act(gate) * up`` is rounded. ``valid`` and
+    ``n_tokens`` reach the routed MoE (see :func:`_moe_mlp`)."""
     x = rms_norm(h, lp.mlp_norm, cfg.rms_norm_eps, cfg.norm_weight_offset)
     if cfg.num_experts > 0:
-        return h + _moe_mlp(x, lp, cfg).to(h.dtype)
-    act = (_act(_mm_f32(x, lp.gate), cfg) * _mm_f32(x, lp.up)).to(h.dtype)
-    return h + (act @ lp.down).to(h.dtype)
+        return h + _moe_mlp(x, lp, cfg, valid, n_tokens).to(h.dtype)
+    act = (_act(_linear_f32(x, lp.gate), cfg) * _linear_f32(x, lp.up)).to(h.dtype)
+    return h + _linear(act, lp.down).to(h.dtype)
 
 
 def _input_norm(lp: LlamaLayer, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -292,19 +382,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
 
 def forward(params: LlamaModel, cfg: ModelConfig, input_ids: torch.Tensor,
             positions: torch.Tensor, cache: KVCache, cache_start: torch.Tensor,
-            rope_tables: tuple[torch.Tensor, torch.Tensor], use_flash: bool = False
-            ) -> tuple[torch.Tensor, KVCache]:
+            rope_tables: tuple[torch.Tensor, torch.Tensor], use_flash: bool = False,
+            valid: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, KVCache]:
     """Dense forward (prefill T>1 or decode T=1) over a dense cache, written
     in place at ``cache_start``. Returns (hidden [B, T, H], cache).
 
     ``use_flash`` attends with :func:`ops.flash_attention.flash_self_attention`
     over this step's own k/v with ``cache_start + T`` as the lengths, as the
     JAX forward does: ONLY valid for a fresh cache (cache_start all zero),
-    since the kernel sees the new tokens, not the cache history."""
+    since the kernel sees the new tokens, not the cache history. ``valid``
+    [B, T]: a padded batch's real tokens, for the routed MoE."""
     cos_t, sin_t = rope_tables
     B, T = input_ids.shape
     Hq, D = cfg.num_heads, cfg.head_dim
-    h = _embed_scale(embed_lookup(params.embed, input_ids), cfg)
+    h = _embed_scale(embed_lookup(params.embed, input_ids, params.dtype), cfg)
     kv_len_after = cache_start + T
     flash_lens = kv_len_after.to(torch.int32).contiguous() if use_flash else None
     b_idx = torch.arange(B, device=h.device)[:, None]
@@ -322,7 +413,7 @@ def forward(params: LlamaModel, cfg: ModelConfig, input_ids: torch.Tensor,
             attn = attention_with_cache(q, k_cache[layer], v_cache[layer], positions,
                                         kv_len_after, sliding_window=cfg.sliding_window)
         h = _attn_out(lp, h, attn.reshape(B, T, Hq * D))
-        h = _mlp_residual(lp, h, cfg)
+        h = _mlp_residual(lp, h, cfg, valid)
     return _final_norm(params, h, cfg), (k_cache, v_cache)
 
 
@@ -337,9 +428,10 @@ def prefill_collect(params: LlamaModel, cfg: ModelConfig, input_ids: torch.Tenso
     dev = input_ids.device
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None, :].expand(B, T)
     cache = init_cache(cfg, B, T, params.dtype, device=dev)
+    valid = positions < lengths.to(positions.dtype)[:, None] if cfg.num_experts else None
     hidden, kv = forward(params, cfg, input_ids, positions, cache,
                          torch.zeros(B, dtype=torch.int32, device=dev), rope_tables,
-                         use_flash=use_flash)
+                         use_flash=use_flash, valid=valid)
     return gather_last_hidden(hidden, lengths), kv
 
 
@@ -384,7 +476,7 @@ def forward_paged_decode(
         pid = torch.where(write_mask, pid, torch.zeros_like(pid))
         off = torch.where(write_mask, off, torch.zeros_like(off))
     kv_len = (lengths + 1).contiguous()
-    h = _embed_scale(embed_lookup(params.embed, input_ids), cfg)
+    h = _embed_scale(embed_lookup(params.embed, input_ids, params.dtype), cfg)
     for layer, lp in enumerate(params.layers):
         x = _input_norm(lp, h, cfg)
         q, k, v = _qkv_proj(lp, x, cfg, positions, cos_t, sin_t)
@@ -410,9 +502,12 @@ def forward_paged_mixed(
     q_lens: torch.Tensor,       # [B] int32 span length (0 = idle row)
     rope_tables: tuple[torch.Tensor, torch.Tensor],
     write_mask: Optional[torch.Tensor] = None,  # [B] bool; False rows → scratch
+    moe_tokens: Optional[int] = None,  # the span tokens, counted on the host
 ) -> tuple[torch.Tensor, PagedPools]:
     """One ragged mixed-batch step: decode rows (q_len=1) and prefill-chunk
     rows (q_len=chunk) in one pass. Returns (hidden [B, Qmax, H], pools).
+    A MoE config routes only the span tokens, its buckets sized by
+    ``moe_tokens`` (see :func:`_moe_mlp`).
 
     Row b's span lands at positions hist[b] .. hist[b]+q_len-1 of its chain
     (in place, before attending, so the span reads its own earlier tokens);
@@ -433,7 +528,7 @@ def forward_paged_mixed(
     pid = torch.gather(page_table, 1, (positions // page).long()).long()
     pid = torch.where(valid, pid, torch.zeros_like(pid))
     off = torch.where(valid, positions % page, torch.zeros_like(positions)).long()
-    h = _embed_scale(embed_lookup(params.embed, input_ids), cfg)
+    h = _embed_scale(embed_lookup(params.embed, input_ids, params.dtype), cfg)
     for layer, lp in enumerate(params.layers):
         x = _input_norm(lp, h, cfg)
         q, k, v = _qkv_proj(lp, x, cfg, positions, cos_t, sin_t)
@@ -443,7 +538,7 @@ def forward_paged_mixed(
                                       page_table, hist, q_lens,
                                       sliding_window=cfg.sliding_window)
         h = _attn_out(lp, h, attn.reshape(B, Qmax, Hq * D))
-        h = _mlp_residual(lp, h, cfg)
+        h = _mlp_residual(lp, h, cfg, valid, moe_tokens)
     return _final_norm(params, h, cfg), pools
 
 
@@ -457,9 +552,17 @@ def _softcap(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def lm_head_logits(params: LlamaModel, cfg: ModelConfig,
                    hidden: torch.Tensor) -> torch.Tensor:
     """hidden [B, H] (or [B, T, H]) → logits in f32 (tied or untied head,
-    gemma-2 softcap)."""
-    head = params.embed.t() if cfg.tie_embeddings else params.lm_head
-    return _softcap(_mm_f32(hidden, head), cfg)
+    gemma-2 softcap). A tied int8 head multiplies the rows' int values and
+    then each vocab column by its row scale."""
+    if cfg.tie_embeddings:
+        embed = params.embed
+        if isinstance(embed, QuantEmbed):
+            logits = _mm_f32(hidden, embed.qe.to(hidden.dtype).t()) * embed.se
+        else:
+            logits = _mm_f32(hidden, embed.t())
+    else:
+        logits = _linear_f32(hidden, params.lm_head)
+    return _softcap(logits, cfg)
 
 
 def gather_last_hidden(hidden: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,18 @@ built on first use off the event loop from the registry entry's
 (:func:`plan_engine`), and wrapped in an
 :class:`..runtime.lifecycle.EngineSupervisor` that rebuilds it in place if
 it breaks. The engine runs on the worker config's ``device`` (default the
-CUDA card; ``"cpu"`` runs the kernels' plain versions).
+CUDA card; ``"cpu"`` runs the kernels' plain versions). ``quantization``
+("int8" / "int4") quantizes the checkpoint as it loads, or the random
+weights as they are drawn. ``dp_replicas`` > 1 serves the model through a
+:class:`..runtime.replicas.DataParallelServingPool`, and
+``pd_prefill_replicas`` with ``pd_decode_replicas`` through a
+:class:`..runtime.pd.PDServingPool`, each supervised by a
+``ReplicaLifecycleManager`` unless ``lifecycle`` is off; the replicas take
+one visible CUDA card each (so a one-card host refuses two, as a one-chip
+TPU host does), or all sit on the worker's ``device`` when it is ``"cpu"``
+or names one card. :meth:`LocalTorchWorker.replicas_view` and
+:meth:`LocalTorchWorker.replica_control` are the replica census and its
+drain / undrain / restart.
 
 Engine → event loop: the engine calls ``emit`` on its scheduler thread; the
 worker hands each event over with ``loop.call_soon_threadsafe`` and does
@@ -18,10 +29,11 @@ when its consumer lets go before the engine ended the request (a client
 disconnect, a gateway timeout), cancels the request in the engine with
 ``reason="client_disconnect"``.
 
-Options the JAX worker maps to paths the port does not have (replica and
-PD pools, tensor parallelism, quantization, the lockstep scheduler and its
-draft speculation) raise a ``not_ported`` problem naming their ROADMAP
-item; none is ignored. The continuous scheduler's speculative rounds
+Options the JAX worker maps to paths the port does not have (tensor
+parallelism, the lockstep scheduler and its draft speculation) raise a
+``not_ported`` problem naming their ROADMAP item; none is ignored. The
+combinations the JAX worker refuses (a one-sided PD split, PD with dp or
+tp, dp with tp) raise its ``ValueError``s. The continuous scheduler's speculative rounds
 (``scheduler_spec_k``, ``spec_min_accept``, ``spec_max_ngram``,
 ``spec_min_ngram``) are served.
 
@@ -55,7 +67,11 @@ from ...models import bert
 from ...models.configs import ModelConfig, get_config
 from ...runtime.engine import (EngineConfig, SamplingParams, SchedulerSaturated,
                                StepEvent, TenantQuotaExceeded, TenantSaturated)
-from ...runtime.lifecycle import EngineSupervisor, LifecycleConfig, ReplicaUnavailable
+from ...runtime.lifecycle import (EngineSupervisor, LifecycleConfig, LifecycleStateError,
+                                  ReplicaUnavailable)
+from ...runtime.pd import PDServingPool
+from ...runtime.quant import quant_bits
+from ...runtime.replicas import DataParallelServingPool
 from ...runtime.scheduler import ContinuousBatchingEngine
 from ...runtime.tokenizer import (CHAT_FAMILIES, ByteTokenizer, Tokenizer,
                                   chat_family_for, load_tokenizer, render_chat)
@@ -111,6 +127,11 @@ class EnginePlan:
     lifecycle: LifecycleConfig
     #: the checkpoint directory, when the entry names one that exists
     checkpoint: Optional[Path]
+    #: replicas of a data-parallel pool (1: one engine)
+    dp_replicas: int = 1
+    #: replicas of each role of a PD pool (0: no split)
+    pd_prefill: int = 0
+    pd_decode: int = 0
 
 
 def plan_engine(model: ModelInfo, scheduler: str = "continuous") -> EnginePlan:
@@ -168,17 +189,33 @@ def plan_engine(model: ModelInfo, scheduler: str = "continuous") -> EnginePlan:
     lifecycle = LifecycleConfig.from_config(opts.pop("lifecycle", True))
     pd_prefill = int(opts.pop("pd_prefill_replicas", 0))
     pd_decode = int(opts.pop("pd_decode_replicas", 0))
+    # the combinations the JAX worker refuses, with its errors
+    if (pd_prefill > 0) != (pd_decode > 0):
+        raise ValueError(
+            f"engine_options for {model.canonical_id}: pd_prefill_replicas={pd_prefill} "
+            f"and pd_decode_replicas={pd_decode} must be set together (each PD role "
+            "needs at least one replica)")
+    if pd_prefill > 0 and dp_replicas > 1:
+        raise ValueError(
+            f"engine_options for {model.canonical_id}: the PD split cannot combine with "
+            f"dp_replicas={dp_replicas} (the PD pool IS the replica pool; size it with "
+            "the pd_*_replicas knobs)")
+    if pd_prefill > 0 and cfg.tp > 1:
+        raise ValueError(
+            f"engine_options for {model.canonical_id}: the PD split cannot combine with "
+            f"tp={cfg.tp} (PD replicas pin one device each; tp'd PD groups are a future "
+            "rung)")
+    if dp_replicas > 1 and cfg.tp > 1:
+        raise ValueError(
+            f"engine_options for {model.canonical_id}: dp_replicas={dp_replicas} cannot "
+            f"combine with tp={cfg.tp} (a dp pool pins one device per replica; "
+            "tensor-parallel pools are a future rung)")
+    quant_bits(cfg.quantization)  # an unknown word raises here
     unported = [
         (scheduler != "continuous", f"scheduler: {scheduler}", "7 (lockstep engine)"),
-        (dp_replicas > 1, f"dp_replicas={dp_replicas}", "5 (replica pools)"),
-        (pd_prefill > 0 or pd_decode > 0,
-         f"pd_prefill_replicas={pd_prefill}, pd_decode_replicas={pd_decode}",
-         "5 (prefill/decode disaggregation)"),
         (cfg.tp > 1, f"tp={cfg.tp}", "9 (multi-GPU)"),
         (cfg.hbm_bytes_per_device > 0,
          f"hbm_bytes_per_device={cfg.hbm_bytes_per_device}", "9 (feasibility gate)"),
-        (cfg.quantization != "none", f"quantization={cfg.quantization!r}",
-         "6 (quantization)"),
         (cfg.speculative != "off", f"speculative={cfg.speculative!r}",
          "7 (lockstep engine and draft speculation)"),
     ]
@@ -196,7 +233,8 @@ def plan_engine(model: ModelInfo, scheduler: str = "continuous") -> EnginePlan:
         # synthetic weights: the byte tokenizer's end of sequence
         cfg = EngineConfig(**{**cfg.__dict__, "eos_token_ids": (
             ByteTokenizer(get_config(arch_config).vocab_size).eos_id,)})
-    return EnginePlan(cfg, chat_family, lifecycle, ckpt)
+    return EnginePlan(cfg, chat_family, lifecycle, ckpt, dp_replicas=dp_replicas,
+                      pd_prefill=pd_prefill, pd_decode=pd_decode)
 
 
 class IncrementalDetokenizer:
@@ -241,7 +279,8 @@ class _EmbedEntry:
 class _EngineEntry:
     config: EngineConfig
     tokenizer: Tokenizer
-    scheduler: ContinuousBatchingEngine
+    #: one engine, or None when a replica pool serves the model
+    scheduler: Optional[ContinuousBatchingEngine]
     supervisor: Optional[EngineSupervisor] = None
     model_family: str = "llama"
     last_used: float = 0.0
@@ -249,10 +288,20 @@ class _EngineEntry:
     #: worker streams open on this engine, from the entry lookup on (a
     #: request is counted before it reaches the engine's queue)
     streams: int = 0
+    #: dp_replicas > 1 or a PD split: the pool is the request router
+    pool: Optional[DataParallelServingPool] = None
+
+    @property
+    def target(self) -> Any:
+        """What requests are submitted to and cancelled at."""
+        return self.pool if self.pool is not None else self.scheduler
 
     @property
     def idle(self) -> bool:
-        return self.streams == 0 and self.scheduler.in_flight() == 0
+        return self.streams == 0 and self.target.in_flight() == 0
+
+    def close(self, timeout: float = 5.0) -> None:
+        self.target.close(timeout=timeout)
 
 
 class LocalTorchWorker(LlmWorkerApi):
@@ -279,10 +328,10 @@ class LocalTorchWorker(LlmWorkerApi):
         self._live: set[str] = set()
 
     # ------------------------------------------------------------------ engines
-    def engine(self, canonical_id: str) -> Optional[ContinuousBatchingEngine]:
-        """The model's engine, once built."""
+    def engine(self, canonical_id: str) -> Any:
+        """The model's engine (or its replica pool), once built."""
         entry = self._entries.get(canonical_id)
-        return entry.scheduler if entry is not None else None
+        return entry.target if entry is not None else None
 
     async def _entry_for(self, model: ModelInfo) -> _EngineEntry:
         key = model.canonical_id
@@ -354,7 +403,7 @@ class LocalTorchWorker(LlmWorkerApi):
             victim_key, victim = min(idle, key=lambda kv: kv[1].last_used)
             logger.info("hot-swap: evicting engine %s (idle %.1fs)", victim_key,
                         time.monotonic() - victim.last_used)
-            victim.scheduler.close(timeout=5.0)
+            victim.close(timeout=5.0)
             del self._entries[victim_key]
             del victim
             gc.collect()
@@ -371,11 +420,32 @@ class LocalTorchWorker(LlmWorkerApi):
         if plan.checkpoint is not None:
             from ...runtime.weights import load_llama_params
 
+            bits = quant_bits(cfg.quantization)
             params = load_llama_params(plan.checkpoint, get_config(cfg.model),
-                                       dtype=getattr(torch, cfg.dtype), device=self._device)
+                                       dtype=getattr(torch, cfg.dtype), device=self._device,
+                                       quantize=bits is not None, quant_bits=bits or 8)
             tokenizer = load_tokenizer(plan.checkpoint)
         else:
             tokenizer = ByteTokenizer(get_config(cfg.model).vocab_size)
+        lifecycle = plan.lifecycle if plan.lifecycle.enabled else None
+        if plan.pd_prefill > 0 or plan.dp_replicas > 1:
+            n = plan.pd_prefill + plan.pd_decode if plan.pd_prefill > 0 else plan.dp_replicas
+            devices = self._pool_devices(n)
+            if plan.pd_prefill > 0:
+                pool: DataParallelServingPool = PDServingPool(
+                    cfg, n_prefill=plan.pd_prefill, n_decode=plan.pd_decode,
+                    devices=devices, params=params, lifecycle=lifecycle)
+            else:
+                pool = DataParallelServingPool(cfg, n_replicas=plan.dp_replicas,
+                                               devices=devices, params=params,
+                                               lifecycle=lifecycle)
+            logger.info("continuous pool ready for %s (%s, %s, slots=%d each, max_seq=%d)",
+                        model.canonical_id, cfg.model,
+                        f"{plan.pd_prefill} prefill + {plan.pd_decode} decode"
+                        if plan.pd_prefill else f"{plan.dp_replicas} replicas",
+                        cfg.max_batch, cfg.max_seq_len)
+            return _EngineEntry(config=cfg, tokenizer=tokenizer, scheduler=None, pool=pool,
+                                model_family=plan.chat_family)
         scheduler = ContinuousBatchingEngine(cfg, params=params, device=self._device)
         supervisor = None
         if plan.lifecycle.enabled:
@@ -389,6 +459,15 @@ class LocalTorchWorker(LlmWorkerApi):
                     cfg.max_seq_len)
         return _EngineEntry(config=cfg, tokenizer=tokenizer, scheduler=scheduler,
                             supervisor=supervisor, model_family=plan.chat_family)
+
+    def _pool_devices(self, n: int) -> Optional[list[Any]]:
+        """A pool's devices: the visible CUDA cards (None) for the default
+        device, else ``n`` times the worker's device (the CPU, or the one
+        card it names)."""
+        dev = resolve_device(self._device)
+        if dev.type == "cuda" and dev.index is None:
+            return None
+        return [dev] * n
 
     # ------------------------------------------------------------------ streams
     def chat_stream(self, model: ModelInfo, messages: list[dict],
@@ -445,9 +524,9 @@ class LocalTorchWorker(LlmWorkerApi):
                 deadline = None
         tenant = str(params.get("_tenant_id") or "default")
         try:
-            entry.scheduler.submit(list(prompt_ids), sampling, emit=emit,
-                                   request_id=request_id, trace=params.get("_traceparent"),
-                                   deadline=deadline, tenant=tenant)
+            entry.target.submit(list(prompt_ids), sampling, emit=emit,
+                                request_id=request_id, trace=params.get("_traceparent"),
+                                deadline=deadline, tenant=tenant)
         except TenantSaturated as e:
             raise ERR.llm.tenant_saturated.error(str(e), retry_after_s=e.retry_after_s,
                                                  tenant=e.tenant)
@@ -459,8 +538,9 @@ class LocalTorchWorker(LlmWorkerApi):
         except ValueError as e:
             raise ERR.llm.unsupported_param.error(str(e))
         except RuntimeError as e:
-            # a break or close racing the servable() probe: the supervisor
-            # rebuilds on the next request
+            # a break or close racing the servable() probe (the supervisor
+            # rebuilds on the next request), or a pool with no healthy
+            # replica while the lifecycle manager rebuilds
             raise ERR.llm.replica_unavailable.error(str(e), retry_after_s=1.0)
 
     async def _generate_from_ids(self, entry: _EngineEntry, model: ModelInfo,
@@ -486,14 +566,15 @@ class LocalTorchWorker(LlmWorkerApi):
         request_id = params.get("_request_id") or f"chat-{uuid.uuid4().hex[:20]}"
         if request_id in self._live:
             request_id = f"{request_id}-{uuid.uuid4().hex[:8]}"
-        if not entry.scheduler.servable() and entry.supervisor is not None:
+        if entry.pool is None and not entry.scheduler.servable() \
+                and entry.supervisor is not None:
             # rebuild in place off the event loop before admitting
             try:
                 entry.scheduler = await asyncio.get_running_loop().run_in_executor(
                     self._executor, entry.supervisor.ensure, entry.scheduler)
             except ReplicaUnavailable as e:
                 raise ERR.llm.replica_unavailable.error(str(e), retry_after_s=e.retry_after_s)
-        engine = entry.scheduler
+        engine = entry.target
         queue: asyncio.Queue = asyncio.Queue()
         self._submit(entry, prompt_ids, sampling, queue, request_id, params)
         self._live.add(request_id)
@@ -652,6 +733,87 @@ class LocalTorchWorker(LlmWorkerApi):
         self._embed_entries[key] = entry
         return entry
 
+    # -------------------------------------------------- replica control plane
+    def _replica_rows(self) -> list[tuple[dict[str, Any], _EngineEntry, int]]:
+        """(row, entry, replica index) over every entry: pool replicas
+        (controllable with a lifecycle manager) and single engines (listed
+        with their supervisor's state). The flat index is what
+        :meth:`replica_control` addresses."""
+        rows: list[tuple[dict[str, Any], _EngineEntry, int]] = []
+
+        def engine_row(eng: Any) -> dict[str, Any]:
+            try:
+                st = eng.stats()
+                return {k: st.get(k) for k in ("broken", "closed", "active", "pending",
+                                                "prefilling", "suspended", "device")}
+            except Exception:  # noqa: BLE001 — a dying engine
+                return {"broken": "stats() failed"}
+
+        for name, entry in sorted(dict(self._entries).items()):
+            if entry.pool is not None:
+                lc = entry.pool.lifecycle
+                roles = getattr(entry.pool, "_roles", None)
+                for i, eng in enumerate(list(entry.pool.replicas)):
+                    engine = engine_row(eng)
+                    sr = lc.status_row(i) if lc is not None else None
+                    rows.append(({
+                        "index": len(rows), "model": name, "replica": i, "pool": True,
+                        "controllable": lc is not None,
+                        "state": sr["state"] if sr is not None else (
+                            "broken" if engine.get("broken") else "healthy"),
+                        "role": roles[i] if roles is not None else None,
+                        "lifecycle": sr, "engine": engine,
+                    }, entry, i))
+            elif entry.scheduler is not None:
+                engine = engine_row(entry.scheduler)
+                sup = entry.supervisor
+                rows.append(({
+                    "index": len(rows), "model": name, "replica": 0, "pool": False,
+                    "controllable": False,
+                    "state": ("benched" if sup is not None and sup.benched
+                              else "drained" if engine.get("closed")
+                              else "broken" if engine.get("broken") else "healthy"),
+                    "role": None,
+                    "supervisor": sup.status() if sup is not None else None,
+                    "engine": engine,
+                }, entry, 0))
+        return rows
+
+    def replicas_view(self) -> list[dict[str, Any]]:
+        """One row a replica (pool replicas and single engines)."""
+        return [row for row, _, _ in self._replica_rows()]
+
+    def replica_control(self, index: int, action: str, deadline_s: Optional[float] = None,
+                        expect_model: Optional[str] = None) -> dict[str, Any]:
+        """drain / undrain / restart replica ``index`` of the flat view.
+        Raises KeyError (no such index), LifecycleStateError (illegal from
+        its state, not a supervised pool replica, or ``expect_model`` no
+        longer the row's model) and ValueError (an unknown action)."""
+        rows = self._replica_rows()
+        if not 0 <= index < len(rows):
+            raise KeyError(f"replica index {index} out of range ({len(rows)} replicas)")
+        row, entry, i = rows[index]
+        if expect_model is not None and expect_model != row["model"]:
+            raise LifecycleStateError(
+                f"replica index {index} now resolves to {row['model']!r}, not "
+                f"{expect_model!r}: the entry table changed since the listing")
+        lc = entry.pool.lifecycle if entry.pool is not None else None
+        if lc is None:
+            raise LifecycleStateError(
+                f"replica {index} ({row['model']}) is not a supervised pool replica; "
+                "drain/undrain/restart need dp_replicas > 1 or a PD split with "
+                "lifecycle enabled")
+        if action == "drain":
+            result = lc.drain(i, deadline_s=deadline_s)
+        elif action == "undrain":
+            result = lc.undrain(i)
+        elif action == "restart":
+            result = lc.restart(i)
+        else:
+            raise ValueError(f"unknown replica action {action!r}")
+        return {"index": index, "model": row["model"], "replica": i, "action": action,
+                "lifecycle": result}
+
     # ------------------------------------------------------------------ health
     async def health(self) -> dict[str, Any]:
         return {
@@ -660,7 +822,10 @@ class LocalTorchWorker(LlmWorkerApi):
             "loaded_models": sorted(self._entries) + sorted(self._embed_entries),
             "schedulers": {k: {key: v for key, v in e.scheduler.stats().items()
                                if key != "round_timings"}
-                           for k, e in self._entries.items()},
+                           for k, e in self._entries.items() if e.scheduler is not None},
+            "pools": {k: {key: v for key, v in e.pool.stats().items()
+                          if key != "per_replica"}
+                      for k, e in self._entries.items() if e.pool is not None},
             "requests_served": self._requests_served,
             "tokens_out": self._tokens_out,
             "uptime_s": round(time.monotonic() - self._started_at, 1),
@@ -670,7 +835,7 @@ class LocalTorchWorker(LlmWorkerApi):
         """Retire every engine (ending whatever is in flight) and the
         executor."""
         for entry in list(self._entries.values()):
-            entry.scheduler.close(timeout=5.0)
+            entry.close(timeout=5.0)
         self._entries.clear()
         self._embed_entries.clear()
         self._executor.shutdown(wait=False, cancel_futures=True)

@@ -106,6 +106,24 @@ The request's life around the rounds, as in JAX:
   Mid-prefill preemption keeps ``prefill_pos``. A request even an idle pool
   cannot hold ends with ``length``.
 
+Quantization (``quantization`` "int8" / "int4", :mod:`.quant`): with no
+params the engine draws its random weights quantized leaf by leaf on the
+device; an unquantized tree passed in is quantized, never served in bf16.
+Every path runs the quantized forward, and the decode chunk's CUDA graphs
+capture it (its dequantization transients live in the graph's pool).
+
+Prefill/decode disaggregation (``pd_role``, :mod:`.pd`): a ``"prefill"``
+engine (paged and mixed only) runs each request's chunked prefill, emits
+its first token and then exports the stream (:meth:`_export_handoff`): the
+chain's pages go to host (``PrefixKVPool.export_pages``: tree pages stay
+cached here, the rest free), the slot frees, and a :class:`_Suspended`
+record marked ``handoff`` goes to ``_handoff_sink`` (set by the pool). A
+``"decode"`` engine takes such records through :meth:`submit_handoff` into
+its suspended list, and the resume path imports the pages
+(``import_pages``, cast to this pool's dtype) and decodes on with no
+prefill, without counting a preemption. So a prefill engine runs only
+prefill and mixed-kind rounds and a decode engine only decode rounds.
+
 ``prefill_coalesce`` where no phase-separated paged prefill runs is
 accepted and ignored (it only changes speed). Options that change what is
 computed or which path runs and are not ported raise
@@ -127,7 +145,8 @@ from typing import Any, Callable, Mapping, Optional
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device, to_device
+from ..device import DeviceLike, on_card, resolve_device, same_device, to_device
+from ..modkit.failpoints import failpoint
 from ..models import llama
 from ..models.configs import ModelConfig, get_config
 from ..ops import flash_attention as fa
@@ -139,6 +158,7 @@ from .engine import (EngineConfig, SamplingParams, SchedulerSaturated, StepEvent
                      TenantQuotaExceeded, TenantSaturated, build_decode_chunk_fn)
 from .paged import PrefixKVPool
 from .programs import PagedDecodeChunk
+from .quant import is_quantized, quant_bits, quantize_llama_params
 from .speculative import NgramProposer, greedy_accept_counts
 from .weights import model_from_state_dict
 
@@ -153,16 +173,23 @@ _LAPSE_RECORD = 1024
 def _reject_unported(config: EngineConfig, cfg: ModelConfig) -> None:
     """Options that change what is computed or which path runs, and are not
     in this slice of the port."""
-    checks = [
-        (config.quantization != "none", f"quantization={config.quantization!r} "
-         "(weight quantization slice)"),
-        (config.tp > 1, "tp>1 (multi-GPU slice)"),
-        (bool(config.pd_role), f"pd_role={config.pd_role!r} (replica pools "
-         "and PD slice)"),
-    ]
-    for bad, what in checks:
-        if bad:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if config.tp > 1:
+        raise NotImplementedError("not ported yet: tp>1 (multi-GPU slice)")
+
+
+def _check_pd_role(config: EngineConfig) -> str:
+    """The PD role, validated before anything is allocated (JAX
+    ``scheduler.py:455-477``)."""
+    role = str(config.pd_role or "")
+    if role not in ("", "prefill", "decode"):
+        raise ValueError(f"pd_role must be '', 'prefill' or 'decode', got {config.pd_role!r}")
+    if role and config.prefix_cache_pages <= 0:
+        raise ValueError(f"pd_role={role!r} requires the paged pool "
+                         "(prefix_cache_pages > 0) — KV handoff moves pool pages")
+    if role == "prefill" and not config.mixed_batch:
+        raise ValueError("pd_role='prefill' requires mixed_batch=True (prefill-role "
+                         "engines run chunked prefill through the ragged dispatch)")
+    return role
 
 
 def _ignored_options(config: EngineConfig) -> list[str]:
@@ -273,6 +300,11 @@ class _Suspended:
     #: another tenant has pending work and this tenant is still over its cap
     soft_yielded: bool = False
     suspended_at: float = field(default_factory=time.monotonic)
+    #: a PD handoff from a prefill-role engine, not a local preemption: the
+    #: resume imports the pages and counts no preemption or recovery
+    handoff: bool = False
+    #: host ms the export took (the pages' copy to host, waited for)
+    export_ms: float = 0.0
 
 
 @dataclass
@@ -439,19 +471,35 @@ class ContinuousBatchingEngine:
         self.config = config
         self.model_config = get_config(config.model)
         _reject_unported(config, self.model_config)
+        self.pd_role = _check_pd_role(config)
+        #: set by the PD pool on prefill-role engines: called on the scheduler
+        #: thread with each stream's handoff record after its first token
+        self._handoff_sink: Optional[Callable[[_Suspended], None]] = None
+        # the build (allocations, graph capture) lands on this card, and the
+        # building thread's current card is what it was after it: a pool built
+        # over several cards from one thread must not leave it on the last
+        with on_card(self.device):
+            self._build(config, params, seed, _eager_decode)
+
+    def _build(self, config: EngineConfig, params: Any, seed: int,
+               _eager_decode: bool) -> None:
+        """The constructor's work past validation, on the engine's card."""
         ignored = _ignored_options(config)
         if ignored:
             logger.info("speed-only options ignored by this engine: %s",
                         "; ".join(ignored))
         cfg = self.model_config
         self.dtype = getattr(torch, config.dtype)
+        bits = quant_bits(config.quantization)
         if params is None:
-            params = llama.init_params(cfg, seed, self.dtype, self.device)
+            params = llama.init_params(cfg, seed, self.dtype, self.device, quant_bits=bits)
         elif isinstance(params, Mapping):
             params = model_from_state_dict(params, cfg, self.device, self.dtype)
-        elif params.device != self.device and not (
-                params.device.type == self.device.type == "cuda"):
+        elif not same_device(params.device, self.device):
             raise ValueError(f"params live on {params.device}, engine on {self.device}")
+        if bits is not None and not is_quantized(params):
+            # a tree passed in unquantized is quantized, never served in bf16
+            params = quantize_llama_params(params, bits)
         self.params = params
         self.seed = seed
         self.rope_tables = rope_frequencies(
@@ -640,6 +688,11 @@ class ContinuousBatchingEngine:
         self.requests_completed = 0
         self.rejected_saturated = 0
         self.preemptions = 0
+        #: PD handoffs: streams exported (prefill role) and imported (decode
+        #: role), and each import's export + import host ms
+        self.handoffs_exported = 0
+        self.handoffs_imported = 0
+        self.handoff_ms_samples: deque[float] = deque(maxlen=2048)
         #: terminal counts by cancel reason, and the max_tokens not generated
         self.cancellations: dict[str, int] = {}
         self.reclaimed_tokens = 0
@@ -740,6 +793,43 @@ class ContinuousBatchingEngine:
         self._wake.set()
         self.start()
         return rid
+
+    def submit_handoff(self, rec: _Suspended) -> None:
+        """Take a stream a prefill-role engine handed off (prefill done
+        there, KV on host, first token emitted) for decode here: the record
+        joins the suspended list, which admission serves first, and the
+        resume path imports its pages. Runs on the SOURCE engine's
+        scheduler thread (the pool's handoff sink): bookkeeping only.
+        Speculation is armed under this engine's config, its proposer fed
+        the prompt and the first token, as a unified engine's would be."""
+        if self.pd_role == "prefill":
+            raise RuntimeError("handoff target must be a decode-role or unified engine")
+        if not self.paged:
+            raise RuntimeError("handoff needs the paged pool (prefix_cache_pages > 0)")
+        state = rec.state
+        state.proposer = None
+        self._arm_spec(state)
+        if state.proposer is not None:
+            state.proposer.extend([rec.last_token])
+        if state.generator is not None and not same_device(state.generator.device,
+                                                           self.device):
+            # the stream's own generator, carried to this card by its state
+            gen = torch.Generator(device=self.device)
+            gen.set_state(rec.gen_state)
+            state.generator = gen
+        if not self.active_slots and not self._suspended and not self._prefill_slots \
+                and self._pending.empty():
+            self.last_round_at = time.monotonic()
+        with self._submit_lock:
+            if self._closed:
+                raise RuntimeError("scheduler is closed; build a fresh engine")
+            if self._broken:
+                raise RuntimeError(f"scheduler is broken: {self._broken}")
+            if state.deadline is not None:
+                self._has_deadlines = True
+            self._suspended.append(rec)
+        self._wake.set()
+        self.start()
 
     @property
     def active_slots(self) -> int:
@@ -1019,6 +1109,7 @@ class ContinuousBatchingEngine:
         depth_hist = _snapshot(lambda: sorted(self.depth_hist.items()))
         waits = _snapshot(lambda: list(self.queue_wait_samples))
         resumes = _snapshot(lambda: list(self.resume_latency_samples))
+        handoffs = _snapshot(lambda: list(self.handoff_ms_samples))
 
         def p50_of(samples: list) -> float:
             vals = sorted(samples)
@@ -1089,6 +1180,11 @@ class ContinuousBatchingEngine:
             "reclaimed_tokens": self.reclaimed_tokens,
             "resume_recovery_ms": {"p50": round(p50_of(resumes) * 1e3, 3),
                                    "count": len(resumes)},
+            "pd": {"role": self.pd_role, "exported": self.handoffs_exported,
+                   "imported": self.handoffs_imported,
+                   "handoff_ms": {"p50": round(p50_of(handoffs), 3),
+                                  "max": round(max(handoffs), 3) if handoffs else 0.0,
+                                  "count": len(handoffs)}},
             "closed": self._closed,
             "pages_in_use": pool["pages_in_use"] if pool else 0,
             "pages_free": pool["pages_free"] if pool else 0,
@@ -1119,6 +1215,8 @@ class ContinuousBatchingEngine:
     def _run_loop(self) -> None:
         logger.info("continuous scheduler up on %s: %d slots, chunk %d, lookahead %d",
                     self.device, self.n_slots, self._k_steps, self._depth)
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)
         with torch.inference_mode():
             while not self._stop.is_set():
                 try:
@@ -1277,7 +1375,10 @@ class ContinuousBatchingEngine:
                     deferred.append(self._suspended.popleft())
                 continue
             try:
-                chain = self.pool.restore_chain_from_host(rec.host_kv)
+                t_import = time.perf_counter()
+                # a PD handoff lands through the import half of the pair
+                chain = (self.pool.import_pages(rec.host_kv) if rec.handoff
+                         else self.pool.restore_chain_from_host(rec.host_kv))
                 try:
                     self.pool.extend_chain(chain, rec.length + self._k_steps)
                 except MemoryError:
@@ -1328,7 +1429,13 @@ class ContinuousBatchingEngine:
             self._pt_dirty = True
             self._epoch += 1
             resumed += 1
-            self.resume_latency_samples.append(time.monotonic() - rec.suspended_at)
+            if rec.handoff:
+                # routing, not pool pressure: no preemption or recovery sample
+                self.handoffs_imported += 1
+                self.handoff_ms_samples.append(
+                    rec.export_ms + (time.perf_counter() - t_import) * 1e3)
+            else:
+                self.resume_latency_samples.append(time.monotonic() - rec.suspended_at)
         if deferred:
             with self._submit_lock:
                 self._suspended.extendleft(reversed(deferred))
@@ -2062,7 +2169,7 @@ class ContinuousBatchingEngine:
         hidden, _ = llama.forward_paged_mixed(
             self.params, self.model_config, drafts_d, (self.pool.k_pool, self.pool.v_pool),
             self._page_table_dev, lengths + 1, torch.where(spec, lens_d, 0), self.rope_tables,
-            write_mask=spec)
+            write_mask=spec, moe_tokens=int(spec_lens.sum()))
         outs = torch.cat([step[:, :1], self._greedy_span(hidden, W - 1)], dim=1)
         none = torch.zeros_like(active)
         toks, new_last, new_lens, new_fin = self._spec_outputs(
@@ -2119,7 +2226,8 @@ class ContinuousBatchingEngine:
         hidden, _ = llama.forward_paged_mixed(
             self.params, self.model_config, q_ids_d,
             (self.pool.k_pool, self.pool.v_pool), self._page_table_dev,
-            hist_d, q_lens_d, self.rope_tables, write_mask=run | ~active)
+            hist_d, q_lens_d, self.rope_tables, write_mask=run | ~active,
+            moe_tokens=int(q_lens.sum()))
         logits = llama.lm_head_logits(self.params, self.model_config,
                                       llama.gather_last_hidden(hidden, q_lens_d))
         nxt = self._sample(logits, *self._sampling_rows(sample))
@@ -2297,6 +2405,42 @@ class ContinuousBatchingEngine:
             self._epoch += 1
         self._note_prefill_rate(T - state.cached_len, time.monotonic() - state.prefill_t0)
         self._emit_token(slot, tok, force_length=T + self._k_steps > self.config.max_seq_len)
+        # a prefill-role engine's work ends at the first token; a stream the
+        # emit just finished (stop or length on token one) has nothing to move
+        if self.pd_role == "prefill" and self._handoff_sink is not None \
+                and self.slots[slot] is state:
+            self._export_handoff(slot, state, tok)
+
+    def _export_handoff(self, slot: int, state: _SlotState, tok: int) -> None:
+        """Move a just-prefilled stream off this prefill-role engine: its
+        chain's pages to host (tree pages stay cached here, private ones
+        free), the slot freed as a preemption frees it, and a handoff record
+        (length, first token, the generator's state after its first draw)
+        to the pool's sink. A raise here (the ``scheduler.handoff``
+        failpoint, a copy fault) breaks the engine, whose streams then end
+        with ``error`` and fail over in the pool."""
+        failpoint("scheduler.handoff")
+        t0 = time.perf_counter()
+        T = int(self.lengths[slot])
+        host_kv = self.pool.export_pages(state.chain)
+        if host_kv[0].is_pinned():
+            # the decode engine may live on another card or stream: the
+            # bytes must be on the host before the record leaves
+            torch.cuda.current_stream(self.device).synchronize()  # sync-point: the export's one wait
+        state.chain = []
+        gen_state = state.generator.get_state() if state.generator is not None else None
+        rec = _Suspended(state=state, host_kv=host_kv, length=T, last_token=tok,
+                         gen_state=gen_state, handoff=True,
+                         export_ms=(time.perf_counter() - t0) * 1e3)
+        self.active[slot] = False
+        self.slots[slot] = None
+        self._release_free_slot(slot)
+        self._deactivate_slot_device(slot)
+        self._epoch += 1
+        self.page_table[slot, :] = 0
+        self._pt_dirty = True
+        self.handoffs_exported += 1
+        self._handoff_sink(rec)
 
     def _decode_round_dense(self) -> str:
         """``decode_chunk`` fused decode steps over the dense cache

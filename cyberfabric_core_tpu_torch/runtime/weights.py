@@ -15,6 +15,16 @@ as numpy arrays, so this module never touches JAX — into the same
 ``layers.<i>.<name>``. Both packages keep weight matrices ``[in, out]``, so no
 transpose is needed and both compute the same function.
 
+Quantized trees (:mod:`.quant`): ``load_llama_params(..., quantize=True,
+quant_bits=8|4)`` quantizes each tensor as it is loaded, on the device, so
+the peak is the intN tree plus one tensor; its ``state_dict`` names a
+matmul leaf's buffers ``<leaf>.q`` / ``<leaf>.s`` and the embedding's
+``embed.qe`` / ``embed.se``, and at 4 bits ``q`` is packed two values a
+byte along the contraction axis. :func:`params_from_jax` carries the JAX
+package's ``{"q", "s"}`` / ``{"qe", "se"}`` leaves across, packing its
+``int4`` arrays. A quantized tree cannot be saved as a HF checkpoint:
+:func:`save_llama_params` raises, as the JAX function does.
+
 The bert encoder has the same three: :func:`load_bert_params` (HF
 ``BertModel`` names, with or without the ``bert.`` prefix of a wrapping
 head), :func:`save_bert_params` and :func:`bert_params_from_jax`.
@@ -30,10 +40,12 @@ from typing import Any, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, same_device
 from ..models import bert
 from ..models.configs import ModelConfig
 from ..models.llama import LlamaModel, _leaf_shapes, check_supported
+from .quant import (_MATMUL_LEAVES, QuantEmbed, QuantWeight, is_quantized, pack_int4,
+                    quantize_leaf)
 
 # state_dict leaf → (HF name template, transpose?); {i} = layer, {e} = expert
 _LLAMA_MAP: dict[str, tuple[str, bool]] = {
@@ -187,11 +199,10 @@ def load_llama_params(model_dir: PathLike, cfg: ModelConfig, dtype: torch.dtype 
     ``dtype`` (default the CUDA device): HF ``[out, in]`` matrices
     transposed to ``[in, out]``, the qwen2 q/k/v bias when the config has
     one, no ``lm_head`` for tied configs, and per layer the expert stacks
-    ``[E, ...]`` of a MoE config. Weight quantization is a later slice and
-    raises."""
-    if quantize:
-        raise NotImplementedError(f"quantized loading (int{quant_bits}) is not ported "
-                                  "yet (later slice: runtime/quant.py)")
+    ``[E, ...]`` of a MoE config. ``quantize``: each matmul leaf, the head
+    and the embedding are quantized (``quant_bits`` 8 or 4; the embedding
+    int8 rows) as they load, after the cast to ``dtype``, as the JAX loader
+    does."""
     check_supported(cfg)
     dev = resolve_device(device)
     idx = SafetensorsIndex(model_dir)
@@ -201,22 +212,30 @@ def load_llama_params(model_dir: PathLike, cfg: ModelConfig, dtype: torch.dtype 
         return t.to(device=dev, dtype=dtype).contiguous()
 
     out: dict[str, torch.Tensor] = {}
+
+    def store(key: str, leaf: str, t: torch.Tensor) -> None:
+        if quantize and (leaf in _MATMUL_LEAVES or leaf in ("embed", "lm_head")):
+            for buf, value in quantize_leaf(leaf, t, quant_bits).state_dict().items():
+                out[f"{key}.{buf}"] = value
+        else:
+            out[key] = t
+
     for leaf, (tmpl, transpose) in _LLAMA_MAP.items():
         if not _wanted(leaf, cfg):
             continue
         if leaf == "lm_head":
             if not cfg.tie_embeddings:
-                out[leaf] = put(idx.load(tmpl), transpose)
+                store(leaf, leaf, put(idx.load(tmpl), transpose))
         elif "{i}" not in tmpl:
-            out[leaf] = put(idx.load(tmpl), transpose)
+            store(leaf, leaf, put(idx.load(tmpl), transpose))
         else:
             for i in range(cfg.num_layers):
                 if "{e}" in tmpl:
-                    out[f"layers.{i}.{leaf}"] = torch.stack(
-                        [put(idx.load(tmpl.format(i=i, e=e)), transpose)
-                         for e in range(cfg.num_experts)])
+                    t = torch.stack([put(idx.load(tmpl.format(i=i, e=e)), transpose)
+                                     for e in range(cfg.num_experts)])
                 else:
-                    out[f"layers.{i}.{leaf}"] = put(idx.load(tmpl.format(i=i)), transpose)
+                    t = put(idx.load(tmpl.format(i=i)), transpose)
+                store(f"layers.{i}.{leaf}", leaf, t)
     return out
 
 
@@ -224,7 +243,11 @@ def save_llama_params(params: Union[LlamaModel, Mapping[str, torch.Tensor]],
                       cfg: ModelConfig, out_dir: PathLike) -> Path:
     """Write a state_dict (or a :class:`LlamaModel`) as a HF-layout
     ``model.safetensors`` in f32: every tensor of the checkpoint the loader
-    reads, the experts fanned out per expert."""
+    reads, the experts fanned out per expert. A quantized tree raises
+    ``ValueError``."""
+    if is_quantized(params):
+        raise ValueError("cannot save a quantized param tree to HF safetensors layout; "
+                         "save the fp tree, or dequantize first (runtime/quant.py)")
     state = params.state_dict() if isinstance(params, LlamaModel) else params
     tensors: dict[str, torch.Tensor] = {}
 
@@ -254,48 +277,77 @@ def save_llama_params(params: Union[LlamaModel, Mapping[str, torch.Tensor]],
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """JAX llama tree of numpy arrays → the port's state_dict (CPU tensors).
 
-    Quantized leaves ({"q", "s"} dicts) raise ``NotImplementedError``: weight
-    quantization is a later slice of the port."""
+    Quantized leaves carry across: ``{"q", "s"}`` → ``<leaf>.q`` /
+    ``<leaf>.s`` (an ``int4`` ``q`` packed two values a byte), ``{"qe",
+    "se"}`` → ``embed.qe`` / ``embed.se``."""
     check_supported(cfg)
 
-    def tensor(name: str, a: Any) -> torch.Tensor:
-        if isinstance(a, Mapping):
-            raise NotImplementedError(
-                f"quantized leaf {name!r}: int8/int4 weights are not ported "
-                "yet (later slice: runtime/quant.py)")
+    def tensor(a: Any) -> torch.Tensor:
         return torch.from_numpy(np.array(a, copy=True))
 
-    out = {"embed": tensor("embed", tree["embed"]),
-           "final_norm": tensor("final_norm", tree["final_norm"])}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = tensor("lm_head", tree["lm_head"])
+    out: dict[str, torch.Tensor] = {}
+
+    def put(key: str, a: Any) -> None:
+        if not isinstance(a, Mapping):
+            out[key] = tensor(a)
+        elif "qe" in a:
+            out[f"{key}.qe"], out[f"{key}.se"] = tensor(a["qe"]), tensor(a["se"])
+        else:
+            q = np.asarray(a["q"])
+            values = torch.from_numpy(q.astype(np.int8))
+            out[f"{key}.q"] = pack_int4(values) if str(q.dtype) == "int4" else values
+            out[f"{key}.s"] = tensor(a["s"])
+
+    for name in ("embed", "final_norm") + (() if cfg.tie_embeddings else ("lm_head",)):
+        put(name, tree[name])
     layers = tree["layers"]
     for name in _leaf_shapes(cfg):
         stacked = layers[name]
-        if isinstance(stacked, Mapping):
-            tensor(name, stacked)  # raises for quantized leaves
-        if stacked.shape[0] != cfg.num_layers:
-            raise ValueError(f"layer leaf {name!r} has {stacked.shape[0]} "
-                             f"layers, config has {cfg.num_layers}")
+        n = (stacked["q"] if isinstance(stacked, Mapping) else stacked).shape[0]
+        if n != cfg.num_layers:
+            raise ValueError(f"layer leaf {name!r} has {n} layers, config has "
+                             f"{cfg.num_layers}")
         for i in range(cfg.num_layers):
-            out[f"layers.{i}.{name}"] = tensor(name, stacked[i])
+            put(f"layers.{i}.{name}", {k: v[i] for k, v in stacked.items()}
+                if isinstance(stacked, Mapping) else stacked[i])
     return out
 
 
 def model_from_state_dict(state: Mapping[str, torch.Tensor], cfg: ModelConfig,
                           device: DeviceLike = None,
                           dtype: Optional[torch.dtype] = None) -> LlamaModel:
-    """Build a :class:`LlamaModel` on ``device`` from a state_dict (cast to
-    ``dtype`` when given)."""
+    """Build a :class:`LlamaModel` on ``device`` from a state_dict (float
+    leaves cast to ``dtype`` when given; quantized leaves keep their int8
+    values and f32 scales, a 4-bit leaf told by its packed row count)."""
     dev = resolve_device(device)
 
     def put(t: torch.Tensor) -> torch.Tensor:
         return t.to(device=dev, dtype=dtype or t.dtype)
 
-    layers = [{name: put(state[f"layers.{i}.{name}"]) for name in _leaf_shapes(cfg)}
-              for i in range(cfg.num_layers)]
-    return LlamaModel(cfg, put(state["embed"]), put(state["final_norm"]), layers,
-                      put(state["lm_head"]) if "lm_head" in state else None)
+    def leaf(key: str, rows: int):
+        if f"{key}.qe" in state:
+            return QuantEmbed(state[f"{key}.qe"].to(dev), state[f"{key}.se"].to(dev))
+        if f"{key}.q" in state:
+            q = state[f"{key}.q"].to(dev)
+            return QuantWeight(q, state[f"{key}.s"].to(dev), 8 if q.shape[-2] == rows else 4)
+        return put(state[key])
+
+    shapes = _leaf_shapes(cfg)
+    H = cfg.hidden_size
+    layers = [{name: leaf(f"layers.{i}.{name}", shape[-2] if len(shape) > 1 else 0)
+               for name, shape in shapes.items()} for i in range(cfg.num_layers)]
+    has_head = "lm_head" in state or "lm_head.q" in state
+    return LlamaModel(cfg, leaf("embed", 0), put(state["final_norm"]), layers,
+                      leaf("lm_head", H) if has_head else None)
+
+
+def params_on(params: LlamaModel, device: DeviceLike) -> LlamaModel:
+    """``params`` itself when it lives on ``device``, else a copy there
+    (through its state_dict; the original is untouched)."""
+    dev = resolve_device(device)
+    if same_device(params.device, dev):
+        return params
+    return model_from_state_dict(params.state_dict(), params.cfg, dev)
 
 
 def load_bert_params(model_dir: PathLike, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,

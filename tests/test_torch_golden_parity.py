@@ -187,9 +187,28 @@ def test_roundtrip_save_matches_hf_layout(tmp_path):
 
 
 def test_quantized_loading_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        load_llama_params(FIXTURES / "tiny-llama-golden", get_config("tiny-llama-golden"),
-                          device="cpu", quantize=True)
+    """Quantized loading, ported since ROADMAP item 6: at 8 and 4 bits the
+    port's loader gives the JAX loader's quantized tree (through
+    ``params_from_jax``, int4 packed): int values equal, scales within one
+    f32 ulp."""
+    from cyberfabric_core_tpu.models.configs import get_config as jget_config
+    from cyberfabric_core_tpu.runtime.weights import load_llama_params as jload
+
+    fam = "tiny-llama-golden"
+    cfg = get_config(fam)
+    for bits in (8, 4):
+        ours = load_llama_params(FIXTURES / fam, cfg, torch.float32, "cpu", quantize=True,
+                                 quant_bits=bits)
+        theirs = params_from_jax(jax.tree.map(np.asarray, jload(
+            FIXTURES / fam, jget_config(fam), dtype=jnp.float32, quantize=True,
+            quant_bits=bits)), cfg)
+        assert sorted(ours) == sorted(theirs)
+        assert "embed.qe" in ours and "layers.0.wq.q" in ours
+        for name, t in ours.items():
+            if t.dtype == torch.int8:
+                assert torch.equal(t, theirs[name]), name
+            else:
+                np.testing.assert_array_max_ulp(t.numpy(), theirs[name].numpy(), 1)
 
 
 # ------------------------------------------------------------- tokenizer

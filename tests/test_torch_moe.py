@@ -141,3 +141,60 @@ def test_moe_engine_greedy_streams_match_jax():
             ids[0, :len(seq)] = seq
             seq.append(int(next_token(jnp.asarray(ids), jnp.asarray([len(seq)]))[0]))
         assert got == seq[len(p):]
+
+
+def test_padding_takes_no_capacity():
+    """A padded batch (a mixed round's idle positions: identical rows that
+    all pick the same experts) with ``valid`` marking the real tokens: each
+    real row gets what the unpadded batch gives it, and padding rows get no
+    MLP output. Without the mask
+    the padding fills its experts' buckets first and later real rows lose
+    those experts (the drop JAX's mixed round takes at 8 experts)."""
+    cfg = dataclasses.replace(get_config("tiny-moe"), num_experts=8, moe_capacity_factor=2.0)
+    jcfg = dataclasses.replace(jget_config("tiny-moe"), num_experts=8)
+    jparams = jllama.init_params(jcfg, jax.random.PRNGKey(4), jnp.float32)
+    lp = tllama.LlamaLayer({k: torch.from_numpy(np.array(v[0]))
+                            for k, v in jparams["layers"].items()})
+    real = torch.from_numpy(_x((1, 24, cfg.hidden_size), 3))
+    pad = 600  # past the min(N, 256) floor: buckets of ceil(N·k/E)·2 = 312
+    x = torch.cat([torch.zeros((1, pad, cfg.hidden_size)) + real[:, :1] * 0.5, real], dim=1)
+    valid = torch.zeros((1, pad + 24), dtype=torch.bool)
+    valid[0, pad:] = True
+    alone = tllama._moe_mlp(real, lp, cfg)
+    masked = tllama._moe_mlp(x, lp, cfg, valid=valid, n_tokens=24)
+    np.testing.assert_allclose(masked[:, pad:].numpy(), alone.numpy(), **TOL)
+    assert not masked[:, :pad].any()
+    np.testing.assert_allclose(alone.numpy(), tllama._moe_mlp_dense(real, lp, cfg).numpy(),
+                               **TOL)
+    unmasked = tllama._moe_mlp(x, lp, cfg)[:, pad:]
+    assert not np.allclose(unmasked.numpy(), alone.numpy(), atol=1e-4), \
+        "expected the padding to crowd real tokens out"
+
+
+def test_real_tokens_keep_jax_padded_capacity():
+    """A mixed round's shape: 300 real tokens that all pick the same two
+    experts, then 900 padding rows. The buckets take JAX's capacity for the
+    1200 rows (600), capped at the 300 real tokens, so nothing drops: the
+    masked call equals the dense oracle and JAX's routed form over the
+    padded batch at the real rows (JAX's stable sort puts them first in
+    each bucket). Buckets sized by the real count alone (256, the floor)
+    would drop 44 of each chosen expert's assignments."""
+    cfg = dataclasses.replace(get_config("tiny-moe"), num_experts=8, moe_capacity_factor=2.0)
+    jcfg = dataclasses.replace(jget_config("tiny-moe"), num_experts=8, moe_capacity_factor=2.0)
+    jparams = jllama.init_params(jcfg, jax.random.PRNGKey(4), jnp.float32)
+    jlp = jax.tree.map(lambda a: a[0], jparams["layers"])
+    lp = tllama.LlamaLayer({k: torch.from_numpy(np.array(v)) for k, v in jlp.items()})
+    n, N = 300, 1200
+    x = np.zeros((1, N, cfg.hidden_size), np.float32)
+    x[0, :n] = _x((1, cfg.hidden_size), 6) + 0.01 * _x((n, cfg.hidden_size), 7)
+    top = torch.topk(torch.from_numpy(x[0, :n]) @ lp.router, 2, dim=-1).indices
+    assert int(torch.bincount(top.reshape(-1), minlength=8).max()) == n  # one expert pair
+    assert tllama.moe_capacity(cfg, N, n) == n
+    valid = torch.zeros((1, N), dtype=torch.bool)
+    valid[0, :n] = True
+    masked = tllama._moe_mlp(torch.from_numpy(x), lp, cfg, valid=valid, n_tokens=n)
+    j_routed = np.asarray(jllama._moe_mlp(jnp.asarray(x), jlp, jcfg))
+    np.testing.assert_allclose(masked[0, :n].numpy(), j_routed[0, :n], **TOL)
+    dense = tllama._moe_mlp_dense(torch.from_numpy(x[:, :n]), lp, cfg)
+    np.testing.assert_allclose(masked[:, :n].numpy(), dense.numpy(), **TOL)
+    assert not masked[:, n:].any()

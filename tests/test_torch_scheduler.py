@@ -278,8 +278,37 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
                                       dict(quantization="int4"), dict(tp=2),
                                       dict(pd_role="prefill")])
 def test_path_changing_options_name_their_later_slice(override):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ContinuousBatchingEngine(_config(**override), device="cpu")
+    """tp > 1 still raises, naming its later slice. Quantization and the PD
+    roles are served since ROADMAP items 5 and 6: the engine draws its
+    weights at the config's bit width, and a prefill-role engine hands each
+    stream to its sink after the first token (here the sink keeps it)."""
+    if "tp" in override:
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            ContinuousBatchingEngine(_config(**override), device="cpu")
+        return
+    from cyberfabric_core_tpu_torch.runtime.quant import QuantWeight
+
+    engine = ContinuousBatchingEngine(_config(**override), device="cpu")
+    request = (list(range(5, 17)), SamplingParams(max_tokens=6))
+    try:
+        if "quantization" in override:
+            (toks, fins), = _run(engine, [request])
+            wq = engine.params.layers[0].wq
+            assert isinstance(wq, QuantWeight)
+            assert wq.bits == int(override["quantization"][-1])
+            assert len(toks) == 6 and fins[-1] == "length"
+            return
+        handed, events = [], []
+        got = threading.Event()
+        engine._handoff_sink = lambda rec: (handed.append(rec), got.set())
+        engine.submit(*request, events.append)
+        assert got.wait(60)
+    finally:
+        engine.shutdown()
+    assert engine.pd_role == "prefill" and len(events) == 1 and events[0].finished is None
+    assert len(handed) == 1 and handed[0].handoff and handed[0].length == 12
+    assert handed[0].last_token == events[0].token_id
+    assert engine.stats()["rounds"]["decode"] == 0 and engine.in_flight() == 0
 
 
 @pytest.mark.parametrize("T", [5, 8, 21])

@@ -5,7 +5,9 @@
   field for field, over the quickstart's option set and the option sets
   ``config/quickstart.yaml`` documents in its comments (and the string
   forms registries send); the sets the port does not serve raise a
-  ``not_ported`` problem naming their ROADMAP item.
+  ``not_ported`` problem naming their ROADMAP item; the replica pools, the
+  PD split and quantization build (and serve) their entries, and the
+  combinations the JAX worker refuses raise its ``ValueError``s.
 - The port's schema checker gives ``jsonschema.Draft202012Validator``'s
   verdict and error list (field and message, sorted, capped at 16) on the
   four wire schemas, over hypothesis-generated bodies and the bodies the JAX
@@ -23,6 +25,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 import yaml
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
@@ -62,14 +65,17 @@ SERVED_SETS = {
     "spec-words": {**QUICKSTART_OPTS, "scheduler_spec_k": "7", "spec_min_accept": "0.25",
                    "spec_max_ngram": "4", "spec_min_ngram": "2"},
 }
-#: (option set, worker config, the ROADMAP item the problem names)
+#: (option set, worker config, the ROADMAP item the problem names). The PD
+#: split, the dp pool and quantization were not ported until ROADMAP items
+#: 5 and 6 landed: their rows name no item (None), and their cases check
+#: the entry the worker now builds and one completion it serves
 UNPORTED_SETS = {
     "tp": ({**QUICKSTART_OPTS, "tp": 8, "hbm_bytes_per_device": 0}, {}, "item 9"),
     "feasibility": ({**QUICKSTART_OPTS, "hbm_bytes_per_device": 1 << 34}, {}, "item 9"),
     "pd": ({**QUICKSTART_OPTS, "pd_prefill_replicas": 1, "pd_decode_replicas": 1}, {},
-           "item 5"),
-    "dp": ({**QUICKSTART_OPTS, "dp_replicas": 2}, {}, "item 5"),
-    "quant": ({**QUICKSTART_OPTS, "quantization": "int8"}, {}, "item 6"),
+           None),
+    "dp": ({**QUICKSTART_OPTS, "dp_replicas": 2}, {}, None),
+    "quant": ({**QUICKSTART_OPTS, "quantization": "int8"}, {}, None),
     "lockstep": (QUICKSTART_OPTS, {"scheduler": "lockstep"}, "item 7"),
     "draft": ({**QUICKSTART_OPTS, "speculative": "ngram"}, {}, "item 7"),
     "draft-beside-spec": ({**QUICKSTART_OPTS, "scheduler_spec_k": 4, "speculative": "draft",
@@ -102,11 +108,66 @@ def test_engine_options_map_as_the_jax_worker_maps_them(name):
 def test_unported_options_raise_a_problem_naming_their_item(name):
     opts, worker_cfg, item = UNPORTED_SETS[name]
     _, info = _infos(opts)
+    if item is None:
+        _check_served_entry(name, info)
+        return
     with pytest.raises(ProblemError) as e:
         LocalTorchWorker({"device": "cpu", **worker_cfg})._build_entry(info)
     problem = e.value.problem
     assert (problem.status, problem.code) == (501, "not_ported")
     assert item in problem.detail
+
+
+def _check_served_entry(name, info):
+    """The worker builds the entry (a PD pool of 1 + 1 CPU replicas, a dp
+    pool of 2 sharing one params tree, an int8 engine) and serves one
+    greedy completion through it."""
+    import asyncio
+
+    from cyberfabric_core_tpu_torch.runtime.pd import PDServingPool
+    from cyberfabric_core_tpu_torch.runtime.quant import QuantWeight
+    from cyberfabric_core_tpu_torch.runtime.replicas import DataParallelServingPool
+
+    worker = LocalTorchWorker({"device": "cpu"})
+    try:
+        out = asyncio.run(_complete(worker, info))
+        entry = worker._entries[info.canonical_id]
+        if name == "pd":
+            assert isinstance(entry.pool, PDServingPool) and entry.scheduler is None
+            st = entry.pool.stats()
+            assert st["pd"]["roles"] == ["prefill", "decode"] and st["pd"]["handoffs"] == 1
+        elif name == "dp":
+            assert type(entry.pool) is DataParallelServingPool
+            a, b = entry.pool.replicas
+            assert a.params is b.params and str(a.device) == str(b.device) == "cpu"
+        else:
+            assert entry.pool is None
+            wq = entry.scheduler.params.layers[0].wq
+            assert isinstance(wq, QuantWeight) and wq.q.dtype == torch.int8
+    finally:
+        worker.close()
+    assert out[-1].finish_reason == "length" and out[-1].usage["output_tokens"] == 4
+
+
+#: option sets the JAX worker refuses, with its ValueError
+REFUSED_SETS = {
+    "pd-one-sided": {**QUICKSTART_OPTS, "pd_prefill_replicas": 1},
+    "pd-with-dp": {**QUICKSTART_OPTS, "pd_prefill_replicas": 1, "pd_decode_replicas": 1,
+                   "dp_replicas": 2},
+    "pd-with-tp": {**QUICKSTART_OPTS, "pd_prefill_replicas": 1, "pd_decode_replicas": 1,
+                   "tp": 2},
+    "dp-with-tp": {**QUICKSTART_OPTS, "dp_replicas": 2, "tp": 2},
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED_SETS))
+def test_disallowed_pool_combinations_raise_the_jax_workers_errors(name):
+    jax_info, info = _infos(REFUSED_SETS[name])
+    with pytest.raises(ValueError) as want:
+        LocalTpuWorker()._build_entry(jax_info)
+    with pytest.raises(ValueError) as got:
+        LocalTorchWorker({"device": "cpu"})._build_entry(info)
+    assert str(got.value) == str(want.value)
 
 
 def test_worker_config_rejects_unknown_keys():
