@@ -73,7 +73,21 @@ fatal on failure:
    to its k=0 twin, every greedy token through the oracle (on the card a
    greedy stream may part from k=0 at a near-tie: how many are identical,
    and where the others part, is printed), ttft, inter-token latency and
-   tokens/s of both;
+   tokens/s of both; (v') the lockstep engine (``InferenceEngine``, the
+   worker's ``scheduler: lockstep``) on the storm's 8 requests as one
+   batch: one terminal event a stream, its one prefill through flash (one
+   launch a layer) and no paged kernel, the oracle, each greedy first token
+   of the padded bucket within the margin of its prompt prefilled alone;
+   ttft, inter-token latency and tokens/s beside the mixed storm's, and its
+   decode step's device time beside the paged step's; (v'') lockstep
+   speculation at bs=1 (a 32-token pattern repeated to 256 tokens, 128 out,
+   ``spec_k`` 8): spec off, ``ngram`` and llama-3-8b drafting for itself
+   (a perfect draft) at bf16 and at f32 (TF32 off), and a seeded
+   independent llama-3-8b draft at bf16: at f32 the speculative streams
+   equal spec off token for token, at bf16 every token passes the oracle, a
+   sampled draft run (temperature 0.8, seed 42) repeats itself and accepts
+   drafts; acceptance, its length histogram, tokens/s and the verify
+   round's device time beside a decode step's;
 5. HTTP, the slice's main path: the port's server built in this process by
    ``server.Host`` (what ``server.main`` runs), serving
    ``local::llama-3-8b`` (random bf16 weights from seed 0, byte tokenizer)
@@ -102,7 +116,12 @@ fatal on failure:
    generator), 6 requests of 8 inputs of up to 128 tokens: unit norms,
    cosine ≥ 0.999 to an f32 forward of the same weights on the card, usage
    equal to the tokenizer's count, ms per request and vectors/s at the
-   socket and bare; (g) ``python3 -m
+   socket and bare; (f') a second server with the worker at ``scheduler:
+   lockstep`` on llama-3-8b: the HTTP storm's 8 SSE completions from 3
+   threads, batched by the worker's window, usage equal to the ids recorded
+   at the engine, text their decode, the oracle, flash launched and no
+   paged kernel, its numbers at the socket beside the continuous storm's;
+   (g) ``python3 -m
    cyberfabric_core_tpu_torch.server run --config`` on the port's
    quickstart at port 0 as a child process: ``/health``, one SSE chat
    completion to ``data: [DONE]``, ``default-embed`` answering, exit code 0
@@ -122,10 +141,16 @@ fatal on failure:
    unified engine's. Then (viii) mixtral-8x7b int8 at full width (random
    weights from seed 0, quantized as drawn; 43.5 GiB) at the worker's
    options: in bf16 the storm's gates, its numbers, the decode step's
-   device time and the peak memory; then the same requests again with
-   every eager routed-MoE call within one bf16 ulp of the output's scale
-   of its plain per-expert version at the same routing and capacity, the
-   bucket drops and the dense-MoE oracle's distances printed; in f32 the
+   device time and the peak memory; then the same requests again (decode
+   chunks eager) with every eager routed-MoE call within one bf16 ulp of
+   the output's scale of its plain per-expert version at the same routing
+   and capacity, the bucket drops and the dense-MoE oracle's distances
+   printed, each greedy stream's routing flips against the oracle forward
+   (top-2 sets per position and layer; the router margin at each flip in
+   bf16 ulps beside how far rounding moved the logits there), every token
+   before a stream's first flip within the margin, and every greedy token
+   within the margin of the dense-MoE oracle routed as the served forward
+   routed; in f32 the
    same per-call check, no bucket drop and every greedy token within the
    margin of the dense forward with the dense MoE oracle;
 6. golden parity: the five committed HF checkpoints (llama, qwen2, gemma,
@@ -140,8 +165,8 @@ fatal on failure:
    W4, and the outlier fixture's CE moved less than 0.01 / 0.05 nats;
 7. a ``{"kernels": [...]}`` line (the paged kernels' launches from the HTTP
    storm and the speculative storm at k=4, each read just after its run;
-   flash's from the phase-separated run), then ``{"ok": true, "device":
-   {...}}`` last.
+   flash's from the phase-separated run and the lockstep storm), then
+   ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -175,12 +200,14 @@ from cyberfabric_core_tpu_torch.ops import paged_attention as pa
 from cyberfabric_core_tpu_torch.modules.llm_gateway.worker import plan_engine
 from cyberfabric_core_tpu_torch.modules.sdk import ModelInfo
 from cyberfabric_core_tpu_torch.ops.timing import graph_ms
-from cyberfabric_core_tpu_torch.runtime.engine import EngineConfig, SamplingParams
+from cyberfabric_core_tpu_torch.runtime.engine import (EngineConfig, InferenceEngine,
+                                                       SamplingParams, build_decode_chunk_fn)
 from cyberfabric_core_tpu_torch.runtime.lifecycle import LifecycleConfig
 from cyberfabric_core_tpu_torch.runtime.pd import PDServingPool
 from cyberfabric_core_tpu_torch.runtime.quant import QuantWeight, quantized_bytes
 from cyberfabric_core_tpu_torch.runtime.replicas import DataParallelServingPool
 from cyberfabric_core_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
+from cyberfabric_core_tpu_torch.runtime.speculative import DraftModel, build_verify_fn
 from cyberfabric_core_tpu_torch.runtime.tokenizer import ByteTokenizer
 from cyberfabric_core_tpu_torch.server import BackgroundServer
 
@@ -826,6 +853,13 @@ def dense_margin(params, cfg, rope, prompt, toks) -> tuple[float, torch.Tensor]:
     """Of the dense forward, teacher-forced over prompt + output, at every
     emitted token's row: the largest (row max - emitted token's logit), and
     each row's top-1/top-2 gap (what the runner-up token would read)."""
+    gaps, runner_up = dense_gaps(params, cfg, rope, prompt, toks)
+    return float(gaps.max()), runner_up
+
+
+def dense_gaps(params, cfg, rope, prompt, toks) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dense_margin` per emitted token: (row max - the token's logit)
+    [n], and each row's top-1/top-2 gap [n]."""
     T, n = len(prompt), len(toks)
     ids = torch.tensor([prompt + toks[:-1]], dtype=torch.int32, device=params.device)
     L = ids.shape[1]
@@ -836,7 +870,7 @@ def dense_margin(params, cfg, rope, prompt, toks) -> tuple[float, torch.Tensor]:
     logits = llama.lm_head_logits(params, cfg, hidden[0, T - 1: T - 1 + n])
     got = logits.gather(1, torch.tensor(toks, device=ids.device)[:, None])[:, 0]
     top2 = logits.float().topk(2, dim=1).values
-    return float((logits.max(dim=1).values - got).max()), top2[:, 0] - top2[:, 1]
+    return logits.max(dim=1).values - got, top2[:, 0] - top2[:, 1]
 
 
 QUICKSTART = {"model_config": "llama-3-8b", "max_seq_len": 2048, "max_batch": 8,
@@ -1803,6 +1837,280 @@ def spec_phase(card: str, params) -> dict[str, int]:
     return launches
 
 
+# ------------------------------------------------------------------ lockstep
+def lockstep_run(engine, requests) -> tuple[list, float]:
+    """``requests`` as one :meth:`InferenceEngine.generate_stream` batch:
+    per request its events' tokens, reasons and host times (as
+    :func:`serve` records them), and the wall seconds."""
+    t0 = time.perf_counter()
+    recs = [{"toks": [], "fins": [], "t0": t0, "t1": None, "ts": []} for _ in requests]
+    for ev in engine.generate_stream([p for p, _ in requests], [sp for _, sp in requests]):
+        r, now = recs[ev.request_index], time.perf_counter()
+        r["t1"] = r["t1"] or now
+        r["ts"].append(now)
+        r["toks"].append(ev.token_id)
+        r["fins"].append(ev.finished)
+    return recs, time.perf_counter() - t0
+
+
+def lockstep_step_ms(engine, lengths, k: int = 1) -> float:
+    """Device time (graph replay) of one greedy decode step of the lockstep
+    engine (the plain decode body at k=1 over a dense cache of
+    ``len(lengths)`` rows at ``lengths``), or with ``k`` > 1 of a [1, k]
+    greedy verify span at ``lengths[0]``."""
+    cfg, dev = engine.model_config, engine.device
+    B = len(lengths)
+    cache = llama.init_cache(cfg, B, engine.config.max_seq_len, engine.dtype, device=dev)
+    lens = i32(lengths, dev)
+    toks = torch.randint(3, cfg.vocab_size, (B, k), device=dev, dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(9))
+    if k == 1:
+        fn = build_decode_chunk_fn(cfg, 1, engine.rope_tables)
+        warp = (torch.zeros(B, device=dev), torch.ones(B, device=dev),
+                torch.zeros(B, dtype=torch.int32, device=dev))
+
+        def call():
+            fn(engine.params, cache[0], cache[1], toks[:, 0], lens, engine._generator, *warp,
+               all_greedy=True)
+    else:
+        verify = build_verify_fn(cfg, k - 1, engine.rope_tables)
+
+        def call():
+            verify(engine.params, cache[0], cache[1], toks, lens)
+
+    with torch.inference_mode():
+        ms = graph_ms(call, iters=4, reps=3)
+    del cache
+    return ms
+
+
+def eager_step_profile(engine, length: int, steps: int = 4) -> str:
+    """A bs=1 greedy decode step enqueued eagerly (as the lockstep engine
+    runs it) ``steps`` times under ``torch.profiler``: host ms a step
+    against device ms a step, and the six operators with the most host
+    time."""
+    cfg, dev = engine.model_config, engine.device
+    cache = llama.init_cache(cfg, 1, engine.config.max_seq_len, engine.dtype, device=dev)
+    fn = build_decode_chunk_fn(cfg, 1, engine.rope_tables)
+    args = (engine.params, cache[0], cache[1], i32([5], dev), i32([length], dev),
+            engine._generator, torch.zeros(1, device=dev), torch.ones(1, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        fn(*args, all_greedy=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(steps):
+                fn(*args, all_greedy=True)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / steps
+    rows = prof.key_averages()
+    device_us = sum(r.self_device_time_total for r in rows)
+    top = sorted(rows, key=lambda r: r.self_cpu_time_total, reverse=True)[:6]
+    return (f"wall {wall:.2f} ms a step under the profiler, device {device_us / 1e3 / steps:.2f} "
+            "ms a step; most host time: " + ", ".join(
+                f"{r.key} {r.self_cpu_time_total / 1e3 / steps:.2f} ms x{r.count // steps}"
+                for r in top))
+
+
+def lockstep_storm_phase(card: str, smi: str, params, requests) -> int:
+    """The lockstep engine (``InferenceEngine``, the worker's ``scheduler:
+    lockstep``) at llama-3-8b width on the quickstart's options, the storm's
+    8 requests (16..1500 random ids, 32 out, request 3 on a stop id,
+    request 5 sampled with a seed) as one batch, kernel counts set to 0
+    just before and read just after. Gates: one terminal event a stream;
+    the one prefill ran through flash (one launch a layer) and no paged
+    kernel ran; every greedy token within the margin of the dense forward;
+    each greedy first token of the padded bucket within the margin of the
+    same prompt prefilled alone, unpadded. Printed: ttft, inter-token latency,
+    tokens/s beside the continuous engine's mixed storm on the same
+    requests, and the decode step's device ms beside the paged step's.
+    Returns the flash launches."""
+    label = "lockstep storm"
+    ecfg = engine_config_from_options(QUICKSTART)
+    engine = InferenceEngine(ecfg, params=params, seed=0)
+    if not engine.use_flash:
+        raise AssertionError(f"[{label}] the engine's prefill does not use flash")
+    for _, _, wrapper in KERNELS.values():
+        wrapper.launches = 0
+    recs, wall = lockstep_run(engine, requests)
+    launches = {name: wrapper.launches for name, (_, _, wrapper) in KERNELS.items()}
+    check_streams(recs, requests, lambda sp: set(sp.stop_token_ids) | set(ecfg.eos_token_ids))
+    if launches["flash_self_attention"] != engine.model_config.num_layers or \
+            launches["ragged_paged_attention"] or launches["paged_decode_attention"]:
+        raise AssertionError(f"[{label}] launches {launches}: want flash once a layer for the "
+                             "one prefill, no paged kernel")
+    oracle(label, engine, recs, requests)
+    cfg, dev = engine.model_config, engine.device
+    worst = 0.0
+    with torch.inference_mode():
+        for (prompt, sp), r in zip(requests, recs):
+            if sp.temperature > 0:
+                continue
+            T = len(prompt)
+            ids = i32(prompt, dev)[None]
+            hidden, _ = llama.forward(
+                params, cfg, ids, torch.arange(T, dtype=torch.int32, device=dev)[None],
+                llama.init_cache(cfg, 1, T, engine.dtype, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev), engine.rope_tables,
+                use_flash=True)
+            logits = llama.lm_head_logits(params, cfg, hidden[:, -1])[0]
+            worst = max(worst, float(logits.max() - logits[r["toks"][0]]))
+    log(f"serving [{label}]: every first token of the padded bucket "
+        f"({ecfg.bucket_for(max(len(p) for p, _ in requests))}) within {worst:.4f} of the "
+        f"unpadded prefill's max logit (margin {LOGIT_MARGIN})")
+    if worst > LOGIT_MARGIN:
+        raise AssertionError(f"[{label}] a padded first token sits {worst:.3f} below the "
+                             "unpadded prefill's max")
+    numbers = latency_numbers([r["t0"] for r in recs], [r["ts"] for r in recs],
+                              sum(len(r["toks"]) for r in recs), wall)
+    STORM_NUMBERS[label] = numbers
+    log(f"serving [{label}]: 8 requests in one batch, reasons "
+        f"{[r['fins'][-1] for r in recs]}, launches {launches}")
+    log(f"info [{smi}] serving [{label}]: {format_latency(numbers)}; the continuous "
+        f"engine's mixed storm on the same requests, same call: "
+        f"{format_latency(STORM_NUMBERS['mixed'])}")
+    del engine
+    free_card()
+    lock = InferenceEngine(ecfg, params=params, seed=0)
+    lock_ms = lockstep_step_ms(lock, DECODE_LENS)
+    rope = lock.rope_tables
+    del lock
+    shape = (cfg.num_layers, 321, 64, cfg.num_kv_heads, cfg.head_dim)
+    pools = (torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+             torch.zeros(shape, dtype=torch.bfloat16, device=dev))
+    paged_ms = decode_step_ms(params, rope, pools)
+    log(f"info [{smi}] {label} decode step (8 rows at lengths 127..2046 and the head, device "
+        f"ms, graph replay): lockstep (dense cache, plain attention) {lock_ms:.3f}; paged "
+        f"(the decode kernel) {paged_ms:.3f}")
+    del pools
+    free_card()
+    return launches["flash_self_attention"]
+
+
+LOCKSTEP_SPEC_OUT = 128
+
+
+def lockstep_spec_prompt(vocab: int) -> list[int]:
+    """A random 32-token pattern repeated to 256 tokens."""
+    return np.random.default_rng(23).integers(3, vocab, 32).tolist() * 8
+
+
+def lockstep_spec_run(label: str, engine, prompt, sp) -> dict:
+    """One bs=1 request through ``engine``: its tokens and finish reason
+    (one terminal event), tokens/s, and the engine's speculation counters
+    over this run."""
+    before = {k: (dict(v) if isinstance(v, dict) else v) for k, v in engine.spec_stats.items()}
+    recs, wall = lockstep_run(engine, [(prompt, sp)])
+    check_streams(recs, [(prompt, sp)], lambda s: set(s.stop_token_ids)
+                  | set(engine.config.eos_token_ids))
+    stats = {k: v - before[k] for k, v in engine.spec_stats.items() if k != "accept_hist"}
+    hist = {a: n - before["accept_hist"].get(a, 0)
+            for a, n in engine.spec_stats["accept_hist"].items()
+            if n - before["accept_hist"].get(a, 0)}
+    toks = [t for t in recs[0]["toks"] if t >= 0]
+    out = {"label": label, "toks": toks, "reason": recs[0]["fins"][-1],
+           "tokens_per_s": len(toks) / wall, "stats": stats, "accept_hist": hist,
+           "accept_rate": stats["accepted"] / stats["drafted"] if stats["drafted"] else None}
+    log(f"serving [{label}]: {len(toks)} tokens ({out['reason']}) in {wall:.2f} s = "
+        f"{out['tokens_per_s']:.1f} tokens/s; verify rounds {stats['verify_calls']}, "
+        f"drafts {stats['drafted']}, accepted {stats['accepted']} (rate "
+        f"{out['accept_rate']}), fallback steps {stats['fallback_steps']}; accept-length "
+        f"histogram {hist}")
+    return out
+
+
+def lockstep_spec_phase(card: str, smi: str, params) -> None:
+    """Lockstep speculation at llama-3-8b width, bs=1 (the engine speculates
+    only then), a 32-token pattern repeated to 256 tokens, 128 out,
+    ``spec_k`` 8 (the worker's default): spec off, ``ngram`` and ``draft``
+    with llama-3-8b drafting for itself (a ``DraftModel`` over the target's
+    own tree, set as the engine's draft: a perfect draft).
+
+    bf16 (the worker's dtype): every greedy token of each run within the
+    margin of the dense forward, and a fourth run with a seeded independent
+    llama-3-8b draft (the engine's own synthetic draft; 16 GB more): lossless
+    through the oracle, acceptance ~0. A seeded sampled draft run
+    (temperature 0.8, seed 42) twice: the same tokens, drafts accepted.
+
+    f32 (random weights from seed 0 in f32, one 32 GB tree for the three
+    runs, TF32 off): ngram's and the perfect draft's streams equal spec
+    off's token for token.
+
+    Printed: acceptance and its length histogram, tokens/s beside spec off,
+    and the verify round's device ms beside a decode step's (bs=1)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 runs would not be f32")
+    base = engine_config_from_options(QUICKSTART)
+    cfg = get_config(base.model)
+    prompt = lockstep_spec_prompt(cfg.vocab_size)
+    greedy = SamplingParams(max_tokens=LOCKSTEP_SPEC_OUT)
+    for dtype in ("bfloat16", "float32"):
+        ecfg = dataclasses.replace(base, dtype=dtype)
+        tree = params if dtype == "bfloat16" else llama.init_params(cfg, 0, torch.float32, CARD)
+        runs = {}
+        for mode in ("off", "ngram", "draft"):
+            label = f"lockstep spec {mode}, {dtype}"
+            engine = InferenceEngine(dataclasses.replace(ecfg, speculative=mode,
+                                                         draft_model=ecfg.model),
+                                     params=tree, seed=0)
+            if mode == "draft":  # the target drafting for itself
+                engine._draft = DraftModel(cfg, tree, max_seq=ecfg.max_seq_len,
+                                           dtype=engine.dtype, k=ecfg.spec_k, device=CARD,
+                                           use_flash=engine.use_flash)
+            runs[mode] = lockstep_spec_run(label, engine, prompt, greedy)
+            if mode == "draft" and dtype == "bfloat16":
+                sampled = [lockstep_spec_run(f"lockstep spec draft, bf16, sampled ({n})", engine,
+                                             prompt, SamplingParams(
+                                                 max_tokens=LOCKSTEP_SPEC_OUT, temperature=0.8,
+                                                 seed=42)) for n in (1, 2)]
+                if sampled[0]["toks"] != sampled[1]["toks"] or not sampled[0]["stats"]["accepted"]:
+                    raise AssertionError(f"[lockstep spec sampled] seed 42 twice: equal "
+                                         f"{sampled[0]['toks'] == sampled[1]['toks']}, accepted "
+                                         f"{sampled[0]['stats']['accepted']}")
+                log("serving [lockstep spec draft, bf16, sampled]: temperature 0.8 seed 42 "
+                    f"twice: the same {len(sampled[0]['toks'])} tokens, "
+                    f"{sampled[0]['stats']['accepted']} drafts accepted")
+            if mode != "off" and not runs[mode]["stats"]["verify_calls"]:
+                raise AssertionError(f"[{label}] no verify round ran")
+            del engine
+        if dtype == "bfloat16":
+            engine = InferenceEngine(dataclasses.replace(ecfg, speculative="draft",
+                                                         draft_model=ecfg.model),
+                                     params=tree, seed=0)
+            runs["independent draft"] = lockstep_spec_run(
+                "lockstep spec draft, bf16, independent seeded draft", engine, prompt, greedy)
+            del engine
+            free_card()
+            probe = InferenceEngine(ecfg, params=tree)
+            for mode, run in runs.items():
+                oracle(f"lockstep spec {mode}, bf16", probe, [{"toks": run["toks"]}],
+                       [(prompt, greedy)], None)
+            step = lockstep_step_ms(probe, [len(prompt) + 64])
+            verify = lockstep_step_ms(probe, [len(prompt) + 64], k=ecfg.spec_k + 1)
+            del probe
+            log(f"info [{smi}] lockstep spec, bf16, bs=1 (device ms, graph replay): decode "
+                f"step {step:.3f}; verify round [1, {ecfg.spec_k + 1}] {verify:.3f}")
+        else:
+            for mode in ("ngram", "draft"):
+                d = first_divergence(runs[mode]["toks"], runs["off"]["toks"])
+                if d is not None or runs[mode]["reason"] != runs["off"]["reason"]:
+                    raise AssertionError(f"[lockstep spec {mode}, f32] the stream leaves spec "
+                                         f"off's at token {d}")
+            log(f"serving [lockstep spec, f32]: ngram and the perfect draft give spec off's "
+                f"{len(runs['off']['toks'])} tokens, token for token")
+        probe = InferenceEngine(ecfg, params=tree)
+        log(f"info [{smi}] lockstep spec, {dtype}, a bs=1 decode step enqueued eagerly: "
+            + eager_step_profile(probe, len(prompt) + 64))
+        del probe
+        log(f"info [{smi}] lockstep spec, {dtype} (tokens/s; acceptance): " + "; ".join(
+            f"{mode} {run['tokens_per_s']:.1f} ({run['accept_rate']})"
+            for mode, run in runs.items()))
+        del tree, runs
+        free_card()
+
+
 # ------------------------------------------------- quantization, pools and PD
 QUANT_GOLDEN = ("tiny-llama-golden", "tiny-qwen2-golden", "tiny-llama-outlier")
 #: (bits → max allowed mean |Δlogit| against transformers'), the bounds of
@@ -2049,6 +2357,215 @@ def oracle_spread(label: str, engine, recs, requests) -> None:
         f"{sum(g <= LOGIT_MARGIN for g in gaps)} of {len(gaps)} within {LOGIT_MARGIN}")
 
 
+#: (request index, position) of each flattened row of the routed-MoE call
+#: running now, None where a row carries no real token (set by the forwards
+#: :func:`routes_recorded` wraps)
+_ROUTE_ROWS: list = [None]
+
+
+def _record_routes(store: dict, x, lp, cfg, layer_of: dict) -> None:
+    """Each real row's top-k expert set and its k+1 largest router logits by
+    expert, from the same router product the routed MoE takes."""
+    rows = _ROUTE_ROWS[0]
+    if rows is None:
+        return
+    K = cfg.experts_per_token
+    logits = llama._mm_f32(x.reshape(-1, x.shape[-1]), lp.router).float()
+    top = torch.topk(logits, K + 1, dim=-1)
+    idx, vals = top.indices.cpu().tolist(), top.values.cpu().tolist()
+    layer = layer_of[id(lp)]
+    for r, key in enumerate(rows):
+        if key is not None:
+            store[(key[0], key[1], layer)] = (frozenset(idx[r][:K]), vals[r],
+                                              dict(zip(idx[r], vals[r])))
+
+
+@contextlib.contextmanager
+def routes_recorded(engine, requests):
+    """While the block serves ``requests`` on ``engine`` (decode chunks run
+    eagerly: a graph replays no Python), record every real token's top-k
+    expert set per layer in the served forwards, keyed (request index,
+    position, layer); a re-dispatched position keeps its last, committed
+    computation. Host reads sit on the path: a run inside is not timed.
+    Yields the store."""
+    key_of = {tuple(p): i for i, (p, _) in enumerate(requests)}
+    layer_of = {id(lp): i for i, lp in enumerate(engine.params.layers)}
+    store: dict = {}
+    mixed, decode, routed = llama.forward_paged_mixed, llama.forward_paged_decode, llama._moe_mlp
+    graphs = engine._chunk._graphs
+
+    def slot_requests():
+        return [key_of.get(tuple(st.prompt_ids)) if st is not None else None
+                for st in engine.slots]
+
+    def mixed_rec(params, cfg, input_ids, pools, page_table, hist, q_lens, rope,
+                  write_mask=None, moe_tokens=None):
+        B, Q = input_ids.shape
+        h, ql = hist.tolist(), q_lens.tolist()
+        wm = write_mask.tolist() if write_mask is not None else [True] * B
+        reqs = slot_requests()
+        _ROUTE_ROWS[0] = [(reqs[b], h[b] + t) if reqs[b] is not None and wm[b]
+                          and t < ql[b] else None for b in range(B) for t in range(Q)]
+        try:
+            return mixed(params, cfg, input_ids, pools, page_table, hist, q_lens, rope,
+                         write_mask, moe_tokens)
+        finally:
+            _ROUTE_ROWS[0] = None
+
+    def decode_rec(params, cfg, input_ids, pools, page_table, lengths, rope, write_mask=None):
+        B = input_ids.shape[0]
+        ln = lengths.tolist()
+        wm = write_mask.tolist() if write_mask is not None else [True] * B
+        reqs = slot_requests()
+        _ROUTE_ROWS[0] = [(reqs[b], ln[b]) if reqs[b] is not None and wm[b] else None
+                          for b in range(B)]
+        try:
+            return decode(params, cfg, input_ids, pools, page_table, lengths, rope, write_mask)
+        finally:
+            _ROUTE_ROWS[0] = None
+
+    def routed_rec(x, lp, cfg, valid=None, n_tokens=None):
+        _record_routes(store, x, lp, cfg, layer_of)
+        return routed(x, lp, cfg, valid, n_tokens)
+
+    llama.forward_paged_mixed, llama.forward_paged_decode = mixed_rec, decode_rec
+    llama._moe_mlp = routed_rec
+    engine._chunk._graphs = {}
+    try:
+        yield store
+    finally:
+        llama.forward_paged_mixed, llama.forward_paged_decode = mixed, decode
+        llama._moe_mlp = routed
+        engine._chunk._graphs = graphs
+
+
+def bf16_ulp(v: float) -> float:
+    """One bf16 ulp at |v| (8 significand bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(v), 1e-30))) - 7)
+
+
+def routing_flips(label: str, engine, recs, requests, served: dict) -> None:
+    """The bf16 dense-MoE oracle's distances explained by routing. For each
+    greedy stream: the dense forward with the dense MoE oracle over prompt +
+    output, its top-k expert set per (position, layer) against the served
+    forward's (``served``, :func:`routes_recorded`), over every position
+    the emitted tokens read. A flip is a position and layer where the sets
+    differ; its margin is the oracle's gap between the k-th and the (k+1)-th
+    router logit, against one bf16 ulp there, beside how far the two
+    forwards' logits of the same experts lie apart there (what rounding
+    moved). Printed: each stream's flips, its first flip's margin, its
+    distance, and whether its first flip sits below one bf16 ulp. Gates:
+    every stream more than LOGIT_MARGIN off has a flip at a margin below
+    one bf16 ulp (rounding can decide it); every token emitted before a
+    stream's first flip lies within LOGIT_MARGIN of the oracle; and every
+    greedy token lies within LOGIT_MARGIN of the dense-MoE oracle routed as
+    the served forward routed (each position and layer's served top-k set):
+    what is left once routing agrees is the rest of the forward's
+    rounding."""
+    cfg = engine.model_config
+    K = cfg.experts_per_token
+    layer_of = {id(lp): i for i, lp in enumerate(engine.params.layers)}
+    dense = llama._moe_mlp_dense
+    report, faults = [], []
+    with torch.inference_mode(), dense_moe():
+        for i, (r, (prompt, sp)) in enumerate(zip(recs, requests)):
+            if sp.temperature > 0:
+                continue
+            toks = [t for t in r["toks"] if t >= 0]
+            oracle_routes: dict = {}
+            n_pos = len(prompt) + len(toks) - 1
+
+            def dense_rec(x, lp, cfg_, i=i, oracle_routes=oracle_routes, n_pos=n_pos):
+                _ROUTE_ROWS[0] = [(i, p) for p in range(x.shape[1])]
+                try:
+                    _record_routes(oracle_routes, x, lp, cfg_, layer_of)
+                finally:
+                    _ROUTE_ROWS[0] = None
+                return dense(x, lp, cfg_)
+
+            llama._moe_mlp_dense = dense_rec
+            try:
+                gaps, _ = dense_gaps(engine.params, cfg, engine.rope_tables, prompt, toks)
+            finally:
+                llama._moe_mlp_dense = dense
+            gaps = gaps.float().cpu().tolist()
+            keep_by_layer = []
+            for layer in range(cfg.num_layers):
+                keep = np.zeros((1, n_pos, cfg.num_experts), bool)
+                for p in range(n_pos):
+                    keep[0, p, list(served[(i, p, layer)][0])] = True
+                keep_by_layer.append(torch.from_numpy(keep).to(engine.params.device))
+
+            def dense_as_served(x, lp, cfg_, keep_by_layer=keep_by_layer):
+                return dense(x, lp, cfg_, keep=keep_by_layer[layer_of[id(lp)]])
+
+            llama._moe_mlp_dense = dense_as_served
+            try:
+                as_served, _ = dense_gaps(engine.params, cfg, engine.rope_tables, prompt, toks)
+            finally:
+                llama._moe_mlp_dense = dense
+            as_served = float(as_served.max())
+            flips = []
+            for p in range(n_pos):
+                for layer in range(cfg.num_layers):
+                    key = (i, p, layer)
+                    if key not in served:
+                        raise AssertionError(f"[{label}] no served routing at request {i}, "
+                                             f"position {p}, layer {layer}")
+                    want_set, vals, by_expert = oracle_routes[key]
+                    if served[key][0] != want_set:
+                        margin = vals[K - 1] - vals[K]
+                        # how far rounding moved the logits both forwards saw
+                        shared = set(by_expert) & set(served[key][2])
+                        moved = max((abs(by_expert[e] - served[key][2][e]) for e in shared),
+                                    default=float("nan"))
+                        flips.append((p, layer, margin, bf16_ulp(vals[K - 1]), moved))
+            first = flips[0] if flips else None
+            # token j is read from row len(prompt)-1+j
+            before = [g for j, g in enumerate(gaps)
+                      if first is None or len(prompt) - 1 + j < first[0]]
+            worst = max(gaps)
+            report.append({
+                "request": i, "distance": round(worst, 4),
+                "distance_routed_as_served": round(as_served, 4), "flips": len(flips),
+                "positions": n_pos, "first_flip": None if first is None else {
+                    "position": first[0], "in_prompt": first[0] < len(prompt),
+                    "layer": first[1], "margin": first[2], "ulp": first[3],
+                    "margin_in_ulps": round(first[2] / first[3], 3),
+                    "logits_moved_in_ulps": round(first[4] / first[3], 3)},
+                "tokens_before_first_flip": len(before),
+                "their_distance": round(max(before), 4) if before else None,
+                "flip_margins_in_ulps": [round(m / u, 2) for _, _, m, u, _ in flips[:12]],
+                "least_flip_margin_in_ulps": round(min(m / u for _, _, m, u, _ in flips), 3)
+                if flips else None})
+            if as_served > LOGIT_MARGIN:
+                faults.append(f"request {i}: {as_served:.3f} off the oracle routed as served")
+            if worst > LOGIT_MARGIN and not any(m < u for _, _, m, u, _ in flips):
+                faults.append(f"request {i}: {worst:.3f} off the oracle with no flip at a "
+                              "margin below one bf16 ulp")
+            if before and max(before) > LOGIT_MARGIN:
+                faults.append(f"request {i}: a token before the first flip sits "
+                              f"{max(before):.3f} off the oracle")
+    log(f"serving [{label}] routing, served against the dense-MoE oracle forward "
+        f"(flip: another top-{K} set at a position and layer; margin: the oracle's "
+        f"k-th minus (k+1)-th router logit): " + json.dumps(report))
+    off = [e for e in report if e["distance"] > LOGIT_MARGIN]
+    log(f"serving [{label}] routing verdict: {len(off)} of {len(report)} greedy streams "
+        f"more than {LOGIT_MARGIN} off the oracle; each has a flip below one bf16 ulp: "
+        f"{not any('no flip' in f for f in faults)}; each has its first flip "
+        f"below one bf16 ulp: "
+        f"{all(e['first_flip'] and e['first_flip']['margin_in_ulps'] < 1 for e in off)}; "
+        f"every first flip's margin within twice what rounding moved the logits there: "
+        f"{all(e['first_flip']['margin_in_ulps'] < 2 * e['first_flip']['logits_moved_in_ulps'] for e in off if e['first_flip'])}; "
+        f"every token before a stream's first flip within {LOGIT_MARGIN}: "
+        f"{not any('before' in f for f in faults)}; every greedy token within "
+        f"{LOGIT_MARGIN} of the oracle routed as served: "
+        f"{not any('as served' in f for f in faults)} (largest "
+        f"{max(e['distance_routed_as_served'] for e in report):.4f})")
+    if faults:
+        raise AssertionError(f"[{label}] routing: " + "; ".join(faults))
+
+
 def mixtral_phase(card: str, smi: str) -> None:
     """mixtral-8x7b at full width (H 4096, 32 layers, 8 experts top-2, I
     14336, V 32000), random weights from seed 0 quantized int8 as drawn,
@@ -2058,13 +2575,15 @@ def mixtral_phase(card: str, smi: str) -> None:
     for a round's padded rows, capped at its real tokens
     (``llama.moe_capacity``), so a round of these prompts drops nothing.
 
-    (a) bf16 (what the worker serves): the storm timed; then, cold again,
-    the same requests with every eager routed-MoE call held against its
-    plain version at the same routing and capacity (:func:`moe_checked`),
-    the drops counted, and the dense-MoE oracle's distances printed (with
-    no drop they stay far above 0.1 at bf16: two paths' bf16 roundings
-    differ, a near-tie between experts can route a token to another
-    expert, and a whole expert moves its row, so 0.1 cannot gate bf16). The decode
+    (a) bf16 (what the worker serves): the storm timed; then, cold again and
+    with decode chunks eager, the same requests with every eager routed-MoE
+    call held against its plain version at the same routing and capacity
+    (:func:`moe_checked`), the drops counted, the dense-MoE oracle's
+    distances printed (with no drop they stay far above 0.1 at bf16: a
+    near-tie between experts, decided by the two forwards' bf16 rounding,
+    routes a token to another expert, and a whole expert moves its row),
+    and every served routing recorded (:func:`routes_recorded`) for
+    :func:`routing_flips`, whose gates hold bf16 per token. The decode
     step's routed MoE once eagerly under the same check, the tree's bytes,
     the peak allocated and the decode step's device time.
 
@@ -2089,9 +2608,11 @@ def mixtral_phase(card: str, smi: str) -> None:
             serving_phase(card, label, engine, ecfg, requests, **gates)
             serve_peak = torch.cuda.max_memory_allocated()
             flush_prefix_cache(engine)
-            with moe_checked() as moe:
+            with moe_checked() as moe, routes_recorded(engine, requests) as served:
                 recs = serve(engine, requests)
             engine.shutdown()
+            check_streams(recs, requests,
+                          lambda sp: set(sp.stop_token_ids) | set(ecfg.eos_token_ids))
             check_pool(label + ", checked", engine.stats())
         else:
             with moe_checked() as moe:
@@ -2112,6 +2633,8 @@ def mixtral_phase(card: str, smi: str) -> None:
                 oracle(label + ", dense MoE oracle", engine, recs, requests)
             else:
                 oracle_spread(label + ", dense MoE oracle", engine, recs, requests)
+        if dtype == "bfloat16":
+            routing_flips(label, engine, recs, requests, served)
         pools = (engine.pool.k_pool, engine.pool.v_pool)
         # the decode chunk's routed MoE (8 rows, inside a graph when served)
         # called eagerly once at its shape under the same check
@@ -2330,7 +2853,7 @@ def pd_phase(card: str, smi: str, params, requests, unified: list) -> None:
 def serving_phases(card: str, smi: str) -> dict[str, int]:
     """The serving runs on one set of weights. Returns the kernels'
     main-path launch counts: the paged kernels from the mixed run, flash
-    from the phase-separated run."""
+    from the phase-separated run and the lockstep storm."""
     engine, ecfg = build_engine("mixed", QUICKSTART)
     requests = storm_requests(engine, ecfg)
     mixed, stats, unified = serving_phase(card, "mixed", engine, ecfg, requests,
@@ -2386,6 +2909,8 @@ def serving_phases(card: str, smi: str) -> dict[str, int]:
     preempt_phase(card, params)
     tenants_phase(card, params)
     SPEC_LAUNCHES.update(spec_phase(card, params))
+    lockstep_flash = lockstep_storm_phase(card, smi, params, requests)
+    lockstep_spec_phase(card, smi, params)
     quant_phase(card, smi, params)
     dp_phase(card, smi, params)
     pd_phase(card, smi, params, requests, unified)
@@ -2395,7 +2920,7 @@ def serving_phases(card: str, smi: str) -> dict[str, int]:
     tiny_quickstart_run(card)
     return {"ragged_paged_attention": mixed["ragged_paged_attention"],
             "paged_decode_attention": mixed["paged_decode_attention"],
-            "flash_self_attention": phase["flash_self_attention"]}
+            "flash_self_attention": phase["flash_self_attention"] + lockstep_flash}
 
 
 # ------------------------------------------------------------------ HTTP phases
@@ -2672,6 +3197,7 @@ def http_storm(card: str, port: int, engine, bare, recorded: list[dict],
     numbers = latency_numbers([r["t0"] for r in recs],
                               [[t for t, _, d in r["frames"] if d != "[DONE]"] for r in recs],
                               served, wall)
+    STORM_NUMBERS[label] = numbers
     log(f"serving [{label}]: 8 SSE streams, SSE contract held, finish "
         f"{[c[-1]['finish_reason'] for c in chunks]}, usage = engine tokens ({served}), "
         "each stream's text = decode of its engine token ids (oracle above), "
@@ -2930,6 +3456,108 @@ def http_phase(card: str) -> dict[str, int]:
     return launches
 
 
+def record_lockstep_ids(engine) -> list[dict]:
+    """Wraps ``engine.generate_stream`` (the lockstep batcher's way into the
+    engine) so that each request's prompt ids and emitted token ids are
+    kept, as :func:`record_tokens` does at a continuous engine's submit."""
+    got: list[dict] = []
+    stream = engine.generate_stream
+
+    def recording(prompts, sampling):
+        recs = [{"prompt": list(p), "toks": []} for p in prompts]
+        got.extend(recs)
+        for ev in stream(prompts, sampling):
+            if ev.token_id >= 0:
+                recs[ev.request_index]["toks"].append(ev.token_id)
+            yield ev
+
+    engine.generate_stream = recording
+    return got
+
+
+def http_lockstep_phase(card: str) -> int:
+    """The port's server with the worker at ``scheduler: lockstep`` serving
+    llama-3-8b (the quickstart's options, random bf16 weights from seed 0):
+    the HTTP storm's 8 SSE ``/v1/completions`` (16..1500 tokens, 32 out)
+    from 3 client threads, batched by the worker's 4 ms window, kernel
+    counts set to 0 just before and read just after. Gates: the SSE
+    contract, each stream's usage equal to the token ids recorded at the
+    engine and its text their decode, those ids through the dense oracle,
+    flash launched and the paged kernels not. Printed: ttft, inter-token
+    latency and tokens/s at the socket beside the continuous HTTP storm's.
+    Returns the flash launches."""
+    label = "http lockstep storm"
+    cfg = http_config()
+    llama_entry = cfg["modules"]["model_registry"]["config"]["models"][0]
+    cfg["modules"]["model_registry"]["config"]["models"] = [llama_entry]
+    cfg["modules"]["llm_gateway"]["config"]["worker"] = {"scheduler": "lockstep"}
+    srv = BackgroundServer(cfg).start()
+    try:
+        t = time.perf_counter()
+        status, _, body = http_json(srv.port, "/v1/completions",
+                                    {"model": HTTP_MODEL, "prompt": "warm", "max_tokens": 2})
+        if status != 200:
+            raise AssertionError(f"[{label}] first request: {status} {body}")
+        engine = srv.host.worker.engine(HTTP_MODEL)
+        if not isinstance(engine, InferenceEngine) or not engine.use_flash:
+            raise AssertionError(f"[{label}] the worker built {engine!r}")
+        log(f"serving [{label}]: {HTTP_MODEL} lockstep engine built by the worker on first "
+            f"request and served in {time.perf_counter() - t:.1f} s")
+        recorded = record_lockstep_ids(engine)
+        rng = np.random.default_rng(5)
+        prompts = [letters(rng, n - 1) for n in HTTP_STORM_LENS]
+        recs: list = [None] * len(prompts)
+
+        def client(idx):
+            got = sse_streams(srv.port, [{"model": HTTP_MODEL, "prompt": prompts[i],
+                                          "max_tokens": 32} for i in idx])
+            for i, rec in zip(idx, got):
+                recs[i] = rec
+
+        for _, _, wrapper in KERNELS.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(range(i, len(prompts), 3),))
+                   for i in range(3)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        wall = time.perf_counter() - t0
+        launches = {name: wrapper.launches for name, (_, _, wrapper) in KERNELS.items()}
+        tok = ByteTokenizer(engine.model_config.vocab_size)
+        requests = [(tok.encode(p), SamplingParams(max_tokens=32)) for p in prompts]
+        chunks = [sse_chunks(f"{label} {i}", rec) for i, rec in enumerate(recs)]
+        ids = [recorded_for(label, recorded, prompt) for prompt, _ in requests]
+        for i, (c, toks) in enumerate(zip(chunks, ids)):
+            u = c[-1]["usage"]
+            if u["input_tokens"] != HTTP_STORM_LENS[i] or u["output_tokens"] != len(toks) \
+                    or streamed_text(c) != tok.decode(toks):
+                raise AssertionError(f"[{label}] request {i}: usage {u} and the streamed "
+                                     f"text against the engine's {len(toks)} token ids")
+        oracle(label, engine, [{"toks": t} for t in ids], requests, None)
+        if launches["flash_self_attention"] <= 0 or launches["ragged_paged_attention"] \
+                or launches["paged_decode_attention"]:
+            raise AssertionError(f"[{label}] launches {launches}: want flash, no paged kernel")
+        numbers = latency_numbers([r["t0"] for r in recs],
+                                  [[t for t, _, d in r["frames"] if d != "[DONE]"]
+                                   for r in recs], sum(len(t) for t in ids), wall)
+        STORM_NUMBERS[label] = numbers
+        log(f"serving [{label}]: 8 SSE streams, SSE contract held, finish "
+            f"{[c[-1]['finish_reason'] for c in chunks]}, usage = engine tokens, each "
+            f"stream's text = decode of its engine token ids (oracle above), launches "
+            f"{launches} ({launches['flash_self_attention'] // engine.model_config.num_layers} "
+            f"prefill batches for {len(recorded)} requests)")
+        log(f"info [{card}] serving [{label}] (client side, at the socket): "
+            f"{format_latency(numbers)}; the continuous http storm, same call: "
+            f"{format_latency(STORM_NUMBERS['http storm'])}")
+    finally:
+        srv.stop()
+    del srv
+    free_card()
+    return launches["flash_self_attention"]
+
+
 def boot_phase() -> None:
     """``python3 -m cyberfabric_core_tpu_torch.server run --config`` on the
     port's quickstart config at port 0, as a child process: /health within
@@ -3083,6 +3711,7 @@ def main() -> int:
     # the slice's main path: the paged kernels' launches from the HTTP storm
     # (flash is not on it; its count stays the phase-separated run's)
     http_launches = http_phase(smi)  # its numbers carry the card's name and power limit
+    http_lockstep_phase(smi)
     # ... and the speculative storm's (its k=4 run), each read just after it
     for name in ("ragged_paged_attention", "paged_decode_attention"):
         launches[name] = http_launches[name] + SPEC_LAUNCHES[name]

@@ -256,15 +256,19 @@ def _experts_f32(w) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     return w.float(), None
 
 
-def _moe_mlp_dense(x: torch.Tensor, lp: LlamaLayer, cfg: ModelConfig) -> torch.Tensor:
+def _moe_mlp_dense(x: torch.Tensor, lp: LlamaLayer, cfg: ModelConfig,
+                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The MoE oracle: every expert computes, and a top-k mask softmaxes the
     router logits over the selected experts (Mixtral). E times the routed
-    FLOPs; the routed form is held against it. Returns f32 [B, T, H]."""
+    FLOPs; the routed form is held against it. ``keep`` [B, T, E] bool: the
+    experts each token takes in place of its own top k (an oracle routed as
+    another forward routed). Returns f32 [B, T, H]."""
     K = cfg.experts_per_token
     router_logits = _mm_f32(x, lp.router)                     # [B, T, E]
-    threshold = torch.topk(router_logits, K, dim=-1).values[..., K - 1:K]
-    masked = torch.where(router_logits >= threshold, router_logits,
-                         torch.full_like(router_logits, -1e30))
+    if keep is None:
+        threshold = torch.topk(router_logits, K, dim=-1).values[..., K - 1:K]
+        keep = router_logits >= threshold
+    masked = torch.where(keep, router_logits, torch.full_like(router_logits, -1e30))
     weights = torch.softmax(masked, dim=-1)                    # zeros off the top k
     xf = x.float()
 

@@ -1,8 +1,8 @@
-"""LocalTorchWorker: the llm-gateway's worker on the port's engine (the
-port's copy of ``modules/llm_gateway/worker.py`` ``LocalTpuWorker``, its
-continuous path).
+"""LocalTorchWorker: the llm-gateway's worker on the port's engines (the
+port's copy of ``modules/llm_gateway/worker.py`` ``LocalTpuWorker``).
 
-One :class:`..runtime.scheduler.ContinuousBatchingEngine` per model,
+With the worker config's ``scheduler`` at ``"continuous"`` (the default),
+one :class:`..runtime.scheduler.ContinuousBatchingEngine` per model,
 built on first use off the event loop from the registry entry's
 ``engine_options``, mapped exactly as the JAX worker maps them
 (:func:`plan_engine`), and wrapped in an
@@ -29,13 +29,24 @@ when its consumer lets go before the engine ended the request (a client
 disconnect, a gateway timeout), cancels the request in the engine with
 ``reason="client_disconnect"``.
 
+With ``scheduler: "lockstep"``, one :class:`..runtime.engine.InferenceEngine`
+per model behind a :class:`_DynamicBatcher`: requests that arrive within
+``batch_window_ms`` (up to ``max_batch``) run as one lockstep batch on an
+executor thread, prefilled through the flash kernel on the card; a bs=1
+batch speculates when ``speculative`` is ``"ngram"`` (greedy) or
+``"draft"`` (``draft_model``, ``draft_checkpoint``, ``spec_k``). The
+lockstep engine has no cancellation, deadlines or tenants, as in JAX: a
+stream whose client left runs to its end, and its events are dropped.
+Under the continuous scheduler ``speculative`` is inert: the worker logs
+JAX's warning and the scheduler's own rounds (``scheduler_spec_k``,
+``spec_min_accept``, ``spec_max_ngram``, ``spec_min_ngram``) are what
+speculate.
+
 Options the JAX worker maps to paths the port does not have (tensor
-parallelism, the lockstep scheduler and its draft speculation) raise a
-``not_ported`` problem naming their ROADMAP item; none is ignored. The
-combinations the JAX worker refuses (a one-sided PD split, PD with dp or
-tp, dp with tp) raise its ``ValueError``s. The continuous scheduler's speculative rounds
-(``scheduler_spec_k``, ``spec_min_accept``, ``spec_max_ngram``,
-``spec_min_ngram``) are served.
+parallelism and the feasibility gate) raise a ``not_ported`` problem
+naming their ROADMAP item; none is ignored. The combinations the JAX worker
+refuses (a one-sided PD split, PD with dp or tp, dp with tp) raise its
+``ValueError``s.
 
 Embeddings (:meth:`LocalTorchWorker.embed`): one bert encoder per model,
 built once on first use (a named checkpoint that is missing raises; no
@@ -65,8 +76,10 @@ from ...modkit.errcat import ERR
 from ...modkit.errors import ProblemError
 from ...models import bert
 from ...models.configs import ModelConfig, get_config
-from ...runtime.engine import (EngineConfig, SamplingParams, SchedulerSaturated,
-                               StepEvent, TenantQuotaExceeded, TenantSaturated)
+from ...device import on_card
+from ...runtime.engine import (EngineConfig, InferenceEngine, SamplingParams,
+                               SchedulerSaturated, StepEvent, TenantQuotaExceeded,
+                               TenantSaturated)
 from ...runtime.lifecycle import (EngineSupervisor, LifecycleConfig, LifecycleStateError,
                                   ReplicaUnavailable)
 from ...runtime.pd import PDServingPool
@@ -79,8 +92,11 @@ from ..sdk import ChatStreamChunk, LlmWorkerApi, ModelInfo
 
 logger = logging.getLogger("llm_worker")
 
+#: the worker config's ``scheduler`` words
+SCHEDULERS = ("continuous", "lockstep")
+
 #: the worker config keys (``llm_gateway.config.worker``); ``batch_window_ms``
-#: paces the lockstep batcher only, which the continuous path never runs
+#: paces the lockstep batcher only
 WORKER_KEYS = frozenset({"device", "scheduler", "max_engine_threads", "batch_window_ms",
                          "max_loaded_models", "hbm_bytes", "hbm_headroom_frac"})
 
@@ -132,15 +148,23 @@ class EnginePlan:
     #: replicas of each role of a PD pool (0: no split)
     pd_prefill: int = 0
     pd_decode: int = 0
+    #: the worker config's scheduler: "continuous" or "lockstep"
+    scheduler: str = "continuous"
 
 
 def plan_engine(model: ModelInfo, scheduler: str = "continuous") -> EnginePlan:
     """``engine_options`` → :class:`EngineConfig`, field for field as
     ``worker.py:312-397`` maps them (the same defaults and the same default
     page count), then the chat family, the lifecycle knobs and the
-    checkpoint. Raises a ``not_ported`` problem for an option or a
-    ``scheduler`` the port does not serve, and for an option the JAX worker
-    does not know."""
+    checkpoint. Raises a ``not_ported`` problem for an option the port does
+    not serve and for one the JAX worker does not know, and ``ValueError``
+    for a ``scheduler`` that is not in :data:`SCHEDULERS`. Under the
+    lockstep scheduler the pool and lifecycle options are inert (the JAX
+    worker reads them only for the continuous one); ``speculative`` is inert
+    under the continuous one, with JAX's warning."""
+    if scheduler not in SCHEDULERS:
+        raise ValueError(f"llm_gateway worker config: scheduler must be one of "
+                         f"{SCHEDULERS}, got {scheduler!r}")
     opts = dict(model.engine_options or {})
     arch_config = opts.pop("model_config", None) or model.provider_model_id
     chat_family = opts.pop("chat_family", None) or chat_family_for(arch_config)
@@ -211,13 +235,19 @@ def plan_engine(model: ModelInfo, scheduler: str = "continuous") -> EnginePlan:
             f"combine with tp={cfg.tp} (a dp pool pins one device per replica; "
             "tensor-parallel pools are a future rung)")
     quant_bits(cfg.quantization)  # an unknown word raises here
+    if cfg.speculative not in ("off", "ngram", "draft"):
+        raise ValueError(f"engine_options for {model.canonical_id}: speculative must be "
+                         f"'off', 'ngram' or 'draft', got {cfg.speculative!r}")
+    if cfg.speculative != "off" and scheduler == "continuous":
+        logger.warning(
+            "engine_options.speculative=%r is inert under the continuous scheduler (that "
+            "field drives the lockstep bs=1 path); set engine_options.scheduler_spec_k "
+            "for batched speculative decoding in the continuous scheduler, or scheduler: "
+            "lockstep for this model", cfg.speculative)
     unported = [
-        (scheduler != "continuous", f"scheduler: {scheduler}", "7 (lockstep engine)"),
         (cfg.tp > 1, f"tp={cfg.tp}", "9 (multi-GPU)"),
         (cfg.hbm_bytes_per_device > 0,
          f"hbm_bytes_per_device={cfg.hbm_bytes_per_device}", "9 (feasibility gate)"),
-        (cfg.speculative != "off", f"speculative={cfg.speculative!r}",
-         "7 (lockstep engine and draft speculation)"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -233,6 +263,8 @@ def plan_engine(model: ModelInfo, scheduler: str = "continuous") -> EnginePlan:
         # synthetic weights: the byte tokenizer's end of sequence
         cfg = EngineConfig(**{**cfg.__dict__, "eos_token_ids": (
             ByteTokenizer(get_config(arch_config).vocab_size).eos_id,)})
+    if scheduler == "lockstep":
+        return EnginePlan(cfg, chat_family, lifecycle, ckpt, scheduler=scheduler)
     return EnginePlan(cfg, chat_family, lifecycle, ckpt, dp_replicas=dp_replicas,
                       pd_prefill=pd_prefill, pd_decode=pd_decode)
 
@@ -275,11 +307,104 @@ class _EmbedEntry:
     cfg: ModelConfig
 
 
+#: the batcher's end of one request's events (after its terminal event, or
+#: after the exception that ended its batch)
+_STREAM_END = object()
+
+
+@dataclass
+class _Request:
+    prompt_ids: list[int]
+    sampling: SamplingParams
+    queue: asyncio.Queue
+
+
+class _DynamicBatcher:
+    """Collects lockstep requests for up to ``window_ms`` and runs up to
+    ``max_batch`` of them as one :meth:`InferenceEngine.generate_stream` on
+    the executor, one batch at a time (JAX ``worker.py:119-183``). Each
+    request's queue gets its events, then :data:`_STREAM_END`; a failed
+    batch puts the exception in every request's queue before the end, so a
+    consumer reports the failure and never an empty stream."""
+
+    def __init__(self, engine: InferenceEngine, executor: ThreadPoolExecutor,
+                 window_ms: float = 4.0) -> None:
+        self._engine = engine
+        self._executor = executor
+        self._window = window_ms / 1000.0
+        self._pending: list[_Request] = []
+        #: requests of the batch on the executor now
+        self.running = 0
+        self._wakeup = asyncio.Event()
+        self._task: Optional[asyncio.Task] = None
+        self._closed = False
+
+    @property
+    def pending(self) -> int:
+        return len(self._pending)
+
+    def submit(self, req: _Request) -> None:
+        if self._closed:
+            raise RuntimeError("the lockstep engine is closed; build a fresh one")
+        self._pending.append(req)
+        self._wakeup.set()
+        if self._task is None or self._task.done():
+            self._task = asyncio.ensure_future(self._run())
+
+    def close(self) -> None:
+        """No new request; the batch on the executor runs to its end."""
+        self._closed = True
+        self._wakeup.set()
+
+    async def _run(self) -> None:
+        loop = asyncio.get_running_loop()
+        while not self._closed:
+            if not self._pending:
+                self._wakeup.clear()
+                try:
+                    await asyncio.wait_for(self._wakeup.wait(), timeout=5.0)
+                except asyncio.TimeoutError:
+                    if not self._pending:
+                        return  # idle exit; the next submit starts a new task
+                continue
+            await asyncio.sleep(self._window)  # the batching window
+            batch = self._pending[:self._engine.config.max_batch]
+            del self._pending[:len(batch)]
+            self.running = len(batch)
+            try:
+                await loop.run_in_executor(self._executor, self._drive, loop, batch)
+            finally:
+                self.running = 0
+
+    def _drive(self, loop: asyncio.AbstractEventLoop, batch: list[_Request]) -> None:
+        """The executor thread: the blocking lockstep generation."""
+
+        def put(req: _Request, item: Any) -> None:
+            try:
+                loop.call_soon_threadsafe(req.queue.put_nowait, item)
+            except RuntimeError:  # the event loop closed: nobody is listening
+                pass
+
+        try:
+            with on_card(self._engine.device):
+                for ev in self._engine.generate_stream([r.prompt_ids for r in batch],
+                                                       [r.sampling for r in batch]):
+                    put(batch[ev.request_index], ev)
+        except Exception as e:  # noqa: BLE001 — handed to every consumer of the batch
+            logger.exception("lockstep batch generation failed")
+            for req in batch:
+                put(req, e)
+        finally:
+            for req in batch:
+                put(req, _STREAM_END)
+
+
 @dataclass
 class _EngineEntry:
     config: EngineConfig
     tokenizer: Tokenizer
-    #: one engine, or None when a replica pool serves the model
+    #: one continuous engine, or None when a replica pool or the lockstep
+    #: engine serves the model
     scheduler: Optional[ContinuousBatchingEngine]
     supervisor: Optional[EngineSupervisor] = None
     model_family: str = "llama"
@@ -290,18 +415,29 @@ class _EngineEntry:
     streams: int = 0
     #: dp_replicas > 1 or a PD split: the pool is the request router
     pool: Optional[DataParallelServingPool] = None
+    #: the lockstep scheduler: the engine and the batcher in front of it
+    engine: Optional[InferenceEngine] = None
+    batcher: Optional[_DynamicBatcher] = None
 
     @property
     def target(self) -> Any:
-        """What requests are submitted to and cancelled at."""
+        """What continuous requests are submitted to and cancelled at (None
+        for the lockstep engine, which takes no cancellation)."""
         return self.pool if self.pool is not None else self.scheduler
 
     @property
     def idle(self) -> bool:
-        return self.streams == 0 and self.target.in_flight() == 0
+        if self.streams:
+            return False
+        if self.batcher is not None:
+            return self.batcher.pending == 0 and self.batcher.running == 0
+        return self.target.in_flight() == 0
 
     def close(self, timeout: float = 5.0) -> None:
-        self.target.close(timeout=timeout)
+        if self.batcher is not None:
+            self.batcher.close()
+        else:
+            self.target.close(timeout=timeout)
 
 
 class LocalTorchWorker(LlmWorkerApi):
@@ -329,9 +465,12 @@ class LocalTorchWorker(LlmWorkerApi):
 
     # ------------------------------------------------------------------ engines
     def engine(self, canonical_id: str) -> Any:
-        """The model's engine (or its replica pool), once built."""
+        """The model's engine (its replica pool, or its lockstep engine),
+        once built."""
         entry = self._entries.get(canonical_id)
-        return entry.target if entry is not None else None
+        if entry is None:
+            return None
+        return entry.engine if entry.engine is not None else entry.target
 
     async def _entry_for(self, model: ModelInfo) -> _EngineEntry:
         key = model.canonical_id
@@ -413,7 +552,7 @@ class LocalTorchWorker(LlmWorkerApi):
     def _build_entry(self, model: ModelInfo) -> _EngineEntry:
         """Runs on an executor thread: on CUDA the engine captures its decode
         graphs here and replays them on its scheduler thread."""
-        plan = plan_engine(model, self._config.get("scheduler", "continuous"))
+        plan = plan_engine(model, str(self._config.get("scheduler", "continuous")))
         cfg = plan.config
         params = None
         tokenizer: Tokenizer
@@ -427,6 +566,16 @@ class LocalTorchWorker(LlmWorkerApi):
             tokenizer = load_tokenizer(plan.checkpoint)
         else:
             tokenizer = ByteTokenizer(get_config(cfg.model).vocab_size)
+        if plan.scheduler == "lockstep":
+            engine = InferenceEngine(cfg, params=params, device=self._device)
+            logger.info("lockstep engine ready for %s (%s on %s, max_batch=%d, max_seq=%d, "
+                        "speculative=%s)", model.canonical_id, cfg.model, engine.device,
+                        cfg.max_batch, cfg.max_seq_len, cfg.speculative)
+            return _EngineEntry(
+                config=cfg, tokenizer=tokenizer, scheduler=None, engine=engine,
+                model_family=plan.chat_family,
+                batcher=_DynamicBatcher(engine, self._executor, window_ms=float(
+                    self._config.get("batch_window_ms", 4.0))))
         lifecycle = plan.lifecycle if plan.lifecycle.enabled else None
         if plan.pd_prefill > 0 or plan.dp_replicas > 1:
             n = plan.pd_prefill + plan.pd_decode if plan.pd_prefill > 0 else plan.dp_replicas
@@ -566,7 +715,7 @@ class LocalTorchWorker(LlmWorkerApi):
         request_id = params.get("_request_id") or f"chat-{uuid.uuid4().hex[:20]}"
         if request_id in self._live:
             request_id = f"{request_id}-{uuid.uuid4().hex[:8]}"
-        if entry.pool is None and not entry.scheduler.servable() \
+        if entry.scheduler is not None and not entry.scheduler.servable() \
                 and entry.supervisor is not None:
             # rebuild in place off the event loop before admitting
             try:
@@ -574,9 +723,13 @@ class LocalTorchWorker(LlmWorkerApi):
                     self._executor, entry.supervisor.ensure, entry.scheduler)
             except ReplicaUnavailable as e:
                 raise ERR.llm.replica_unavailable.error(str(e), retry_after_s=e.retry_after_s)
+        #: where the request is cancelled (None: the lockstep engine)
         engine = entry.target
         queue: asyncio.Queue = asyncio.Queue()
-        self._submit(entry, prompt_ids, sampling, queue, request_id, params)
+        if entry.batcher is not None:
+            entry.batcher.submit(_Request(list(prompt_ids), sampling, queue))
+        else:
+            self._submit(entry, prompt_ids, sampling, queue, request_id, params)
         self._live.add(request_id)
         stop_strings = tuple(params.get("stop", ()) or ())
         max_stop_len = max((len(s) for s in stop_strings), default=0)
@@ -589,7 +742,15 @@ class LocalTorchWorker(LlmWorkerApi):
         stream_done = False
         try:
             while True:
-                ev: StepEvent = await queue.get()
+                item = await queue.get()
+                if item is _STREAM_END:
+                    # the lockstep batch ended without this request's terminal
+                    stream_done = True
+                    raise ProblemError.internal("generation ended without a finish event")
+                if isinstance(item, Exception):
+                    stream_done = True
+                    raise ProblemError.internal(f"generation failed: {item}")
+                ev: StepEvent = item
                 if ev.finished == "error":
                     stream_done = True
                     raise ProblemError.internal("generation failed in scheduler")
@@ -655,12 +816,15 @@ class LocalTorchWorker(LlmWorkerApi):
                                                  "output_tokens": n_tokens})
                     if stop_hit and not ev.finished:
                         # let the engine finish the request; drop its events
-                        while not (await queue.get()).finished:
-                            pass
+                        while True:
+                            tail = await queue.get()
+                            if tail is _STREAM_END or isinstance(tail, Exception) \
+                                    or tail.finished:
+                                break
                     return
         finally:
             self._live.discard(request_id)
-            if not stream_done:
+            if not stream_done and engine is not None:
                 # the consumer let go first (client disconnect, gateway
                 # timeout, half-consumed stream): free the slot, pages and
                 # pins within one round instead of decoding for nobody

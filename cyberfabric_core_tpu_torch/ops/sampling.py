@@ -13,9 +13,17 @@ then turns each row's draw into a token by inverse-CDF over the warped,
 sorted distribution — a pure function of logits and draws, so the tests can
 feed both packages' warps the same numbers.
 
-:func:`sample_token` is the shared-stream form dense mode uses (JAX
-``sample_token`` with one key for the batch): one generator, one uniform per
-row per sampling step.
+:func:`sample_token` is the shared-stream form dense mode and the lockstep
+engine use (JAX ``sample_token`` with one key for the batch): one generator,
+one uniform per row per sampling step.
+
+:func:`warped_probs` renders the same warp as explicit probabilities in
+vocabulary order (the greedy one-hot at temperature 0), what speculative
+acceptance sampling needs in closed form, and :func:`categorical` draws from
+such rows by inverse CDF on an explicit generator (JAX's
+``jax.random.categorical`` on a threefry key; the port's generator is
+Philox on CUDA, so sampled streams agree with JAX's in distribution, not
+token for token).
 """
 
 from __future__ import annotations
@@ -126,3 +134,41 @@ def sample_token(
     u = torch.rand(logits.shape[0], generator=generator, device=logits.device)
     return sample_token_per_slot(logits, u, temperature, top_p, top_k,
                                  all_greedy=False)
+
+
+def warped_probs(
+    logits: torch.Tensor,       # [B, V] f32
+    temperature: torch.Tensor,  # [B] f32; 0 → delta on the argmax
+    top_p: torch.Tensor,        # [B] f32; 1 → disabled
+    top_k: torch.Tensor,        # [B] int; 0 → disabled
+) -> torch.Tensor:
+    """The sampling distribution as explicit probabilities [B, V] f32: the
+    warp :func:`sample_token` draws from, unsorted back to vocabulary order;
+    rows at temperature 0 are the one-hot of their argmax."""
+    B, V = logits.shape
+    greedy = torch.zeros_like(logits, dtype=torch.float32)
+    greedy.scatter_(1, torch.argmax(logits, dim=-1, keepdim=True), 1.0)
+    masked_sorted, sorted_idx = _warp_sorted(logits, temperature, top_p, top_k)
+    probs_sorted = torch.softmax(masked_sorted, dim=-1)
+    warped = torch.empty_like(probs_sorted).scatter_(1, sorted_idx, probs_sorted)
+    return torch.where((temperature > 0)[:, None], warped, greedy)
+
+
+def categorical(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One draw per row of ``probs`` [B, V] (rows need not sum to one; zero
+    entries are never drawn) from ``generator``: one uniform a row, inverse
+    CDF. Returns [B] int32; nothing is read on the host."""
+    u = torch.rand(probs.shape[0], generator=generator, device=probs.device)
+    return categorical_from_uniform(probs, u)
+
+
+def categorical_from_uniform(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """:func:`categorical` for given uniforms ``u`` [B] in [0, 1)."""
+    cdf = torch.cumsum(probs, dim=-1)
+    target = (u * cdf[:, -1]).unsqueeze(-1).contiguous()
+    pos = torch.searchsorted(cdf, target, right=True)[:, 0]
+    # rounding can put the target at the total: take the last nonzero entry
+    V = probs.shape[-1]
+    ranks = torch.arange(V, device=probs.device)
+    last = torch.where(probs > 0, ranks, torch.zeros_like(ranks)).amax(dim=-1)
+    return torch.minimum(pos, last).to(torch.int32)

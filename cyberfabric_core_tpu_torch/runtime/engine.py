@@ -1,25 +1,40 @@
-"""Engine configuration, request/event types and the fused dense decode body
-(counterpart of ``runtime/engine.py``).
+"""Engine configuration, request/event types, the fused dense decode body
+and the lockstep engine (counterpart of ``runtime/engine.py``).
 
 ``EngineConfig`` is the JAX package's dataclass field for field, so the
 worker's ``engine_options`` parse the same way for both packages. Which of
-its options the port's scheduler honours, ignores or rejects is decided in
-:mod:`.scheduler`. :func:`build_decode_chunk_fn` is the decode body the dense
-scheduler runs; the lockstep ``InferenceEngine`` around it comes with a later
-slice.
+its options the port's continuous scheduler honours, ignores or rejects is
+decided in :mod:`.scheduler`. :func:`build_decode_chunk_fn` is the decode
+body both engines run: the dense scheduler its ``device_term`` form, the
+lockstep :class:`InferenceEngine` its plain form.
+
+:class:`InferenceEngine` is the batch-synchronous engine: one prefill of
+the whole batch (padded to a bucket) into a dense cache
+``[L, B, max_seq_len, Hkv, D]`` it allocates per call, through the flash
+kernel wherever the engine runs on CUDA, then ``decode_chunk`` fused decode
+steps per device round trip over that cache, a single-step tail to the
+window's brim, and a token-less ``length`` epilogue, as JAX does. A bs=1
+greedy request can speculate by prompt lookup (``speculative="ngram"``) and
+a bs=1 request at any temperature through a draft model
+(``speculative="draft"``, :mod:`.speculative`).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Callable, Optional
+from pathlib import Path
+from typing import Any, Callable, Iterator, Mapping, Optional
 
+import numpy as np
 import torch
 
-from ..device import DeviceLike
+from ..device import DeviceLike, on_card, resolve_device, same_device, to_device
 from ..models import llama
-from ..models.configs import ModelConfig
-from ..ops.sampling import sample_token
+from ..models.configs import ModelConfig, get_config
+from ..ops import flash_attention as fa
+from ..ops.rope import rope_frequencies
+from ..ops.sampling import make_slot_generator, sample_token
 
 
 class SchedulerSaturated(RuntimeError):
@@ -299,18 +314,30 @@ def build_decode_chunk_fn(model_config: ModelConfig, k_steps: int, rope_tables,
 
     Sampling shares ONE ``torch.Generator`` across the batch
     (:func:`ops.sampling.sample_token`). ``all_greedy`` is the caller's
-    host-side knowledge that no row samples (then nothing is drawn).
+    host-side knowledge that no row samples (then nothing is drawn; None
+    reads it from ``temperature``, a host synchronisation).
 
-    Only the ``device_term=True`` form is ported (dense mode runs it; the
-    plain form comes with the lockstep ``InferenceEngine``): inputs add
-    (active, finished, stop_ids, limit_lens), outputs add (lengths,
-    finished). A step matches the sampled token against the row's stop ids
-    and length limit (and, at the chunk's last step, the window bound
-    ``len + k > max_seq``); a finished row freezes (its last token and length
-    stop advancing) and emits -1."""
-    if not device_term:
-        raise NotImplementedError("not ported yet: build_decode_chunk_fn without "
-                                  "device_term (lockstep InferenceEngine slice)")
+    The plain form (the lockstep engine's) returns ``(tokens [B, k],
+    k_cache, v_cache, last tokens, generator)``. ``device_term=True`` (dense
+    mode's) adds inputs (active, finished, stop_ids, limit_lens) and outputs
+    (lengths, finished): a step matches the sampled token against the row's
+    stop ids and length limit (and, at the chunk's last step, the window
+    bound ``len + k > max_seq``); a finished row freezes (its last token and
+    length stop advancing) and emits -1. Running rows compute as the plain
+    form does."""
+
+    def decode_chunk(params, k_cache, v_cache, last_tokens, lengths, generator,
+                     temperature, top_p, top_k, all_greedy=None):
+        cache, toks, lens, out = (k_cache, v_cache), last_tokens, lengths, []
+        for _ in range(k_steps):
+            hidden, cache = llama.forward(params, model_config, toks[:, None],
+                                          lens[:, None], cache, lens, rope_tables)
+            logits = llama.lm_head_logits(params, model_config, hidden[:, 0])
+            toks = sample_token(logits, generator, temperature, top_p, top_k,
+                                all_greedy=all_greedy)
+            lens = lens + 1
+            out.append(toks)
+        return torch.stack(out, dim=1), cache[0], cache[1], toks, generator
 
     def decode_chunk_term(params, k_cache, v_cache, last_tokens, lengths, generator,
                           temperature, top_p, top_k, active, finished, stop_ids,
@@ -335,7 +362,7 @@ def build_decode_chunk_fn(model_config: ModelConfig, k_steps: int, rope_tables,
         lens = torch.where(active, lens, torch.zeros_like(lens))
         return torch.stack(out, dim=1), cache[0], cache[1], toks, generator, lens, fin
 
-    return decode_chunk_term
+    return decode_chunk_term if device_term else decode_chunk
 
 
 @dataclass
@@ -350,3 +377,434 @@ class StepEvent:
     #: deadline lapsed — scheduler-side expiry sweep)
     finished: Optional[str] = None
 
+
+
+@dataclass
+class GenerationResult:
+    token_ids: list[int]
+    finish_reason: str  # stop | length
+    prompt_tokens: int
+    completion_tokens: int
+    ttft_ms: float = 0.0
+    total_ms: float = 0.0
+
+
+_SEED_MASK = 0x7FFF_FFFF_FFFF_FFFF
+
+
+class InferenceEngine:
+    """Batch-synchronous engine: prefill a batch, then lockstep decode (JAX
+    ``InferenceEngine``), on ``device`` (default the CUDA card; ``"cpu"``
+    runs the kernels' plain versions).
+
+    ``params``: None draws random weights from ``seed`` (quantized leaf by
+    leaf as drawn when ``config.quantization`` asks); a state_dict or a
+    :class:`..models.llama.LlamaModel` on the engine's device is taken as
+    is, and quantized when the config asks and it is not. Sampling shares
+    one ``torch.Generator`` seeded from ``seed``; a call whose requests all
+    carry the same explicit seed reseeds it, so such a call reproduces its
+    tokens. Not thread-safe: one call at a time (the worker's batcher
+    serialises them)."""
+
+    def __init__(self, config: EngineConfig, model_config: Optional[ModelConfig] = None,
+                 params: Any = None, seed: int = 0, device: DeviceLike = None) -> None:
+        self.device = resolve_device(device)
+        self.config = config
+        self.model_config = model_config or get_config(config.model)
+        if self.model_config.architecture != "llama":
+            raise ValueError("InferenceEngine drives decoder models, got "
+                             f"{self.model_config.architecture}")
+        with on_card(self.device):
+            self._build(params, seed)
+
+    def _build(self, params: Any, seed: int) -> None:
+        from .quant import is_quantized, quant_bits, quantize_llama_params
+        from .weights import model_from_state_dict
+
+        config, cfg = self.config, self.model_config
+        self.dtype = getattr(torch, config.dtype)
+        bits = quant_bits(config.quantization)
+        if params is None:
+            params = llama.init_params(cfg, seed, self.dtype, self.device, quant_bits=bits)
+        elif isinstance(params, Mapping):
+            params = model_from_state_dict(params, cfg, self.device, self.dtype)
+        elif not same_device(params.device, self.device):
+            raise ValueError(f"params live on {params.device}, engine on {self.device}")
+        if bits is not None and not is_quantized(params):
+            params = quantize_llama_params(params, bits)
+        self.params = params
+        self.rope_tables = rope_frequencies(
+            cfg.head_dim, max(cfg.max_position, config.max_seq_len), cfg.rope_theta,
+            device=self.device)
+        self.use_flash = config.resolve_use_flash(self.device)
+        if self.use_flash and self.device.type == "cuda":
+            fa.check_kernel_supports(cfg.head_dim, cfg.num_heads, cfg.num_kv_heads,
+                                     self.dtype)
+        self._generator = make_slot_generator(seed, self.device)
+        self._decode_fn = build_decode_chunk_fn(cfg, max(1, config.decode_chunk),
+                                                self.rope_tables)
+        self._decode_tail_fn: Optional[Callable] = None  # k=1, built on demand
+        self._verify_fn: Optional[Callable] = None  # ngram speculation, on demand
+        self._verify_accept_fn: Optional[Callable] = None  # draft speculation
+        self._draft = None  # DraftModel, built by the first draft-mode request
+        #: speculation counters; accept_hist[a] counts verify rounds that
+        #: accepted exactly a drafts
+        self.spec_stats = {"verify_calls": 0, "drafted": 0, "accepted": 0,
+                           "spec_tokens": 0, "fallback_steps": 0, "accept_hist": {}}
+        self._last_timing = {"ttft_ms": 0.0, "total_ms": 0.0}
+
+    def _record_spec_round(self, a: int, spec_k: int, committed: int) -> None:
+        """One verify round's evidence, shared by the ngram and draft loops."""
+        s = self.spec_stats
+        s["verify_calls"] += 1
+        s["drafted"] += spec_k
+        s["accepted"] += a
+        s["spec_tokens"] += committed
+        s["accept_hist"][a] = s["accept_hist"].get(a, 0) + 1
+
+    def _bucket_for(self, length: int) -> int:
+        return self.config.bucket_for(length)
+
+    def decode_cost_analysis(self, batch: Optional[int] = None) -> dict:
+        """Not ported: the device observability slice (ROADMAP queue 1 item
+        8) brings the decode chunk's cost counts."""
+        raise NotImplementedError("not ported yet: decode_cost_analysis (ROADMAP queue 1 "
+                                  "item 8, device observability)")
+
+    # ------------------------------------------------------------------ device calls
+    @torch.inference_mode()
+    def _prefill(self, ids: np.ndarray, lengths: list[int], warp: tuple,
+                 all_greedy: bool) -> tuple[torch.Tensor, llama.KVCache]:
+        """The batch's prefill into a dense cache allocated here (JAX builds
+        it inside its prefill program), and each row's first token."""
+        cfg, dev = self.model_config, self.device
+        B, T = ids.shape
+        cache = llama.init_cache(cfg, B, self.config.max_seq_len, self.dtype, device=dev)
+        positions = torch.arange(T, dtype=torch.int32, device=dev)[None, :].expand(B, T)
+        hidden, cache = llama.forward(self.params, cfg, to_device(ids, dev), positions,
+                                      cache, torch.zeros(B, dtype=torch.int32, device=dev),
+                                      self.rope_tables, use_flash=self.use_flash)
+        last_h = llama.gather_last_hidden(hidden, to_device(np.asarray(lengths, np.int32),
+                                                            dev))
+        logits = llama.lm_head_logits(self.params, cfg, last_h)
+        first = sample_token(logits, self._generator, *warp, all_greedy=all_greedy)
+        return first, cache
+
+    def _tail_fn(self) -> Callable:
+        if self._decode_tail_fn is None:
+            self._decode_tail_fn = build_decode_chunk_fn(self.model_config, 1,
+                                                         self.rope_tables)
+        return self._decode_tail_fn
+
+    @torch.inference_mode()
+    def _single_step(self, cache: llama.KVCache, last_tok: int, length: int, warp: tuple,
+                     all_greedy: bool) -> int:
+        """One decode step of a bs=1 stream (the speculative loops'
+        fallback); returns its token."""
+        dev = self.device
+        chunk, _, _, _, _ = self._tail_fn()(
+            self.params, cache[0], cache[1], to_device(np.asarray([last_tok], np.int32), dev),
+            to_device(np.asarray([length], np.int32), dev), self._generator, *warp,
+            all_greedy=all_greedy)
+        return int(chunk.cpu()[0, 0])  # sync-point: the step's one read
+
+    # ------------------------------------------------------------------ generation
+    def generate(self, prompts: list[list[int]],
+                 sampling: "SamplingParams | list[SamplingParams]", *,
+                 on_token: Optional[Callable[[StepEvent], None]] = None
+                 ) -> list[GenerationResult]:
+        """Lockstep batched generation; ``on_token`` sees every event."""
+        collected: dict[int, list[int]] = {i: [] for i in range(len(prompts))}
+        finish: dict[int, str] = {}
+        for ev in self.generate_stream(prompts, sampling):
+            if ev.token_id >= 0:  # token-less finish events carry -1
+                collected[ev.request_index].append(ev.token_id)
+            if on_token:
+                on_token(ev)
+            if ev.finished:
+                finish[ev.request_index] = ev.finished
+        timing = self._last_timing
+        results = []
+        for i, prompt in enumerate(prompts):
+            toks, fin = collected[i], finish.get(i, "length")
+            if fin == "stop" and toks:
+                toks = toks[:-1]  # the stop token is not visible output
+            results.append(GenerationResult(
+                token_ids=toks, finish_reason=fin, prompt_tokens=len(prompt),
+                completion_tokens=len(toks), ttft_ms=timing["ttft_ms"],
+                total_ms=timing["total_ms"]))
+        return results
+
+    def _ensure_draft(self, spec_k: int):
+        """The draft model, built once per engine: weights from
+        ``draft_checkpoint`` when given (a missing path raises: a random
+        draft would stay lossless and hide the lost speed), else seeded
+        synthetic weights. Its vocabulary must be the target's."""
+        if self._draft is None:
+            from .speculative import DraftModel
+
+            dcfg = get_config(self.config.draft_model)
+            if dcfg.vocab_size != self.model_config.vocab_size:
+                raise ValueError(
+                    f"draft model {self.config.draft_model!r} vocab {dcfg.vocab_size} != "
+                    f"target vocab {self.model_config.vocab_size} — speculation needs a "
+                    "shared tokenizer")
+            ckpt = self.config.draft_checkpoint
+            if ckpt:
+                if not Path(ckpt).exists():
+                    raise ValueError(
+                        f"draft_checkpoint {ckpt!r} does not exist; unset it to run with "
+                        "synthetic draft weights (test mode)")
+                from .weights import load_llama_params, model_from_state_dict
+
+                dparams = model_from_state_dict(
+                    load_llama_params(ckpt, dcfg, dtype=self.dtype, device=self.device),
+                    dcfg, self.device)
+            else:
+                dparams = llama.init_params(dcfg, 7, self.dtype, self.device)
+            self._draft = DraftModel(dcfg, dparams, max_seq=self.config.max_seq_len,
+                                     dtype=self.dtype, k=spec_k, device=self.device,
+                                     use_flash=self.use_flash)
+        return self._draft
+
+    def generate_stream(self, prompts: list[list[int]],
+                        sampling: "SamplingParams | list[SamplingParams]"
+                        ) -> Iterator[StepEvent]:
+        """Yields StepEvents, ``decode_chunk`` tokens per device round trip;
+        every stream ends with exactly one finish event."""
+        B = len(prompts)
+        if B == 0:
+            self._last_timing = {"ttft_ms": 0.0, "total_ms": 0.0}
+            return
+        if B > self.config.max_batch:
+            raise ValueError(f"batch {B} exceeds max_batch {self.config.max_batch}")
+        per_req = sampling if isinstance(sampling, list) else [sampling] * B
+        # a batch sharing one explicit seed reproduces its tokens across calls
+        seeds = {s.seed for s in per_req}
+        if len(seeds) == 1 and (seed_val := next(iter(seeds))) is not None:
+            self._generator.manual_seed(int(seed_val) & _SEED_MASK)
+        t_start = time.monotonic()
+        dev, max_seq = self.device, self.config.max_seq_len
+
+        lengths_list = [len(p) for p in prompts]
+        bucket = self._bucket_for(max(lengths_list))
+        ids = np.zeros((B, bucket), np.int32)
+        for i, p in enumerate(prompts):
+            ids[i, :len(p)] = p
+        warp = (to_device(np.asarray([s.temperature for s in per_req], np.float32), dev),
+                to_device(np.asarray([s.top_p for s in per_req], np.float32), dev),
+                to_device(np.asarray([s.top_k for s in per_req], np.int32), dev))
+        all_greedy = not any(s.temperature > 0 for s in per_req)
+
+        with on_card(dev):
+            first_dev, cache = self._prefill(ids, lengths_list, warp, all_greedy)
+            cur = first_dev.cpu().numpy()  # sync-point: the prefill's one read
+        ttft_ms = (time.monotonic() - t_start) * 1000.0
+
+        stops = [set(s.stop_token_ids) | set(self.config.eos_token_ids) for s in per_req]
+        max_new = [s.max_tokens for s in per_req]
+        done = [False] * B
+        emitted = [0] * B
+
+        def classify(i: int, tok: int) -> Optional[str]:
+            if tok in stops[i]:
+                return "stop"
+            if emitted[i] >= max_new[i]:
+                return "length"
+            return None
+
+        lengths_np = np.asarray(lengths_list, np.int32)
+        state = {"last": first_dev, "lengths": to_device(lengths_np, dev), "steps": 0}
+
+        for i in range(B):
+            emitted[i] += 1
+            fin = classify(i, int(cur[i]))
+            done[i] = fin is not None
+            yield StepEvent(i, int(cur[i]), fin)
+
+        k_steps = max(1, self.config.decode_chunk)
+        max_steps = max(max_new) if max_new else 0
+
+        def run_chunk(fn: Callable, k: int) -> np.ndarray:
+            nonlocal lengths_np
+            with on_card(dev), torch.inference_mode():
+                chunk_dev, _, _, last, _ = fn(
+                    self.params, cache[0], cache[1], state["last"], state["lengths"],
+                    self._generator, *warp, all_greedy=all_greedy)
+                state["last"], state["lengths"] = last, state["lengths"] + k
+                out = chunk_dev.cpu().numpy()  # sync-point: one [B, k] read
+            lengths_np = lengths_np + k
+            state["steps"] += k
+            return out
+
+        def emit_chunk(chunk: np.ndarray, k: int, next_fits: bool) -> Iterator[StepEvent]:
+            # rows that cannot continue finish with "length" on their final
+            # emitted token (one event per token)
+            last_dispatchable = not next_fits or state["steps"] >= max_steps
+            for j in range(k):
+                for i in range(B):
+                    if done[i]:
+                        continue
+                    emitted[i] += 1
+                    tok = int(chunk[i, j])
+                    fin = classify(i, tok)
+                    if fin is None and last_dispatchable and j == k - 1:
+                        fin = "length"
+                    done[i] = fin is not None
+                    yield StepEvent(i, tok, fin)
+
+        def emit_committed(toks: list[int], L: int) -> Iterator[StepEvent]:
+            """A speculative round's committed tokens for the bs=1 stream;
+            tokens past a finish are discarded."""
+            for j, tok in enumerate(toks):
+                if done[0]:
+                    break
+                emitted[0] += 1
+                fin = classify(0, tok)
+                if fin is None and j == len(toks) - 1 and L >= max_seq:
+                    fin = "length"  # window exhausted on this token
+                done[0] = fin is not None
+                yield StepEvent(0, tok, fin)
+
+        def spec_loop() -> Iterator[StepEvent]:
+            """Prompt-lookup speculation (greedy bs=1, lossless): each round
+            commits 1..spec_k+1 tokens for one device round trip."""
+            nonlocal lengths_np
+            from .speculative import NgramProposer, accept_length, build_verify_fn
+
+            spec_k = max(1, self.config.spec_k)
+            if self._verify_fn is None:
+                self._verify_fn = build_verify_fn(self.model_config, spec_k,
+                                                  self.rope_tables)
+            proposer = NgramProposer(self.config.spec_max_ngram, self.config.spec_min_ngram,
+                                     spec_k)
+            last_tok = int(cur[0])
+            proposer.extend(list(prompts[0]) + [last_tok])
+            L = int(lengths_np[0])
+            while not done[0] and emitted[0] < max_new[0] and L < max_seq:
+                drafts = proposer.propose() if L + spec_k + 1 <= max_seq else None
+                if drafts is None:
+                    # no recurring n-gram (or the window's tail): one plain step
+                    self.spec_stats["fallback_steps"] += 1
+                    with on_card(dev):
+                        toks = [self._single_step(cache, last_tok, L, warp, all_greedy)]
+                    L += 1
+                else:
+                    # padded to the static draft width: a pad is accepted only
+                    # where it IS the greedy argmax, so padding never changes
+                    # the output
+                    drafts = (drafts + [drafts[-1]] * spec_k)[:spec_k]
+                    with on_card(dev), torch.inference_mode():
+                        outs_dev, _, _ = self._verify_fn(
+                            self.params, cache[0], cache[1],
+                            to_device(np.asarray([[last_tok] + drafts], np.int32), dev),
+                            to_device(np.asarray([L], np.int32), dev))
+                        outs = outs_dev.cpu()[0].tolist()  # sync-point: the verify's read
+                    a = accept_length(drafts, outs)
+                    toks = drafts[:a] + [outs[a]]
+                    self._record_spec_round(a, spec_k, len(toks))
+                    L += a + 1
+                proposer.extend(toks)
+                last_tok = toks[-1]
+                yield from emit_committed(toks, L)
+            lengths_np[0] = L
+
+        def draft_spec_loop() -> Iterator[StepEvent]:
+            """Draft-model speculation (bs=1, any temperature): the draft
+            proposes k sampled tokens, the target runs one verify +
+            acceptance-sampling pass (distribution-preserving; lossless at
+            temperature 0); each round commits 1..k+1 tokens."""
+            nonlocal lengths_np
+            spec_k = max(1, self.config.spec_k)
+            with on_card(dev):
+                draft = self._ensure_draft(spec_k)
+                if self._verify_accept_fn is None:
+                    from .speculative import build_verify_accept_fn
+
+                    self._verify_accept_fn = build_verify_accept_fn(
+                        self.model_config, spec_k, self.rope_tables)
+                # the draft's stream, split off the engine's (a host read)
+                draft_seed = int(torch.randint(0, 2 ** 62, (1,), generator=self._generator,
+                                               device=dev).item())
+                draft.reset(list(prompts[0]), draft_seed)
+            last_tok = int(cur[0])
+            L = int(lengths_np[0])
+            warp1 = tuple(w[:1] for w in warp)
+            while not done[0] and emitted[0] < max_new[0] and L < max_seq:
+                window_ok = (L + spec_k + 1 <= max_seq
+                             and draft.len + spec_k + 1 <= draft.max_seq)
+                if not window_ok:
+                    self.spec_stats["fallback_steps"] += 1
+                    with on_card(dev):
+                        toks = [self._single_step(cache, last_tok, L, warp, all_greedy)]
+                    L += 1
+                else:
+                    with on_card(dev), torch.inference_mode():
+                        drafts_dev, dists = draft.propose(last_tok, *warp1)
+                        tokens = torch.cat([to_device(np.asarray([last_tok], np.int32), dev),
+                                            drafts_dev])[None, :]
+                        a_dev, nxt_dev, _, _, _ = self._verify_accept_fn(
+                            self.params, cache[0], cache[1], tokens,
+                            to_device(np.asarray([L], np.int32), dev), dists,
+                            self._generator, *warp1)
+                        # sync-point: the round's one read (drafts, a, next)
+                        host = torch.cat([drafts_dev, a_dev.reshape(1),
+                                          nxt_dev.reshape(1)]).cpu().tolist()
+                    drafts, a, nxt = host[:spec_k], host[spec_k], host[spec_k + 1]
+                    toks = drafts[:a] + [nxt]
+                    # the draft's cache: drafting wrote KV for (last_tok,
+                    # d1..d_{k-1}); the bonus or resampled token stays pending
+                    # (its KV lands when the next round consumes it), and on
+                    # full acceptance d_k still needs consuming first
+                    if a < spec_k:
+                        draft.len += a + 1
+                    else:
+                        draft.len += spec_k
+                        with on_card(dev):
+                            draft.consume([drafts[-1]], *warp1)
+                    self._record_spec_round(a, spec_k, len(toks))
+                    L += a + 1
+                last_tok = toks[-1]
+                yield from emit_committed(toks, L)
+            lengths_np[0] = L
+
+        if (self.config.speculative == "draft" and B == 1 and self.config.draft_model
+                and not all(done)):
+            yield from draft_spec_loop()
+        elif (self.config.speculative == "ngram" and B == 1
+              and all(s.temperature == 0.0 for s in per_req) and not all(done)):
+            yield from spec_loop()
+        else:
+            # the window is read at every chunk, as JAX reads its config
+            while not all(done) and state["steps"] < max_steps:
+                # a chunk writes k cache slots from the current length; it must
+                # fit whole (chunks are fixed-shape, as JAX's programs are)
+                if int(lengths_np.max()) + k_steps > self.config.max_seq_len:
+                    break
+                chunk = run_chunk(self._decode_fn, k_steps)
+                next_fits = int(lengths_np.max()) + k_steps <= self.config.max_seq_len
+                # once full chunks stop fitting, the k=1 tail continues
+                tail_will_run = (not next_fits
+                                 and int(lengths_np.max()) < self.config.max_seq_len)
+                yield from emit_chunk(chunk, k_steps, next_fits or tail_will_run)
+            # the tail: single steps fill the last < decode_chunk slots of the
+            # window, so near-capacity prompts still decode to the brim
+            while not all(done) and state["steps"] < max_steps \
+                    and int(lengths_np.max()) < self.config.max_seq_len:
+                chunk = run_chunk(self._tail_fn(), 1)
+                yield from emit_chunk(chunk, 1,
+                                      int(lengths_np.max()) < self.config.max_seq_len)
+
+        # every still-active row gets a token-less finish event
+        for i in range(B):
+            if not done[i]:
+                done[i] = True
+                yield StepEvent(i, -1, "length")
+        self._last_timing = {"ttft_ms": ttft_ms,
+                             "total_ms": (time.monotonic() - t_start) * 1000.0}
+
+    def warmup(self, lengths: tuple[int, ...] = ()) -> None:
+        """Run each given prefill bucket (default the smallest) and the
+        decode chunk once, so kernels are built before the first request."""
+        for bucket in lengths or (self.config.buckets()[0],):
+            self.generate([[1] * min(bucket, 8)], SamplingParams(max_tokens=2))

@@ -18,7 +18,12 @@ same requests over ``http.client``. The chat model is
   same JSON keys, model and usage on both servers, vectors within cosine
   0.999 and 1e-2 per component (both serve bf16 and round at different
   points), and the same problem for each bad body; the port's quickstart
-  answers ``default-embed``.
+  answers ``default-embed``;
+- the lockstep scheduler (``scheduler: lockstep`` on both workers): the
+  port engine emits the JAX engine's token ids for a greedy completion and
+  a chat (recorded at each engine's ``generate_stream``), both texts are
+  the HF continuation, and ``speculative`` ``ngram`` and ``draft`` (the
+  golden checkpoint drafting for itself) serve the same text.
 """
 
 from __future__ import annotations
@@ -74,8 +79,9 @@ def _bert_model(checkpoint: str) -> dict:
             "engine_options": {"model_config": "tiny-bert"}}
 
 
-def _sections(worker: dict, bert_checkpoint: str | None = None) -> dict:
-    models, aliases = _models(), {"default-chat": f"local::{FAM}"}
+def _sections(worker: dict, bert_checkpoint: str | None = None,
+              models: list | None = None) -> dict:
+    models, aliases = models or _models(), {"default-chat": f"local::{FAM}"}
     if bert_checkpoint is not None:
         models.append(_bert_model(bert_checkpoint))
         aliases["default-embed"] = "local::tiny-bert-ckpt"
@@ -91,7 +97,8 @@ def _sections(worker: dict, bert_checkpoint: str | None = None) -> dict:
 class _JaxStack:
     """The JAX host on a loop in a thread of its own."""
 
-    def __init__(self, home: Path, bert_checkpoint: str | None = None) -> None:
+    def __init__(self, home: Path, bert_checkpoint: str | None = None,
+                 worker: dict | None = None, models: list | None = None) -> None:
         from cyberfabric_core_tpu.modkit import AppConfig, ClientHub, ModuleRegistry, RunOptions
         from cyberfabric_core_tpu.modkit.db import DbManager
         from cyberfabric_core_tpu.modkit.runtime import HostRuntime
@@ -99,9 +106,11 @@ class _JaxStack:
 
         cfg = AppConfig.load_or_default(environ={}, cli_overrides={
             "server": {"home_dir": str(home)},
-            "modules": {**_sections({"batch_window_ms": 2}, bert_checkpoint),
+            "modules": {**_sections(worker or {"batch_window_ms": 2}, bert_checkpoint,
+                                    models),
                         "authz_resolver": {}}})
         registry = ModuleRegistry.discover_and_build(enabled=cfg.module_names())
+        self.registry = registry
         self.rt = HostRuntime(RunOptions(config=cfg, registry=registry,
                                          client_hub=ClientHub(),
                                          db_manager=DbManager(in_memory=True)))
@@ -391,3 +400,97 @@ def test_the_quickstart_answers_default_embed():
     tok = ByteTokenizer(384)
     assert body["usage"] == {"input_tokens": len(tok.encode("hello")) + len(tok.encode("world")),
                              "output_tokens": 0}
+
+
+# ------------------------------------------------------------ lockstep
+def _lockstep_models() -> list:
+    golden = _models()[0]
+    opts = golden["engine_options"]
+    return [golden,
+            {**golden, "provider_model_id": "ngram",
+             "engine_options": {**opts, "speculative": "ngram", "spec_k": 4}},
+            {**golden, "provider_model_id": "draft",
+             "engine_options": {**opts, "speculative": "draft", "spec_k": 4,
+                                "draft_model": FAM, "draft_checkpoint": str(CKPT)}}]
+
+
+@pytest.fixture(scope="module")
+def lockstep_servers(tmp_path_factory):
+    jax_stack = _JaxStack(tmp_path_factory.mktemp("jax-lockstep"),
+                          worker={"batch_window_ms": 2, "scheduler": "lockstep"},
+                          models=_lockstep_models())
+    port = BackgroundServer({"modules": _sections(
+        {"device": "cpu", "scheduler": "lockstep", "batch_window_ms": 2}, None,
+        _lockstep_models())}).start()
+    yield {"jax": jax_stack.port, "port": port.port, "port_server": port,
+           "jax_stack": jax_stack}
+    port.stop()
+    jax_stack.stop()
+
+
+def _record_ids(engine) -> list:
+    """Every token id ``engine.generate_stream`` emits from now on."""
+    seen: list = []
+    stream = engine.generate_stream
+
+    def recording(prompts, sampling):
+        for ev in stream(prompts, sampling):
+            if ev.token_id >= 0:
+                seen.append(ev.token_id)
+            yield ev
+
+    engine.generate_stream = recording
+    return seen
+
+
+def _lockstep_engines(servers, model: str) -> dict:
+    jax_worker = servers["jax_stack"].registry.get("llm_gateway").instance.worker
+    return {"jax": jax_worker._entries[model].engine,
+            "port": servers["port_server"].host.worker.engine(model)}
+
+
+def test_lockstep_serves_the_jax_lockstep_workers_ids(lockstep_servers):
+    model = f"local::{FAM}"
+    body = {"model": model, "prompt": PROMPT, "max_tokens": N_NEW, "temperature": 0.0}
+    both(lockstep_servers, "POST", "/v1/completions", {**body, "max_tokens": 2})  # builds
+    engines = _lockstep_engines(lockstep_servers, model)
+    from cyberfabric_core_tpu_torch.runtime.engine import InferenceEngine
+
+    assert type(engines["port"]) is InferenceEngine
+    ids = {name: _record_ids(e) for name, e in engines.items()}
+    want = _expected_continuation()
+    got = both(lockstep_servers, "POST", "/v1/completions", body)
+    for name, (status, _, out) in got.items():
+        assert status == 200, (name, out)
+        assert out["content"][0]["text"] == want, name
+        assert out["usage"]["output_tokens"] == N_NEW
+    assert ids["port"] == ids["jax"] and len(ids["port"]) == N_NEW
+    chat = both(lockstep_servers, "POST", "/v1/chat/completions", CHAT)
+    assert chat["jax"][0] == chat["port"][0] == 200
+    assert chat["port"][2]["content"] == chat["jax"][2]["content"]
+    assert chat["port"][2]["usage"] == chat["jax"][2]["usage"]
+    assert ids["port"] == ids["jax"] and len(ids["port"]) == 2 * N_NEW
+    stream = both(lockstep_servers, "POST", "/v1/completions", {**body, "stream": True})
+    for name, (status, _, text) in stream.items():
+        assert status == 200, name
+        chunks = sse_chunks(text)
+        assert "".join(c["delta"].get("content", "") for c in chunks) == want
+        assert chunks[-1]["finish_reason"] == "length"
+
+
+@pytest.mark.parametrize("mode", ["ngram", "draft"])
+def test_lockstep_speculation_is_served(lockstep_servers, mode):
+    """A speculative model on both lockstep workers: the greedy text and
+    usage equal the plain continuation, and the port's engine speculated."""
+    model = f"local::{mode}"
+    body = {"model": model, "prompt": PROMPT, "max_tokens": N_NEW, "temperature": 0.0}
+    got = both(lockstep_servers, "POST", "/v1/completions", body)
+    want = _expected_continuation()
+    for name, (status, _, out) in got.items():
+        assert status == 200, (name, out)
+        assert out["content"][0]["text"] == want, name
+    assert got["jax"][2]["usage"] == got["port"][2]["usage"]
+    stats = _lockstep_engines(lockstep_servers, model)["port"].spec_stats
+    assert stats["verify_calls"] + stats["fallback_steps"] > 0, stats
+    if mode == "draft":  # the checkpoint drafts for itself: every draft accepted
+        assert stats["accepted"] == stats["drafted"] > 0, stats

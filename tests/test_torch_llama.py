@@ -151,8 +151,9 @@ def test_insert_slot_kv_matches_jax(models):
 def test_decode_chunk_fn_matches_jax(models):
     """The fused dense decode body with device termination over 4 greedy
     steps from a prefilled cache: tokens, cache, lengths and the finished
-    mask; row 2 is inactive and row 1 stops on its second token. The form
-    without device termination is not ported yet and says so."""
+    mask; row 2 is inactive and row 1 stops on its second token. Then the
+    plain form (no device termination) over 2 steps from the same cache:
+    tokens, last tokens and cache."""
     import jax
 
     from cyberfabric_core_tpu.runtime.engine import build_decode_chunk_fn as jbuild
@@ -195,5 +196,11 @@ def test_decode_chunk_fn_matches_jax(models):
     np.testing.assert_array_equal(tout[5].numpy(), np.asarray(jout[5]))
     np.testing.assert_array_equal(tout[6].numpy(), np.asarray(jout[6]))
     assert tout[0][1, 1] == probe[1, 1] and (tout[0][1, 2:] == -1).all()
-    with pytest.raises(NotImplementedError, match="InferenceEngine"):
-        build_decode_chunk_fn(cfg, k, trt)
+    # the plain form (the lockstep engine's) over a fresh copy of the cache
+    jplain = jbuild(jcfg, 2, jrt)(*jargs[:9])
+    fresh = tuple(torch.from_numpy(np.array(c)) for c in jcache)
+    tplain = build_decode_chunk_fn(cfg, 2, trt)(tparams, *fresh, *targs[3:9])
+    np.testing.assert_array_equal(tplain[0].numpy(), probe)
+    np.testing.assert_array_equal(tplain[3].numpy(), np.asarray(jplain[3]))
+    for t, j in zip(tplain[1:3], jplain[1:3]):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)

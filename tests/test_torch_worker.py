@@ -6,8 +6,13 @@
   ``config/quickstart.yaml`` documents in its comments (and the string
   forms registries send); the sets the port does not serve raise a
   ``not_ported`` problem naming their ROADMAP item; the replica pools, the
-  PD split and quantization build (and serve) their entries, and the
+  PD split, quantization, the lockstep scheduler and ``speculative`` under
+  the continuous one build (and serve) their entries, and the
   combinations the JAX worker refuses raise its ``ValueError``s.
+- The lockstep entry: ``speculative`` off, ``ngram`` and ``draft`` served
+  through the batcher, its idle count (hot-swap keeps an entry with a
+  pending or running batch), and JAX's warning for ``speculative`` under
+  the continuous scheduler.
 - The port's schema checker gives ``jsonschema.Draft202012Validator``'s
   verdict and error list (field and message, sorted, capped at 16) on the
   four wire schemas, over hypothesis-generated bodies and the bodies the JAX
@@ -66,9 +71,10 @@ SERVED_SETS = {
                    "spec_max_ngram": "4", "spec_min_ngram": "2"},
 }
 #: (option set, worker config, the ROADMAP item the problem names). The PD
-#: split, the dp pool and quantization were not ported until ROADMAP items
-#: 5 and 6 landed: their rows name no item (None), and their cases check
-#: the entry the worker now builds and one completion it serves
+#: split, the dp pool, quantization, the lockstep scheduler and
+#: ``speculative`` were not ported until ROADMAP items 5, 6 and 7 landed:
+#: their rows name no item (None), and their cases check the entry the
+#: worker now builds and one completion it serves
 UNPORTED_SETS = {
     "tp": ({**QUICKSTART_OPTS, "tp": 8, "hbm_bytes_per_device": 0}, {}, "item 9"),
     "feasibility": ({**QUICKSTART_OPTS, "hbm_bytes_per_device": 1 << 34}, {}, "item 9"),
@@ -76,10 +82,10 @@ UNPORTED_SETS = {
            None),
     "dp": ({**QUICKSTART_OPTS, "dp_replicas": 2}, {}, None),
     "quant": ({**QUICKSTART_OPTS, "quantization": "int8"}, {}, None),
-    "lockstep": (QUICKSTART_OPTS, {"scheduler": "lockstep"}, "item 7"),
-    "draft": ({**QUICKSTART_OPTS, "speculative": "ngram"}, {}, "item 7"),
+    "lockstep": (QUICKSTART_OPTS, {"scheduler": "lockstep"}, None),
+    "draft": ({**QUICKSTART_OPTS, "speculative": "ngram"}, {}, None),
     "draft-beside-spec": ({**QUICKSTART_OPTS, "scheduler_spec_k": 4, "speculative": "draft",
-                           "draft_model": "tiny-llama"}, {}, "item 7"),
+                           "draft_model": "tiny-llama"}, {}, None),
     "unknown": ({**QUICKSTART_OPTS, "warp_factor": 9}, {}, "not options"),
 }
 
@@ -109,7 +115,7 @@ def test_unported_options_raise_a_problem_naming_their_item(name):
     opts, worker_cfg, item = UNPORTED_SETS[name]
     _, info = _infos(opts)
     if item is None:
-        _check_served_entry(name, info)
+        _check_served_entry(name, info, worker_cfg)
         return
     with pytest.raises(ProblemError) as e:
         LocalTorchWorker({"device": "cpu", **worker_cfg})._build_entry(info)
@@ -118,17 +124,19 @@ def test_unported_options_raise_a_problem_naming_their_item(name):
     assert item in problem.detail
 
 
-def _check_served_entry(name, info):
+def _check_served_entry(name, info, worker_cfg):
     """The worker builds the entry (a PD pool of 1 + 1 CPU replicas, a dp
-    pool of 2 sharing one params tree, an int8 engine) and serves one
-    greedy completion through it."""
+    pool of 2 sharing one params tree, an int8 engine, a lockstep engine
+    behind its batcher, a continuous engine that ignores ``speculative``)
+    and serves one greedy completion through it."""
     import asyncio
 
+    from cyberfabric_core_tpu_torch.runtime.engine import InferenceEngine
     from cyberfabric_core_tpu_torch.runtime.pd import PDServingPool
     from cyberfabric_core_tpu_torch.runtime.quant import QuantWeight
     from cyberfabric_core_tpu_torch.runtime.replicas import DataParallelServingPool
 
-    worker = LocalTorchWorker({"device": "cpu"})
+    worker = LocalTorchWorker({"device": "cpu", **worker_cfg})
     try:
         out = asyncio.run(_complete(worker, info))
         entry = worker._entries[info.canonical_id]
@@ -140,6 +148,13 @@ def _check_served_entry(name, info):
             assert type(entry.pool) is DataParallelServingPool
             a, b = entry.pool.replicas
             assert a.params is b.params and str(a.device) == str(b.device) == "cpu"
+        elif name == "lockstep":
+            assert entry.scheduler is None and entry.pool is None
+            assert type(entry.engine) is InferenceEngine and entry.batcher is not None
+            assert worker.engine(info.canonical_id) is entry.engine
+        elif name.startswith("draft"):
+            assert entry.engine is None and entry.scheduler.spec_k == (
+                4 if name == "draft-beside-spec" else 0)
         else:
             assert entry.pool is None
             wq = entry.scheduler.params.layers[0].wq
@@ -542,6 +557,126 @@ def test_the_worker_serves_speculative_rounds():
 
 async def _complete_text(worker, model, prompt, n):
     return [c async for c in worker.completion_stream(model, prompt, {"max_tokens": n})]
+
+
+def _lockstep_info(**opts) -> ModelInfo:
+    return ModelInfo(canonical_id="local::tiny-llama", provider_slug="local",
+                     provider_model_id="tiny-llama", managed=True,
+                     engine_options={"model_config": "tiny-llama", "max_seq_len": 256,
+                                     "max_batch": 2, "dtype": "float32", **opts})
+
+
+@pytest.mark.parametrize("speculative", ["off", "ngram", "draft"])
+def test_the_lockstep_worker_serves_speculation(speculative):
+    """``scheduler: lockstep``: a repetitive prompt's greedy completion with
+    ``speculative`` off, ``ngram`` and ``draft`` (a synthetic tiny-llama
+    draft) gives the tokens of a bare InferenceEngine with speculation off
+    on the same weights, and the speculative modes ran verify rounds."""
+    import asyncio
+
+    from cyberfabric_core_tpu_torch.runtime.engine import InferenceEngine, SamplingParams
+
+    info = _lockstep_info(speculative=speculative, draft_model="tiny-llama", spec_k=4)
+    worker = LocalTorchWorker({"device": "cpu", "scheduler": "lockstep",
+                               "batch_window_ms": 1})
+    seen: list[int] = []
+
+    async def go():
+        entry = await worker._entry_for(info)
+        stream = entry.engine.generate_stream
+
+        def recording(prompts, sps):  # the ids the engine emits for the stream
+            for ev in stream(prompts, sps):
+                if ev.token_id >= 0:
+                    seen.append(ev.token_id)
+                yield ev
+
+        entry.engine.generate_stream = recording
+        return entry.engine, await _complete_text(worker, info, "abcabcabcabcabcabc", 48)
+
+    try:
+        engine, chunks = asyncio.run(go())
+        bare = InferenceEngine(dataclasses.replace(engine.config, speculative="off"),
+                               params=engine.params, device="cpu")
+    finally:
+        worker.close()
+    prompt = ByteTokenizer(512).encode("abcabcabcabcabcabc")
+    [want] = bare.generate([prompt], SamplingParams(max_tokens=48))
+    assert seen == want.token_ids
+    assert chunks[-1].usage["output_tokens"] == 48 and chunks[-1].finish_reason == "length"
+    stats = engine.spec_stats
+    assert (stats["verify_calls"] > 0) == (speculative != "off"), stats
+
+
+def test_speculative_under_the_continuous_scheduler_warns_as_jax_does(caplog):
+    import logging
+
+    jax_info, info = _infos({**QUICKSTART_OPTS, "speculative": "ngram"})
+    with caplog.at_level(logging.WARNING):
+        entry = LocalTpuWorker()._build_entry(jax_info)
+        entry.scheduler.shutdown()
+        want = [r.getMessage() for r in caplog.records if "inert" in r.getMessage()]
+        caplog.clear()
+        plan = plan_engine(info)
+        got = [r.getMessage() for r in caplog.records if "inert" in r.getMessage()]
+    assert got == want and len(got) == 1
+    assert plan.scheduler == "continuous" and plan.config.speculative == "ngram"
+    with pytest.raises(ValueError, match="scheduler must be one of"):
+        plan_engine(info, "batch")
+
+
+@pytest.mark.parametrize("held", ["running", "pending", "stream open", "nothing"])
+def test_hot_swap_keeps_a_lockstep_entry_that_holds_a_batch(held):
+    """``max_loaded_models: 1``: a lockstep entry whose batcher has a batch
+    on the executor, or a request waiting for its window, or a stream open,
+    is not evicted for a second model; idle, it is closed."""
+    import asyncio
+    import threading
+
+    worker = LocalTorchWorker({"device": "cpu", "scheduler": "lockstep",
+                               "max_loaded_models": 1, "batch_window_ms": 1})
+    a = _lockstep_info()
+    gate = threading.Event()
+
+    async def go():
+        entry = await worker._entry_for(a)
+        stream = entry.engine.generate_stream
+
+        def held_stream(*args, **kw):
+            gate.wait(30)  # the batch sits on the executor until released
+            yield from stream(*args, **kw)
+
+        entry.engine.generate_stream = held_stream
+        task = None
+        if held in ("running", "pending"):
+            task = asyncio.ensure_future(_complete(worker, a))
+            for _ in range(200):
+                await asyncio.sleep(0.01)
+                if entry.batcher.running:
+                    break
+            assert entry.batcher.running == 1
+            if held == "pending":
+                entry.batcher.running = 0  # seen as waiting for its window
+                entry.batcher._pending.append(object())
+        if held == "stream open":
+            entry.streams = 1
+        worker._maybe_evict_for(_tiny("b"))
+        kept = worker.engine(a.canonical_id) is entry.engine
+        if held == "pending":
+            entry.batcher._pending.clear()
+            entry.batcher.running = 1
+        gate.set()
+        if task is not None:
+            out = await task
+            assert out[-1].usage["output_tokens"] == 4
+        return kept
+
+    try:
+        kept = asyncio.run(go())
+    finally:
+        gate.set()
+        worker.close()
+    assert kept == (held != "nothing")
 
 
 # ------------------------------------------------------------ embeddings
