@@ -86,8 +86,9 @@ fatal on failure:
    independent llama-3-8b draft at bf16: at f32 the speculative streams
    equal spec off token for token, at bf16 every token passes the oracle, a
    sampled draft run (temperature 0.8, seed 42) repeats itself and accepts
-   drafts; acceptance, its length histogram, tokens/s and the verify
-   round's device time beside a decode step's;
+   drafts, and the sampler's one-row CDF is the same bits on 200 calls;
+   acceptance, its length histogram, tokens/s and the verify round's device
+   time beside a decode step's;
 5. HTTP, the slice's main path: the port's server built in this process by
    ``server.Host`` (what ``server.main`` runs), serving
    ``local::llama-3-8b`` (random bf16 weights from seed 0, byte tokenizer)
@@ -125,7 +126,32 @@ fatal on failure:
    cyberfabric_core_tpu_torch.server run --config`` on the port's
    quickstart at port 0 as a child process: ``/health``, one SSE chat
    completion to ``data: [DONE]``, ``default-embed`` answering, exit code 0
-   on SIGTERM;
+   on SIGTERM; (h) observability, on a host booted from the port's
+   quickstart with llama-3-8b added, ``monitoring`` (fault injection
+   allowed) and ``tracing`` at ``sample_ratio`` 1.0 to an OTLP collector on
+   loopback in this process: the http storm's 8 SSE completions, each with
+   its own ``x-request-id`` and sampled ``traceparent``, while a side thread
+   scrapes ``/metrics`` every 100 ms, kernel counts set to 0 just before and
+   read just after, under the sync gate: each stream's timeline in
+   ``/v1/monitoring/requests/{id}`` reads enqueued → admitted →
+   prefill_chunk+ → prefill → decode_chunk+ → finished, its chunks' tokens
+   sum to the uncached prompt, its derived ttft is at most the client's;
+   its ``llm.prefill_chunk`` and ``llm.decode_chunk`` spans reached the
+   collector under its trace id; ``tpu_devices`` the card count,
+   ``tpu_hbm_bytes_in_use`` between the weights' bytes and the card's
+   memory, ``llm_hbm_utilization_per_device`` in (0, 1],
+   ``llm_ttft_seconds_count`` +8; the http storm's gates; tokens/s and
+   inter-token p50 / p99 at the socket beside the plain http storm's; (i)
+   ``POST /v1/monitoring/profiler/start``, two completions, ``.../stop``:
+   the chrome trace listed names the ragged kernel (``chunk_kernel``) and
+   the decode kernel (``combine_kernel`` less the ragged launches), their
+   counts beside the wrappers' launches over the window, and the window's
+   ten device ops by time; (j) the doctor's shedding cycle on the
+   quickstart's tiny-llama with short windows: ``/readyz`` 200, then
+   ``scheduler.readback`` armed over REST as a delay, ``/readyz`` 503
+   naming ``slo:itl_p99`` and a new chat 429 ``llm.load_shed`` with
+   ``Retry-After`` while a stream is in flight, disarmed: every stream
+   through the oracle, ``/readyz`` 200, a chat served;
    At llama-3-8b width also: (v) quant-8b, the storm on int8 and
    on int4 engines (random weights quantized as drawn on the card) with
    the storm's gates, the oracle over the same quantized tree, the trees'
@@ -175,8 +201,11 @@ import contextlib
 import dataclasses
 import gc
 import http.client
+import http.server
 import json
 import math
+import os
+import re
 import selectors
 import signal
 import socket
@@ -192,11 +221,13 @@ import numpy as np
 import torch
 
 from cyberfabric_core_tpu_torch import server
+from cyberfabric_core_tpu_torch.modkit import failpoints
 from cyberfabric_core_tpu_torch.models import llama
 from cyberfabric_core_tpu_torch.models.configs import get_config
 from cyberfabric_core_tpu_torch.ops import _build
 from cyberfabric_core_tpu_torch.ops import flash_attention as fa
 from cyberfabric_core_tpu_torch.ops import paged_attention as pa
+from cyberfabric_core_tpu_torch.ops import sampling
 from cyberfabric_core_tpu_torch.modules.llm_gateway.worker import plan_engine
 from cyberfabric_core_tpu_torch.modules.sdk import ModelInfo
 from cyberfabric_core_tpu_torch.ops.timing import graph_ms
@@ -207,7 +238,8 @@ from cyberfabric_core_tpu_torch.runtime.pd import PDServingPool
 from cyberfabric_core_tpu_torch.runtime.quant import QuantWeight, quantized_bytes
 from cyberfabric_core_tpu_torch.runtime.replicas import DataParallelServingPool
 from cyberfabric_core_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
-from cyberfabric_core_tpu_torch.runtime.speculative import DraftModel, build_verify_fn
+from cyberfabric_core_tpu_torch.runtime.speculative import (DraftModel, build_verify_fn,
+                                                           span_verify_logits)
 from cyberfabric_core_tpu_torch.runtime.tokenizer import ByteTokenizer
 from cyberfabric_core_tpu_torch.server import BackgroundServer
 
@@ -2021,6 +2053,28 @@ def lockstep_spec_run(label: str, engine, prompt, sp) -> dict:
     return out
 
 
+def one_row_cdf(vocab: int, calls: int = 200) -> None:
+    """The CDF of one sampled row, as a bs=1 draw reads it, 200 times over:
+    ``sampling.cumsum_rows`` must give the first call's bits every time, or
+    a seed would not repeat its tokens. Printed: how many plain
+    ``torch.cumsum`` calls on the same row leave their first call's bits,
+    and each one's device time a call."""
+    g = torch.Generator(device=CARD).manual_seed(0)
+    probs = torch.softmax(torch.randn(1, vocab, generator=g, device=CARD) * 2.5, dim=-1)
+    counts, ms = {}, {}
+    for name, fn in (("cumsum_rows", sampling.cumsum_rows),
+                     ("torch.cumsum", lambda x: torch.cumsum(x, dim=-1))):
+        first = fn(probs).clone()
+        counts[name] = sum(not torch.equal(fn(probs), first) for _ in range(calls))
+        ms[name] = cuda_ms(lambda: fn(probs), iters=calls)
+    if counts["cumsum_rows"]:
+        raise AssertionError(f"[sampling cdf] cumsum_rows of one row of {vocab} left its first "
+                             f"call's bits on {counts['cumsum_rows']} of {calls} calls")
+    log(f"serving [sampling cdf]: one row of {vocab}: cumsum_rows the same bits on {calls} "
+        f"calls ({ms['cumsum_rows']:.4f} ms a call); plain torch.cumsum left its first "
+        f"call's bits on {counts['torch.cumsum']} ({ms['torch.cumsum']:.4f} ms a call)")
+
+
 def lockstep_spec_phase(card: str, smi: str, params) -> None:
     """Lockstep speculation at llama-3-8b width, bs=1 (the engine speculates
     only then), a 32-token pattern repeated to 256 tokens, 128 out,
@@ -2033,6 +2087,9 @@ def lockstep_spec_phase(card: str, smi: str, params) -> None:
     llama-3-8b draft (the engine's own synthetic draft; 16 GB more): lossless
     through the oracle, acceptance ~0. A seeded sampled draft run
     (temperature 0.8, seed 42) twice: the same tokens, drafts accepted.
+    Before the runs, the CDF such a draw reads (``sampling.cumsum_rows`` of
+    one vocabulary-wide row) gives the same bits on 200 calls; how many of
+    200 plain ``torch.cumsum`` calls leave the first one's bits is printed.
 
     f32 (random weights from seed 0 in f32, one 32 GB tree for the three
     runs, TF32 off): ngram's and the perfect draft's streams equal spec
@@ -2044,6 +2101,7 @@ def lockstep_spec_phase(card: str, smi: str, params) -> None:
         raise AssertionError("TF32 is on: the f32 runs would not be f32")
     base = engine_config_from_options(QUICKSTART)
     cfg = get_config(base.model)
+    one_row_cdf(cfg.vocab_size)
     prompt = lockstep_spec_prompt(cfg.vocab_size)
     greedy = SamplingParams(max_tokens=LOCKSTEP_SPEC_OUT)
     for dtype in ("bfloat16", "float32"):
@@ -2978,18 +3036,22 @@ def http_json(port: int, path: str, body: dict, headers: dict | None = None,
         conn.close()
 
 
-def sse_streams(port: int, bodies: list[dict], headers: dict | None = None) -> list[dict]:
+def sse_streams(port: int, bodies: list[dict], headers: dict | None = None,
+                headers_each: list[dict] | None = None) -> list[dict]:
     """SSE ``/v1/completions`` requests all in flight at once from this
     thread: each is sent on its own connection as soon as the one before is
     sent (as an engine ``submit`` returns at once), then every stream is read
     as its bytes arrive (one selector), each frame stamped on arrival. Per
     request: ``t0`` (sent), the status and headers, and each frame as
-    (arrival time, event name, data) in order (or the problem ``body``)."""
-    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
+    (arrival time, event name, data) in order (or the problem ``body``).
+    ``headers_each``: one more header dict for each body."""
     sel = selectors.DefaultSelector()
     recs = []
     try:
-        for body in bodies:
+        for n, body in enumerate(bodies):
+            extra = "".join(f"{k}: {v}\r\n" for k, v in
+                            {**(headers or {}), **(headers_each[n] if headers_each else {})
+                             }.items())
             raw = json.dumps({**body, "stream": True}).encode()
             sock = socket.create_connection(("127.0.0.1", port), timeout=600)
             rec = {"t0": time.perf_counter(), "status": None, "headers": {}, "frames": [],
@@ -3455,6 +3517,493 @@ def http_phase(card: str) -> dict[str, int]:
     torch.cuda.empty_cache()
     return launches
 
+# ------------------------------------------------------------ observability
+class OtlpCollector:
+    """An OTLP/HTTP JSON collector on loopback in this process: keeps every
+    span posted to it."""
+
+    def __init__(self) -> None:
+        spans: list[dict] = []
+        lock = threading.Lock()
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802 — the handler protocol's name
+                body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                with lock:
+                    for rs in body["resourceSpans"]:
+                        for ss in rs["scopeSpans"]:
+                            spans.extend(ss["spans"])
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.spans, self.lock = spans, lock
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    @property
+    def endpoint(self) -> str:
+        return f"http://127.0.0.1:{self.server.server_port}"
+
+    def by_trace(self, trace_id: str) -> list[dict]:
+        with self.lock:
+            return [s for s in self.spans if s["traceId"] == trace_id]
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def http_call(port: int, method: str, path: str, body: dict | None = None,
+              timeout: float = 120.0) -> tuple[int, dict, object]:
+    """One request; the body parsed as JSON, else text."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        hdrs = {k.lower(): v for k, v in resp.getheaders()}
+    finally:
+        conn.close()
+    try:
+        return resp.status, hdrs, json.loads(data)
+    except ValueError:
+        return resp.status, hdrs, data.decode()
+
+
+def parse_metrics(text: str) -> dict[str, dict[str, float]]:
+    """Prometheus text → {sample name: {label set: value}}."""
+    out: dict[str, dict[str, float]] = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        key, _, value = line.rpartition(" ")
+        name, brace, labels = key.partition("{")
+        out.setdefault(name, {})[brace + labels] = float(value)
+    return out
+
+
+class Scraper(threading.Thread):
+    """GET /metrics every ``period`` s until stopped; every answer must be 200."""
+
+    def __init__(self, port: int, period: float = 0.1) -> None:
+        super().__init__(daemon=True)
+        self.port, self.period = port, period
+        self.halt = threading.Event()
+        self.count, self.failures, self.last = 0, [], ""
+
+    def run(self) -> None:
+        while not self.halt.is_set():
+            try:
+                status, _, text = http_call(self.port, "GET", "/metrics")
+                if status == 200:
+                    self.count, self.last = self.count + 1, text
+                else:
+                    self.failures.append(status)
+            except Exception as e:  # noqa: BLE001 — a failed scrape fails the phase
+                self.failures.append(repr(e))
+            self.halt.wait(self.period)
+
+
+def observability_config(home: Path, otlp_endpoint: str) -> dict:
+    """The port's quickstart with llama-3-8b beside its models (the http
+    storm's entry), fault injection allowed and every request traced to
+    ``otlp_endpoint``; device traces under ``home``."""
+    cfg = json.loads(server.QUICKSTART.read_text())
+    cfg["server"] = {"home_dir": str(home)}
+    cfg["tracing"] = {"enabled": True, "sample_ratio": 1.0, "otlp_endpoint": otlp_endpoint,
+                      "service_name": "chip-smoke"}
+    cfg["modules"]["api_gateway"]["config"]["bind_addr"] = "127.0.0.1:0"
+    llama_entry = next(m for m in http_config()["modules"]["model_registry"]["config"]["models"]
+                       if m["provider_model_id"] == "llama-3-8b")
+    cfg["modules"]["model_registry"]["config"]["models"].append(llama_entry)
+    cfg["modules"]["monitoring"] = {"config": {"allow_fault_injection": True}}
+    return cfg
+
+
+def traced_prompts(seed: int, tag: str) -> tuple[list[str], list[str], list[dict]]:
+    """The http storm's prompt lengths drawn from ``seed``, each with its own
+    ``x-request-id`` and sampled ``traceparent`` (and the trace ids)."""
+    rng = np.random.default_rng(seed)
+    prompts = [letters(rng, n - 1) for n in HTTP_STORM_LENS]
+    traces = [os.urandom(16).hex() for _ in prompts]
+    headers = [{"x-request-id": f"{tag}-{i}", "traceparent": f"00-{t}-{os.urandom(8).hex()}-01"}
+               for i, t in enumerate(traces)]
+    return prompts, traces, headers
+
+
+def storm_from_threads(port: int, prompts: list[str], headers: list[dict],
+                       max_tokens: int = 32) -> tuple[list[dict], float]:
+    """SSE completions of ``prompts`` from 3 client threads, all in flight at
+    once (as the http storm sends them); the records in prompt order and the
+    wall time."""
+    recs: list = [None] * len(prompts)
+
+    def client(idx):
+        got = sse_streams(port, [{"model": HTTP_MODEL, "prompt": prompts[i],
+                                  "max_tokens": max_tokens} for i in idx],
+                          headers_each=[headers[i] for i in idx])
+        for i, rec in zip(idx, got):
+            recs[i] = rec
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(range(t, len(prompts), 3),))
+               for t in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return recs, time.perf_counter() - t0
+
+
+TIMELINE = re.compile(r"^enqueued admitted( prefill_chunk)+ prefill( decode_chunk)+ finished$")
+
+
+def ttft_count(text: str, model: str) -> float:
+    return parse_metrics(text).get("llm_ttft_seconds_count", {}).get(
+        f'{{model="{model}"}}', 0.0)
+
+
+def observability_storm(smi: str, port: int, srv, engine, collector: OtlpCollector,
+                        recorded: list[dict]) -> None:
+    """The http storm's 8 SSE completions (prompts of 16..1500 tokens, 32
+    out, 3 client threads) on the traced and monitored host, each with its
+    own ``x-request-id`` and sampled ``traceparent``, while a side thread
+    scrapes ``/metrics`` every 100 ms, all under the sync gate. Gates: each
+    stream's flight record reads enqueued → admitted → prefill_chunk+ →
+    prefill → decode_chunk+ → finished, its chunks' tokens sum to the
+    uncached prompt, its derived ttft is at most the client's; its
+    ``llm.prefill_chunk`` and ``llm.decode_chunk`` spans reached the
+    collector under its trace id; the device gauges; ttft counted once a
+    stream; the http storm's gates (SSE contract, usage, the oracle, the
+    paged kernels and graph replays, I1)."""
+    label = "observability storm"
+    prompts, traces, headers = traced_prompts(5, "obs")  # the http storm's prompts
+    before = ttft_count(http_call(port, "GET", "/metrics")[2], HTTP_MODEL)
+    tokens0 = engine.tokens_emitted
+    pipe0 = engine.stats()["pipeline"]
+    for _, _, wrapper in KERNELS.values():
+        wrapper.launches = 0
+    scraper = Scraper(port)
+    with watch_syncs() as flagged:
+        scraper.start()
+        recs, wall = storm_from_threads(port, prompts, headers)
+        wait_idle(engine)
+        scraper.halt.set()
+        scraper.join(30)
+    launches = {name: wrapper.launches for name, (_, _, wrapper) in KERNELS.items()}
+    stats = engine.stats()
+    if scraper.failures or not scraper.count:
+        raise AssertionError(f"[{label}] /metrics scrapes: {scraper.count} answered, failures "
+                             f"{scraper.failures[:5]}")
+    chunks = [sse_chunks(f"{label} {i}", rec) for i, rec in enumerate(recs)]
+    usage = [c[-1]["usage"] for c in chunks]
+    served = sum(u["output_tokens"] for u in usage)
+    if served != engine.tokens_emitted - tokens0:
+        raise AssertionError(f"[{label}] usage counts {served} output tokens, the engine "
+                             f"emitted {engine.tokens_emitted - tokens0}")
+    tok = ByteTokenizer(engine.model_config.vocab_size)
+    requests = [(tok.encode(p), SamplingParams(max_tokens=32)) for p in prompts]
+    ids = [recorded_for(label, recorded, prompt) for prompt, _ in requests]
+    for i, (u, c) in enumerate(zip(usage, chunks)):
+        if u["output_tokens"] != len(ids[i]) or streamed_text(c) != tok.decode(ids[i]):
+            raise AssertionError(f"[{label}] request {i}: usage {u} and the streamed text "
+                                 f"against the engine's {len(ids[i])} token ids")
+    oracle(label, engine, [{"toks": t} for t in ids], requests, None)
+    if launches["ragged_paged_attention"] <= 0 or launches["paged_decode_attention"] <= 0 \
+            or launches["flash_self_attention"]:
+        raise AssertionError(f"[{label}] launches {launches}: expected ragged and decode, "
+                             "never flash")
+    replays = stats["pipeline"]["decode_graph_replays"] - pipe0["decode_graph_replays"]
+    if replays <= 0 or stats["pipeline"]["decode_eager_chunks"] != pipe0["decode_eager_chunks"]:
+        raise AssertionError(f"[{label}] decode chunks: {replays} graph replays")
+    check_pool(label, stats)
+    if flagged:
+        raise AssertionError(f"[{label}] a synchronising CUDA call was flagged over the "
+                             f"storm and the scrapes: {sorted(set(flagged))}")
+    # each stream's flight record and spans
+    srv.host.tracer.exporter.flush(timeout_s=10.0)
+    span_counts = []
+    for i, (rec, hdr) in enumerate(zip(recs, headers)):
+        status, _, doc = http_call(port, "GET", f"/v1/monitoring/requests/{hdr['x-request-id']}")
+        if status != 200:
+            raise AssertionError(f"[{label}] request {i}: timeline {status} {doc}")
+        events = doc["timeline"]
+        kinds = " ".join(e["event"] for e in events)
+        if not TIMELINE.match(kinds):
+            raise AssertionError(f"[{label}] request {i}: timeline {kinds}")
+        prefill = next(e for e in events if e["event"] == "prefill")
+        chunked = sum(e["tokens"] for e in events if e["event"] == "prefill_chunk")
+        if chunked != HTTP_STORM_LENS[i] - prefill["cached_len"] or \
+                doc["prompt_tokens"] != HTTP_STORM_LENS[i]:
+            raise AssertionError(f"[{label}] request {i}: {chunked} tokens in prefill chunks "
+                                 f"for a {doc['prompt_tokens']}-token prompt, "
+                                 f"{prefill['cached_len']} cached")
+        client_ttft = (rec["frames"][0][0] - rec["t0"]) * 1e3
+        if doc["derived"]["ttft_ms"] is None or doc["derived"]["ttft_ms"] > client_ttft:
+            raise AssertionError(f"[{label}] request {i}: derived ttft "
+                                 f"{doc['derived']['ttft_ms']} ms past the client's "
+                                 f"{client_ttft:.1f} ms")
+        if doc["trace_id"] != traces[i]:
+            raise AssertionError(f"[{label}] request {i}: recorded trace {doc['trace_id']}")
+        names = {}
+        for sp in collector.by_trace(traces[i]):
+            names[sp["name"]] = names.get(sp["name"], 0) + 1
+        if not names.get("llm.prefill_chunk") or not names.get("llm.decode_chunk") \
+                or names.get("llm.prefill") != 1:
+            raise AssertionError(f"[{label}] request {i}: spans under its trace id {names}")
+        span_counts.append(names)
+    # the device gauges, and ttft once a stream
+    text = http_call(port, "GET", "/metrics")[2]
+    gauges = parse_metrics(text)
+    in_use = gauges["tpu_hbm_bytes_in_use"][""]
+    util = gauges["llm_hbm_utilization_per_device"][""]
+    params_bytes = sum(t.numel() * t.element_size() for t in engine.params.state_dict().values())
+    total = torch.cuda.get_device_properties(engine.device).total_memory
+    counted = ttft_count(text, HTTP_MODEL) - before
+    if gauges["tpu_devices"][""] != torch.cuda.device_count() or \
+            not params_bytes <= in_use <= total or not 0 < util <= 1 or counted != len(prompts):
+        raise AssertionError(f"[{label}] gauges: tpu_devices {gauges['tpu_devices']}, "
+                             f"tpu_hbm_bytes_in_use {in_use} (params {params_bytes}, card "
+                             f"{total}), utilization {util}, ttft counted {counted}")
+    numbers = latency_numbers([r["t0"] for r in recs],
+                              [[t for t, _, d in r["frames"] if d != "[DONE]"] for r in recs],
+                              served, wall)
+    STORM_NUMBERS[label] = numbers
+    log(f"serving [{label}]: 8 SSE streams traced (sample_ratio 1.0, OTLP to a loopback "
+        f"collector) with /metrics scraped {scraper.count} times every 100 ms: every timeline "
+        f"enqueued → admitted → prefill_chunk+ → prefill → decode_chunk+ → finished, chunk "
+        f"tokens = uncached prompt, derived ttft ≤ the client's; spans per stream "
+        f"{span_counts}; launches {launches}, {replays} decode graph replays, no synchronising "
+        f"CUDA call flagged, the oracle, pages conserved")
+    log(f"info [{smi}] serving [{label}] gauges: tpu_devices {gauges['tpu_devices']['']:.0f}, "
+        f"tpu_hbm_bytes_in_use {in_use:.0f} (params {params_bytes}, card {total}), "
+        f"llm_hbm_utilization_per_device {util:.4f}, llm_ttft_seconds_count +{counted:.0f}, "
+        f"llm_lookahead_depth {gauges['llm_lookahead_depth']['']:.3f}, "
+        f"llm_decode_overlap_ratio {gauges['llm_decode_overlap_ratio']['']:.3f}")
+    log(f"info [{smi}] serving [{label}] (client side, at the socket): "
+        f"{format_latency(numbers)}")
+    plain = STORM_NUMBERS.get("http storm")
+    if plain is not None:
+        log(f"info [{smi}] serving [http storm] (untraced host, same call): "
+            f"{format_latency(plain)}; traced / untraced tokens/s "
+            f"{numbers['tokens_per_s'] / plain['tokens_per_s']:.4f}")
+
+
+def short_kernel_name(name: str) -> str:
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0][:90]
+
+
+def kernel_family(name: str) -> str:
+    """A device op's family: the GEMMs (cuBLAS's ``nvjet`` / CUTLASS), the
+    port's paged kernels, PyTorch's elementwise and copy kernels, the rest."""
+    if name.startswith(("nvjet", "sm90_", "cutlass")) or "gemm" in name.lower():
+        return "gemm"
+    if any(k in name for k in ("split_kernel", "combine_kernel", "chunk_kernel")):
+        return "paged attention"
+    if "elementwise" in name or "copy" in name.lower():
+        return "elementwise and copies"
+    return "other"
+
+
+def profiler_window(smi: str, port: int, engine) -> None:
+    """``POST /v1/monitoring/profiler/start``, two SSE completions (300 and
+    700 tokens, 32 out), ``POST .../stop``: the files listed hold a chrome
+    trace that names the ragged kernel (``chunk_kernel``: one a ragged
+    launch) and the decode kernel (``combine_kernel`` closes every decode
+    and every ragged launch); their counts beside the wrappers' launches
+    over the same window, and the window's ten device ops by time."""
+    label = "profiler"
+    wait_idle(engine)
+    for _, _, wrapper in KERNELS.values():
+        wrapper.launches = 0
+    decode0 = engine.rounds["decode"]
+    status, _, doc = http_call(port, "POST", "/v1/monitoring/profiler/start")
+    if status != 200 or doc.get("status") != "started":
+        raise AssertionError(f"[{label}] start: {status} {doc}")
+    rng = np.random.default_rng(9)
+    recs = sse_streams(port, [{"model": HTTP_MODEL, "prompt": letters(rng, n - 1),
+                               "max_tokens": 32} for n in (300, 700)])
+    for i, rec in enumerate(recs):
+        sse_chunks(f"{label} {i}", rec)
+    wait_idle(engine)
+    status, _, doc = http_call(port, "POST", "/v1/monitoring/profiler/stop", timeout=300)
+    if status != 200 or doc.get("status") != "stopped" or not doc.get("files"):
+        raise AssertionError(f"[{label}] stop: {status} {doc}")
+    launches = {name: wrapper.launches for name, (_, _, wrapper) in KERNELS.items()}
+    decode_steps = (engine.rounds["decode"] - decode0) * engine.config.decode_chunk
+    path = Path(doc["dir"]) / doc["files"][0]
+    events = json.loads(path.read_text())["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    names = [e["name"] for e in device if e.get("cat") == "kernel"]
+    chunk = sum("chunk_kernel" in n for n in names)
+    combine = sum("combine_kernel" in n for n in names)
+    in_trace = {"ragged_paged_attention": chunk, "paged_decode_attention": combine - chunk}
+    if in_trace["ragged_paged_attention"] <= 0 or in_trace["paged_decode_attention"] <= 0:
+        raise AssertionError(f"[{label}] the trace ({path.stat().st_size} bytes, "
+                             f"{len(device)} device ops) names ragged {chunk} / decode "
+                             f"{combine - chunk} times")
+    by_name: dict[str, list[float]] = {}
+    # after the window's last prompt chunk only decode chunks run: their
+    # kernels, over the steps they ran (one combine a layer a step)
+    last_chunk = max(float(e["ts"]) for e in device if "chunk_kernel" in e["name"])
+    tail_ms: dict[str, float] = {}
+    tail_steps = 0
+    for e in device:
+        name, ms = short_kernel_name(e["name"]), float(e.get("dur", 0.0)) / 1e3
+        row = by_name.setdefault(name, [0, 0.0])
+        row[0] += 1
+        row[1] += ms
+        if float(e["ts"]) > last_chunk:
+            tail_ms[kernel_family(name)] = tail_ms.get(kernel_family(name), 0.0) + ms
+            tail_steps += "combine_kernel" in name
+    tail_steps //= engine.model_config.num_layers
+    total_ms = sum(ms for _, ms in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    families: dict[str, float] = {}
+    for name, (_, ms) in by_name.items():
+        families[kernel_family(name)] = families.get(kernel_family(name), 0.0) + ms
+    log(f"serving [{label}]: the device trace {doc['files']} ({path.stat().st_size} bytes) "
+        f"names the paged kernels: in the trace {in_trace}, the wrappers' launches over the "
+        f"same window {launches}")
+    if any(in_trace[name] != launches[name] for name in in_trace):
+        # the profiler dropped kernel records: its times are not a decode step's
+        log(f"info [{smi}] {label}: the trace lost kernel records (counts above); its device "
+            "times are printed but not split by decode step")
+        tail_steps = 0
+    log(f"info [{smi}] {label} window: {len(device)} device ops, {total_ms:.3f} ms of device "
+        f"time, {decode_steps} decode steps committed; by family "
+        + ", ".join(f"{f} {ms:.3f} ms" for f, ms in sorted(families.items(), key=lambda kv: -kv[1]))
+        + "; top ten by device time: "
+        + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top))
+    if tail_steps:
+        log(f"info [{smi}] {label} decode step by kernel family (the {tail_steps} steps "
+            "after the last prompt chunk, ring chunks a discard dropped included): "
+            + ", ".join(f"{f} {ms / tail_steps:.3f} ms" for f, ms in
+                        sorted(tail_ms.items(), key=lambda kv: -kv[1]))
+            + f"; {sum(tail_ms.values()) / tail_steps:.3f} ms a step")
+
+
+SHED_DOCTOR = {"eval_interval_s": 0.1, "fast_window_s": 3.0, "slow_window_s": 5.0,
+               "min_samples": 2, "shed_after": 1, "recover_after": 2,
+               "objectives": {"itl_p99": {"threshold_ms": 20.0}}}
+
+
+def wait_for(cond, timeout: float, what: str) -> None:
+    end = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > end:
+            raise AssertionError(f"[shedding] timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def shedding_cycle(smi: str) -> None:
+    """The doctor's cycle on the quickstart's tiny-llama on the card, with
+    short windows: ``/readyz`` 200; ``scheduler.readback`` armed over REST
+    as a 0.5 s delay at every drain while three streams run (two short, one
+    long); the short ones finish slowly, the itl objective burns,
+    ``/readyz`` turns 503 naming it, a new chat gets 429 ``llm.load_shed``
+    with ``Retry-After`` while the long stream is still in flight; disarmed,
+    every stream ends through the oracle, ``/readyz`` is 200 again and a
+    chat is served."""
+    label = "shedding"
+    cfg = json.loads(server.QUICKSTART.read_text())
+    cfg["server"] = {"home_dir": str(Path(__file__).resolve().parent / "build" / "chip_smoke"
+                                     / "home-shed")}
+    cfg["modules"]["api_gateway"]["config"]["bind_addr"] = "127.0.0.1:0"
+    cfg["modules"]["monitoring"] = {"config": {"allow_fault_injection": True,
+                                               "doctor": SHED_DOCTOR}}
+    srv = BackgroundServer(cfg).start()
+    port = srv.port
+    t0 = time.perf_counter()
+    try:
+        status, _, body = http_json(port, "/v1/completions",
+                                    {"model": "default-chat", "prompt": "warm", "max_tokens": 2})
+        if status != 200:
+            raise AssertionError(f"[{label}] first request: {status} {body}")
+        engine = srv.host.worker.engine("local::tiny-llama")
+        recorded = record_tokens(engine)
+        if http_call(port, "GET", "/readyz")[0] != 200:
+            raise AssertionError(f"[{label}] /readyz before the fault")
+        status, _, body = http_call(port, "PUT", "/v1/monitoring/failpoints/scheduler.readback",
+                                    {"spec": "delay(0.5)"})
+        if status != 200:
+            raise AssertionError(f"[{label}] arming: {status} {body}")
+        rng = np.random.default_rng(13)
+        prompts = [letters(rng, n) for n in (40, 64, 100)]
+        outs = [(p, m) for p, m in zip(prompts, (24, 24, 160))]
+        recs: list = []
+        streams = threading.Thread(target=lambda: recs.extend(sse_streams(
+            port, [{"model": "default-chat", "prompt": p, "max_tokens": m} for p, m in outs])))
+        streams.start()
+        wait_for(lambda: http_call(port, "GET", "/readyz")[0] == 503, 30, "/readyz 503")
+        status, _, ready = http_call(port, "GET", "/readyz")
+        status, hdrs, shed = http_json(port, "/v1/chat/completions", {
+            "model": "default-chat", "max_tokens": 8,
+            "messages": [{"role": "user", "content": [{"type": "text", "text": "shed?"}]}]})
+        t_shed = time.perf_counter()
+        if ready.get("code") != "not_ready" or "slo:itl_p99" not in ready.get("reasons", ()):
+            raise AssertionError(f"[{label}] /readyz while shedding: {ready}")
+        if status != 429 or shed.get("code") != "load_shed" or int(hdrs["retry-after"]) < 1:
+            raise AssertionError(f"[{label}] a chat while shedding: {status} {hdrs} {shed}")
+        status, _, body = http_call(port, "DELETE",
+                                    "/v1/monitoring/failpoints/scheduler.readback")
+        if status != 200 or not body.get("disarmed"):
+            raise AssertionError(f"[{label}] disarming: {status} {body}")
+        streams.join(120)
+        tok = ByteTokenizer(engine.model_config.vocab_size)
+        for i, rec in enumerate(recs):
+            sse_chunks(f"{label} {i}", rec)
+        if recs[2]["frames"][-1][0] <= t_shed:
+            raise AssertionError(f"[{label}] the long stream ended before the shed chat")
+        requests = [(tok.encode(p), SamplingParams(max_tokens=m)) for p, m in outs]
+        oracle(label, engine, [{"toks": recorded_for(label, recorded, r[0])} for r in requests],
+               requests, None)
+        wait_for(lambda: http_call(port, "GET", "/readyz")[0] == 200, 30, "/readyz 200")
+        status, _, body = http_json(port, "/v1/chat/completions", {
+            "model": "default-chat", "max_tokens": 8,
+            "messages": [{"role": "user", "content": [{"type": "text", "text": "back?"}]}]})
+        if status != 200:
+            raise AssertionError(f"[{label}] a chat after recovery: {status} {body}")
+        slo = http_call(port, "GET", "/v1/monitoring/slo")[2]
+    finally:
+        failpoints.reset()
+        srv.stop()
+    log(f"serving [{label}]: /readyz 200 → scheduler.readback armed as delay(0.5) over REST → "
+        f"/readyz 503 {ready['reasons']} and a new chat 429 load_shed (Retry-After "
+        f"{hdrs['retry-after']}) while a stream was in flight → disarmed: every stream ended "
+        f"through the oracle, /readyz 200, a chat served; states "
+        f"{[h['to'] for h in slo['state_history']]} in {time.perf_counter() - t0:.1f} s")
+
+
+def observability_phase(smi: str) -> None:
+    """The observability storm and the profiler window on a host booted from
+    the port's quickstart serving llama-3-8b with monitoring and tracing
+    on, then the shedding cycle on tiny-llama."""
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    collector = OtlpCollector()
+    srv = BackgroundServer(observability_config(root / "home-obs", collector.endpoint)).start()
+    try:
+        status, _, body = http_json(srv.port, "/v1/completions",
+                                    {"model": HTTP_MODEL, "prompt": "warm", "max_tokens": 2})
+        if status != 200:
+            raise AssertionError(f"[observability] first request: {status} {body}")
+        engine = srv.host.worker.engine(HTTP_MODEL)
+        recorded = record_tokens(engine)
+        observability_storm(smi, srv.port, srv, engine, collector, recorded)
+        profiler_window(smi, srv.port, engine)
+    finally:
+        srv.stop()
+        collector.close()
+    del srv
+    torch.cuda.empty_cache()
+    shedding_cycle(smi)
+
 
 def record_lockstep_ids(engine) -> list[dict]:
     """Wraps ``engine.generate_stream`` (the lockstep batcher's way into the
@@ -3628,6 +4177,79 @@ def boot_phase() -> None:
         f"({time.perf_counter() - t:.1f} s in all)")
 
 
+def trace_cost(smi: str) -> None:
+    """``--trace-cost``: what observability costs the storm. Two hosts on the
+    card, each serving llama-3-8b: one from the port's quickstart with
+    monitoring and tracing (sample ratio 1.0, OTLP to a loopback collector),
+    one from the http storm's sections (no monitoring, no tracing section).
+    The http storm's shape on fresh prompts each run, in turns ABCDEF
+    FEDCBA: A traced with ``/metrics`` scraped every 100 ms, B traced, C
+    scraped, D neither (the tracer disabled, as without a ``tracing``
+    section), E the plain host, F the monitored host neither traced nor
+    scraped with its doctor stopped. Tokens/s, ttft and inter-token latency
+    at the socket. A diagnosis, not a gate; prints no result line."""
+    from statistics import median
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    collector = OtlpCollector()
+    # the plain host first: the last host built installs the global tracer
+    # the engines' spans go through
+    plain = BackgroundServer(http_config()).start()
+    srv = BackgroundServer(observability_config(root / "home-cost", collector.endpoint)).start()
+    # (host, traced, scraped, doctor running)
+    variants = {"A traced + scraped": (srv, True, True, True),
+                "B traced": (srv, True, False, True),
+                "C scraped": (srv, False, True, True), "D neither": (srv, False, False, True),
+                "E plain host": (plain, False, False, False),
+                "F neither, doctor stopped": (srv, False, False, False)}
+    runs: dict[str, list[dict]] = {name: [] for name in variants}
+    try:
+        engines = {}
+        for host in (srv, plain):
+            status, _, body = http_json(host.port, "/v1/completions",
+                                        {"model": HTTP_MODEL, "prompt": "warm", "max_tokens": 2})
+            if status != 200:
+                raise AssertionError(f"[trace cost] first request: {status} {body}")
+            engines[host] = host.host.worker.engine(HTTP_MODEL)
+        doctor = srv.host.monitoring.doctor
+        order = list(variants) + list(reversed(variants))
+        for n, name in enumerate(order):
+            host, traced, scraped, doctoring = variants[name]
+            srv.host.tracer.enabled = traced
+            if doctoring:
+                doctor.ensure_started()
+            else:
+                doctor.stop()
+            prompts, _, headers = traced_prompts(100 + n, f"cost{n}")
+            scraper = Scraper(host.port)
+            if scraped:
+                scraper.start()
+            recs, wall = storm_from_threads(host.port, prompts, headers)
+            scraper.halt.set()
+            if scraped:
+                scraper.join(30)
+            wait_idle(engines[host])
+            chunks = [sse_chunks(f"trace cost {name}", rec) for rec in recs]
+            numbers = latency_numbers(
+                [r["t0"] for r in recs],
+                [[t for t, _, d in r["frames"] if d != "[DONE]"] for r in recs],
+                sum(c[-1]["usage"]["output_tokens"] for c in chunks), wall)
+            runs[name].append(numbers)
+            log(f"info [{smi}] trace cost [{name}] run {n + 1}: {format_latency(numbers)}"
+                + (f" ({scraper.count} scrapes)" if scraped else ""))
+    finally:
+        plain.stop()
+        srv.stop()
+        collector.close()
+    for name, got in runs.items():
+        log(f"info [{smi}] trace cost [{name}] medians of {len(got)}: tokens/s "
+            f"{median(r['tokens_per_s'] for r in got):.1f}, ttft p50 "
+            f"{median(r['ttft_p50_ms'] for r in got):.1f} ms, inter-token p50 "
+            f"{median(r['itl_p50_ms'] for r in got):.2f} / p99 "
+            f"{median(r['itl_p99_ms'] for r in got):.2f} ms; runs "
+            f"{[round(r['tokens_per_s'], 1) for r in got]}")
+
+
 def profile_ring(card: str) -> None:
     """``--profile-ring``: the mixed storm at depth 2 under torch.profiler
     (CPU and CUDA activity): the host's CUDA runtime calls by total time (a
@@ -3651,6 +4273,79 @@ def profile_ring(card: str) -> None:
     pipeline_line(card, "mixed, profiled", engine.stats())
 
 
+def sampling_determinism(smi: str, reps: int = 60, runs: int = 8) -> None:
+    """``--sampling-determinism``: the lockstep sampled self-draft path
+    (llama-3-8b bf16, bs=1, the lockstep speculation phase's prompt) with
+    the sampler's CDF through ``sampling.cumsum_rows`` and through plain
+    ``torch.cumsum``. For each: how many of ``reps`` recomputations from the
+    same inputs leave the first one's bits (the prefill's logits and cache,
+    the draft's k drafts and their distributions under one seed, the verify
+    logits), then ``runs`` sampled runs (temperature 0.8, seed 42) and how
+    many distinct streams they give. A diagnosis, not a gate; prints no
+    result line."""
+    base = dataclasses.replace(engine_config_from_options(QUICKSTART), dtype="bfloat16")
+    cfg = get_config(base.model)
+    tree = llama.init_params(cfg, 0, torch.bfloat16, CARD)
+    engine = InferenceEngine(dataclasses.replace(base, speculative="draft",
+                                                 draft_model=base.model),
+                             params=tree, seed=0, device=CARD)
+    draft = DraftModel(cfg, tree, max_seq=base.max_seq_len, dtype=engine.dtype, k=base.spec_k,
+                       device=CARD, use_flash=engine.use_flash)
+    engine._draft = draft
+    prompt = lockstep_spec_prompt(cfg.vocab_size)
+    warp = (torch.tensor([0.8], device=CARD), torch.tensor([1.0], device=CARD),
+            torch.tensor([0], dtype=torch.int32, device=CARD))
+    ids = np.zeros((1, engine._bucket_for(len(prompt))), np.int32)
+    ids[0, :len(prompt)] = prompt
+
+    def prefill():
+        """The prompt's logits and K and V caches."""
+        cache = llama.init_cache(cfg, 1, base.max_seq_len, engine.dtype, device=CARD)
+        hidden, cache = llama.forward(
+            engine.params, cfg, torch.from_numpy(ids).to(CARD),
+            torch.arange(ids.shape[1], dtype=torch.int32, device=CARD)[None, :], cache,
+            i32([0], CARD), engine.rope_tables, use_flash=engine.use_flash)
+        last = llama.gather_last_hidden(hidden, i32([len(prompt)], CARD))
+        return llama.lm_head_logits(engine.params, cfg, last), cache[0], cache[1]
+
+    def proposal():
+        """The k drafts and their distributions under one seed."""
+        draft.generator.manual_seed(5)
+        return tuple(t.clone() for t in draft.propose(prompt[-1], *warp))
+
+    def differing(make) -> int:
+        first = make()
+        return sum(not all(torch.equal(a, b) for a, b in zip(make(), first))
+                   for _ in range(reps))
+
+    rows_cumsum = sampling.cumsum_rows
+    sampled = SamplingParams(max_tokens=LOCKSTEP_SPEC_OUT, temperature=0.8, seed=42)
+    lockstep_spec_run("sampling determinism, warm", engine, prompt,
+                      SamplingParams(max_tokens=16))
+    try:
+        for variant in ("torch.cumsum", "cumsum_rows"):
+            sampling.cumsum_rows = rows_cumsum if variant == "cumsum_rows" else (
+                lambda x: torch.cumsum(x, dim=-1))
+            with torch.inference_mode():
+                n_prefill = differing(prefill)
+                _, k_cache, v_cache = prefill()
+                draft.reset(prompt, 5)
+                n_draft = differing(proposal)
+                tokens = torch.cat([i32([prompt[-1]], CARD), proposal()[0]])[None]
+                n_verify = differing(lambda: (span_verify_logits(
+                    engine.params, cfg, (k_cache, v_cache), tokens, i32([len(prompt)], CARD),
+                    engine.rope_tables)[0].clone(),))
+                del k_cache, v_cache
+            streams = [tuple(lockstep_spec_run(f"sampling determinism, {variant} ({n})", engine,
+                                               prompt, sampled)["toks"]) for n in range(runs)]
+            log(f"info [{smi}] sampling determinism, {variant}: of {reps} recomputations, "
+                f"{n_prefill} prefills, {n_draft} draft proposals (drafts and distributions) "
+                f"and {n_verify} verify passes left the first one's bits; {runs} sampled runs "
+                f"(temperature 0.8, seed 42) gave {len(set(streams))} distinct streams")
+    finally:
+        sampling.cumsum_rows = rows_cumsum
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3658,6 +4353,18 @@ def main() -> int:
     if sys.argv[1:] == ["--profile-ring"]:
         with torch.inference_mode():
             profile_ring(torch.cuda.get_device_name(0))
+        return 0
+    if sys.argv[1:] == ["--sampling-determinism"]:
+        _build.build_all()
+        sampling_determinism(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
+        return 0
+    if sys.argv[1:] == ["--trace-cost"]:
+        _build.build_all()
+        trace_cost(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                   "--format=csv,noheader"], capture_output=True, text=True,
+                                  timeout=60, check=True).stdout.strip().splitlines()[0])
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -3711,6 +4418,7 @@ def main() -> int:
     # the slice's main path: the paged kernels' launches from the HTTP storm
     # (flash is not on it; its count stays the phase-separated run's)
     http_launches = http_phase(smi)  # its numbers carry the card's name and power limit
+    observability_phase(smi)
     http_lockstep_phase(smi)
     # ... and the speculative storm's (its k=4 run), each read just after it
     for name in ("ragged_paged_attention", "paged_decode_attention"):

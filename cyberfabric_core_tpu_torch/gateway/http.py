@@ -18,6 +18,7 @@ import asyncio
 import json
 from http import HTTPStatus
 from typing import Any, Optional
+from urllib.parse import parse_qsl
 
 _REASONS = {499: "Client Closed Request"}
 
@@ -52,7 +53,14 @@ class Request:
                  headers: dict[str, str], reader: asyncio.StreamReader,
                  writer: asyncio.StreamWriter, max_body: int) -> None:
         self.method = method
-        self.path = target.partition("?")[0]
+        path, _, query = target.partition("?")
+        self.path = path
+        #: the query string's parameters (the first value of a repeated name)
+        self.query: dict[str, str] = {}
+        for key, value in parse_qsl(query, keep_blank_values=True):
+            self.query.setdefault(key, value)
+        #: the route template's path parameters (``{request_id}``)
+        self.match_info: dict[str, str] = {}
         self.version = version
         #: header names lower-cased; repeated headers joined by ", "
         self.headers = headers

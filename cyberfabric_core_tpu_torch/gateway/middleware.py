@@ -2,14 +2,19 @@
 ``gateway/middleware.py:117-400``), composed once per route when the host
 is built, in the reference's order:
 
-  request id → timeout (not for SSE routes) → body limit (413) → MIME (415)
+  request id → trace (the HTTP span, the request counter and latency)
+  → timeout (not for SSE routes) → body limit (413) → MIME (415)
   → rate limit (token bucket, then in-flight cap: 429 + Retry-After)
-  → error mapping (``application/problem+json``) → auth → handler
+  → error mapping (``application/problem+json``; the ``gateway.request``
+  failpoint) → auth → handler
 
-The port serves with ``auth_disabled`` only: the auth layer gives every
-request the anonymous context of the configured tenant. The JAX layers the
-port leaves out (tracing, CORS, policy, license) come with ROADMAP queue 1
-items 15 and 16.
+The trace layer opens the request's HTTP span from the client's
+``traceparent`` (parent-based sampling) and binds the request and trace ids
+to the log context; the llm-gateway passes the span's traceparent on to the
+worker, so the scheduler's spans join the same trace. The port serves with
+``auth_disabled`` only: the auth layer gives every request the anonymous
+context of the configured tenant. The JAX layers the port leaves out (CORS,
+policy, license) come with ROADMAP queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -22,7 +27,10 @@ from typing import Awaitable, Callable, Optional
 
 from ..modkit.errcat import ERR
 from ..modkit.errors import Problem, ProblemError
+from ..modkit.failpoints import failpoint_async
+from ..modkit.metrics import default_registry
 from ..modkit.security import SecurityContext
+from ..modkit.telemetry import Tracer, reset_log_context, set_log_context
 from .http import BodyTooLarge, ClientDisconnected, Request, Response
 from .router import OperationSpec
 
@@ -31,6 +39,7 @@ logger = logging.getLogger("gateway")
 REQUEST_ID_HEADER = "x-request-id"
 SECURITY_CONTEXT_KEY = "security_context"
 REQUEST_ID_KEY = "request_id"
+TRACE_ID_KEY = "trace_id"
 
 Handler = Callable[[Request], Awaitable[Response]]
 
@@ -71,19 +80,28 @@ class RouteStackBuilder:
     """Composes the layers around one route's handler at build time."""
 
     def __init__(self, *, timeout_secs: float = 30.0, max_body_bytes: int = 64 * 1024 * 1024,
-                 tenant: str = "default") -> None:
+                 tenant: str = "default", tracer: Optional[Tracer] = None) -> None:
         self.timeout_secs = timeout_secs
         self.max_body_bytes = max_body_bytes
         self.tenant = tenant
+        self.tracer = tracer or Tracer(enabled=False)
+        # metric objects held here, off the per-request path
+        self._req_counter = default_registry.counter(
+            "http_requests_total", "HTTP requests served")
+        self._req_latency = default_registry.histogram(
+            "http_request_duration_seconds", "Request latency")
 
-    def compose(self, spec: Optional[OperationSpec], endpoint: Handler) -> Handler:
-        """``spec=None`` composes the host's own public endpoints."""
+    def compose(self, spec: Optional[OperationSpec], endpoint: Handler,
+                route: Optional[str] = None) -> Handler:
+        """``spec=None`` composes the host's own public endpoints (``route``
+        names them in the request metrics)."""
         h = self._auth_layer(endpoint)
-        h = self._error_layer(h)
+        h = self._error_layer(spec, h)
         h = self._rate_layer(spec, h)
         h = self._mime_layer(spec, h)
         h = self._body_layer(h)
         h = self._timeout_layer(spec, h)
+        h = self._trace_layer(spec.path if spec is not None else route, h)
         return self._request_id_layer(spec, h)
 
     def _request_id_layer(self, spec: Optional[OperationSpec], inner: Handler) -> Handler:
@@ -96,6 +114,29 @@ class RouteStackBuilder:
             return resp
 
         return request_id
+
+    def _trace_layer(self, route: Optional[str], inner: Handler) -> Handler:
+        tracer, counter, latency = self.tracer, self._req_counter, self._req_latency
+
+        async def trace(request: Request) -> Response:
+            start = time.monotonic()
+            with tracer.span(f"http {request.method} {request.path}",
+                             traceparent=request.headers.get("traceparent"),
+                             method=request.method, path=request.path,
+                             request_id=request.get(REQUEST_ID_KEY)) as span:
+                request[TRACE_ID_KEY] = span.trace_id
+                log_token = set_log_context(request.get(REQUEST_ID_KEY), span.trace_id)
+                try:
+                    resp = await inner(request)
+                finally:
+                    reset_log_context(log_token)
+                span.set_attribute("status", resp.status)
+                label = route if route is not None else request.path
+                counter.inc(route=label, method=request.method, status=str(resp.status))
+                latency.observe(time.monotonic() - start, route=label)
+                return resp
+
+        return trace
 
     def _timeout_layer(self, spec: Optional[OperationSpec], inner: Handler) -> Handler:
         # SSE routes are exempt: the timeout guards handler completion, and a
@@ -169,9 +210,18 @@ class RouteStackBuilder:
 
         return rate_limit
 
-    def _error_layer(self, inner: Handler) -> Handler:
+    def _error_layer(self, spec: Optional[OperationSpec], inner: Handler) -> Handler:
+        # the failpoint control plane is exempt from its own injection: an
+        # always-raise on gateway.request must not brick the disarm route
+        faultable = not (spec is not None
+                         and spec.path.startswith("/v1/monitoring/failpoints"))
+
         async def error_mapping(request: Request) -> Response:
             try:
+                if faultable:
+                    # inside the error boundary: an injected raise comes back
+                    # as a problem, an injected delay meets the timeout layer
+                    await failpoint_async("gateway.request")
                 return await inner(request)
             except ProblemError as e:
                 if request.streamed:  # the stream's head is out: nothing to re-status

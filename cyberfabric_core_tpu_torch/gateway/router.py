@@ -1,9 +1,12 @@
 """Route registration (the port's counterpart of ``gateway/router.py``): the
 modules declare their operations on a :class:`RestRouter`, which refuses a
-duplicate route; the host composes each one's layers once."""
+duplicate route; the host composes each one's layers once. A path may hold
+``{name}`` segments (``/v1/monitoring/requests/{request_id}``): each matches
+one path segment and lands in ``request.match_info``."""
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Any, Awaitable, Callable, Optional
 
@@ -29,6 +32,13 @@ class OperationSpec:
     sse: bool = False
     module: str = ""
     rate_limit: Optional[RateLimitSpec] = None
+
+    def pattern(self) -> Optional["re.Pattern[str]"]:
+        """The path's matcher when it holds ``{name}`` segments, else None."""
+        if "{" not in self.path:
+            return None
+        return re.compile("^" + re.sub(r"\\\{(\w+)\\\}", r"(?P<\1>[^/]+)",
+                                       re.escape(self.path)) + "$")
 
 
 class RestRouter:

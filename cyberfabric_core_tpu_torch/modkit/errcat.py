@@ -36,7 +36,14 @@ _CATALOG: dict[str, dict[str, int]] = {
         "context_length_exceeded": 422, "unsupported_param": 400,
         "scheduler_saturated": 429, "tenant_saturated": 429,
         "tenant_quota_exceeded": 429, "replica_unavailable": 503,
-        "not_ported": 501,
+        "load_shed": 429, "tenant_shed": 429, "not_ported": 501,
+    },
+    "monitoring": {
+        "profiler_running": 409, "profiler_not_running": 400,
+        "profiler_stop_failed": 500, "faultlab_disabled": 403,
+        "unknown_failpoint": 404, "bad_failpoint_spec": 400,
+        "unknown_request": 404, "bad_export_format": 400, "not_ready": 503,
+        "unknown_replica": 404, "replica_conflict": 409, "unknown_tenant": 404,
     },
 }
 

@@ -2,17 +2,23 @@
 paths of ``modules/llm_gateway/module.py``): ``POST /v1/chat/completions``
 and ``POST /v1/completions``, sync and SSE, and ``POST /v1/embeddings``.
 
-validate against the wire schema → refuse what the port does not serve →
-request id, traceparent and tenant into the worker params → deadline →
+validate against the wire schema → the doctor's shedding gate (429
+``llm.load_shed`` / ``llm.tenant_shed`` with ``Retry-After``, before
+enqueue, only in a host that runs the monitoring module) → refuse what the
+port does not serve → request id, the HTTP span's traceparent and the
+tenant into the worker params → deadline →
 resolve the model and its fallback chain → one attempt per model under the
 TTFT and total timeouts → a JSON response, or an SSE stream of chunks (a
 role-bearing first delta, content deltas, a final chunk with
 ``finish_reason`` and ``usage``, then ``data: [DONE]``; a failure after the
-stream started is an ``error`` event).
+stream started is an ``error`` event). At a model's first chunk,
+``llm_ttft_seconds{model}`` observes the flight record's derived ttft (the
+engine's enqueued → prefill), else the gateway's wall clock.
 
 A client that leaves an SSE stream, before its first token or after, is
 seen on the connection (EOF while waiting, a reset at a write); the stream's
-generators are closed, and the worker cancels the request in the engine.
+generators are closed, the worker cancels the request in the engine, and
+``llm_client_disconnects_total`` counts it.
 Request fields and config keys of the JAX module that the port does not
 serve (async jobs, tools, structured output, media parts, budgets, hooks)
 raise, naming their ROADMAP item.
@@ -31,8 +37,11 @@ from ...gateway.router import RestRouter
 from ...gateway.validation import read_json, validate_against
 from ...modkit.errcat import ERR
 from ...modkit.errors import ProblemError
+from ...modkit.flight_recorder import default_recorder
+from ...modkit.metrics import bump_counter, default_registry
 from ...modkit.security import SecurityContext
 from ...modkit.sse import SSE_DONE, format_sse_json
+from ...modkit.telemetry import Tracer
 from ..sdk import ChatStreamChunk, LlmWorkerApi, ModelInfo, ModelRegistryApi
 from . import schemas
 
@@ -80,6 +89,9 @@ class LlmGatewayModule:
         self.default_deadline_ms = float(config.get("default_deadline_ms", 0.0))
         #: SSE consumers that left mid-stream
         self.client_disconnects = 0
+        #: the doctor the shedding gate reads: set by a host that runs the
+        #: monitoring module (None: this host never sheds)
+        self.doctor: Any = None
 
     # ------------------------------------------------------------- application layer
     async def _resolve_with_fallback(self, ctx: SecurityContext,
@@ -112,7 +124,8 @@ class LlmGatewayModule:
         else:
             agen = self.worker.chat_stream(model, body["messages"], body)
         loop = asyncio.get_running_loop()
-        deadline = loop.time() + self.total_timeout_s
+        t_start = loop.time()
+        deadline = t_start + self.total_timeout_s
         first = True
         try:
             while True:
@@ -124,12 +137,56 @@ class LlmGatewayModule:
                 except asyncio.TimeoutError:
                     raise (ERR.llm.ttft_timeout if first else ERR.llm.total_timeout).error(
                         f"model {model.canonical_id} {'TTFT' if first else 'total'} timeout")
+                if first:
+                    self._observe_ttft(model, body, loop.time() - t_start)
                 first = False
                 yield chunk
         finally:
             await agen.aclose()
 
+    @staticmethod
+    def _observe_ttft(model: ModelInfo, body: dict, wall_s: float) -> None:
+        """``llm_ttft_seconds{model}``: the flight record's derived ttft
+        (enqueued → prefill, the engine's truth) when the request has one,
+        else the gateway's wall clock."""
+        ttft_s = wall_s
+        rid = body.get("_request_id")
+        if model.managed and rid:
+            try:
+                derived = ((default_recorder.lookup(rid) or {}).get("derived", {})
+                           .get("ttft_ms"))
+                if derived is not None:
+                    ttft_s = derived / 1000.0
+            except Exception:  # noqa: BLE001 — telemetry must not fail serving
+                pass
+        default_registry.histogram("llm_ttft_seconds", "Time to first token").observe(
+            ttft_s, model=model.canonical_id)
+
     # ------------------------------------------------------------- REST handlers
+    def _check_load_shed(self, ctx: Optional[SecurityContext] = None) -> None:
+        """The doctor's admission gate, tenant-selective first: while it
+        attributes the burn to an over-fair-share tenant, only that tenant's
+        new requests get 429 ``llm.tenant_shed``; in the ``shedding`` state
+        everyone's get 429 ``llm.load_shed``. Before enqueue: streams in
+        flight decode on untouched."""
+        doctor = self.doctor
+        if doctor is None:
+            return
+        retry_after = doctor.shed_retry_after()
+        if retry_after is not None:
+            raise ERR.llm.load_shed.error(
+                "serving is load-shedding (SLO burn/stall watchdogs); retry later",
+                retry_after_s=retry_after, state="shedding")
+        if ctx is None:
+            return
+        tenant_retry = doctor.tenant_shed_retry_after(ctx.tenant_id)
+        if tenant_retry is not None:
+            raise ERR.llm.tenant_shed.error(
+                f"tenant {ctx.tenant_id!r} is consuming over its fair share while "
+                "serving burns SLO budget; this tenant's new requests are shed first "
+                "(compliant tenants keep serving)",
+                retry_after_s=tenant_retry, tenant=ctx.tenant_id)
+
     @staticmethod
     def _reject_unported(body: dict) -> None:
         for key, item in _UNPORTED_FIELDS.items():
@@ -155,6 +212,7 @@ class LlmGatewayModule:
 
     async def _handle(self, request: Request, body: dict, mode: str):
         ctx: SecurityContext = request[SECURITY_CONTEXT_KEY]
+        self._check_load_shed(ctx)
         self._reject_unported(body)
         self._inject_observability(request, body, ctx)
         self._inject_deadline(request, body)
@@ -166,13 +224,17 @@ class LlmGatewayModule:
     @staticmethod
     def _inject_observability(request: Request, body: dict,
                               ctx: Optional[SecurityContext] = None) -> None:
-        """The gateway's request id, the client's traceparent and the
-        authenticated tenant into the worker params: the engine keys the
-        request by the id the client holds and its fair queue by the tenant."""
+        """The gateway's request id, the live HTTP span's traceparent (else
+        the client's) and the authenticated tenant into the worker params:
+        the engine keys the request by the id the client holds, its spans
+        join the HTTP trace, and its fair queue keys by the tenant."""
         rid = request.get(REQUEST_ID_KEY)
         if rid and "_request_id" not in body:
             body["_request_id"] = rid
-        if request.headers.get("traceparent"):
+        span = Tracer.current()
+        if span is not None:
+            body["_traceparent"] = span.traceparent()
+        elif request.headers.get("traceparent"):
             body["_traceparent"] = request.headers["traceparent"]
         if ctx is not None:
             body["_tenant_id"] = ctx.tenant_id
@@ -212,6 +274,7 @@ class LlmGatewayModule:
                 cost = self._cost(model, usage)
                 if cost is not None:
                     usage["cost_estimate"] = cost
+                self._count_tokens(body, usage)
                 resp = {"usage": usage, "model_used": model.canonical_id,
                         "fallback_used": not is_primary, "finish_reason": finish,
                         "content": [{"type": "text", "text": "".join(pieces)}]}
@@ -262,7 +325,7 @@ class LlmGatewayModule:
                 try:
                     await resp.prepare()
                     await self._stream_chunks(resp, agen, first_chunk, completion_id,
-                                              model, gone)
+                                              model, gone, body)
                     await resp.write(SSE_DONE)
                 finally:
                     # closing the stream's generators on every exit: the
@@ -273,6 +336,7 @@ class LlmGatewayModule:
                 "no model produced a stream")
         except ClientDisconnected:
             self.client_disconnects += 1
+            bump_counter("llm_client_disconnects_total")
             raise
         finally:
             gone.cancel()
@@ -294,7 +358,8 @@ class LlmGatewayModule:
         raise ClientDisconnected("the client closed the stream")
 
     async def _stream_chunks(self, resp: StreamResponse, agen, first_chunk,
-                             completion_id: str, model: ModelInfo, gone) -> None:
+                             completion_id: str, model: ModelInfo, gone,
+                             body: dict) -> None:
         role_sent = False
 
         async def emit(chunk: ChatStreamChunk) -> None:
@@ -314,6 +379,7 @@ class LlmGatewayModule:
                 if cost is not None:
                     usage["cost_estimate"] = cost
                 payload["usage"] = usage
+                self._count_tokens(body, usage)
             validate_against(schemas.STREAM_CHUNK, payload)
             await resp.write(format_sse_json(payload))
 
@@ -328,6 +394,15 @@ class LlmGatewayModule:
         except ProblemError as e:
             # a failure after the stream started: a terminal error event
             await resp.write(format_sse_json({"error": e.problem.to_dict()}, event="error"))
+
+    @staticmethod
+    def _count_tokens(body: dict, usage: dict[str, Any]) -> None:
+        """``llm_tokens_total{direction, tenant}`` for one finished request."""
+        tenant = str(body.get("_tenant_id") or "default")
+        bump_counter("llm_tokens_total", "LLM tokens processed",
+                     n=usage.get("input_tokens", 0), direction="input", tenant=tenant)
+        bump_counter("llm_tokens_total", "LLM tokens processed",
+                     n=usage.get("output_tokens", 0), direction="output", tenant=tenant)
 
     @staticmethod
     def _cost(model: ModelInfo, usage: dict[str, int]) -> Optional[float]:

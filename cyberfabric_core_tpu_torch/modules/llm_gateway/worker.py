@@ -48,6 +48,14 @@ naming their ROADMAP item; none is ignored. The combinations the JAX worker
 refuses (a one-sided PD split, PD with dp or tp, dp with tp) raise its
 ``ValueError``s.
 
+Observability: the worker stamps each continuous request's model and
+tenant on its flight record at submit (the scheduler emits the lifecycle
+events), tells a 408 from a 504 by the recorder's phase of the request's
+``deadline_exceeded`` terminal, and gives the monitoring module and the
+doctor :meth:`LocalTorchWorker.schedulers`,
+:meth:`LocalTorchWorker.replica_capacity` and
+:meth:`LocalTorchWorker.tenant_usage`.
+
 Embeddings (:meth:`LocalTorchWorker.embed`): one bert encoder per model,
 built once on first use (a named checkpoint that is missing raises; no
 checkpoint serves random weights, with a warning), run in fixed batches of
@@ -74,6 +82,8 @@ import torch
 from ...device import resolve_device, to_device
 from ...modkit.errcat import ERR
 from ...modkit.errors import ProblemError
+from ...modkit.failpoints import failpoint_async
+from ...modkit.flight_recorder import annotate_request, default_recorder
 from ...models import bert
 from ...models.configs import ModelConfig, get_config
 from ...device import on_card
@@ -463,6 +473,11 @@ class LocalTorchWorker(LlmWorkerApi):
         #: request ids with a stream open (a reused client id gets a suffix)
         self._live: set[str] = set()
 
+    @property
+    def device(self) -> str:
+        """Where the engines run: the config's ``device``, else the card."""
+        return str(self._device or "cuda")
+
     # ------------------------------------------------------------------ engines
     def engine(self, canonical_id: str) -> Any:
         """The model's engine (its replica pool, or its lockstep engine),
@@ -654,7 +669,7 @@ class LocalTorchWorker(LlmWorkerApi):
 
     def _submit(self, entry: _EngineEntry, prompt_ids: Sequence[int],
                 sampling: SamplingParams, queue: asyncio.Queue, request_id: str,
-                params: dict) -> None:
+                params: dict, model_id: str) -> None:
         loop = asyncio.get_running_loop()
 
         def emit(ev: StepEvent) -> None:
@@ -691,10 +706,17 @@ class LocalTorchWorker(LlmWorkerApi):
             # rebuilds on the next request), or a pool with no healthy
             # replica while the lifecycle manager rebuilds
             raise ERR.llm.replica_unavailable.error(str(e), retry_after_s=1.0)
+        # the owning model on the flight record (the scheduler does not know
+        # which registry entry owns it): the doctor's per-model objectives
+        # and the live table's model column read it
+        annotate_request(request_id, model=model_id, tenant=tenant)
 
     async def _generate_from_ids(self, entry: _EngineEntry, model: ModelInfo,
                                  prompt_ids: list[int],
                                  params: dict) -> AsyncIterator[ChatStreamChunk]:
+        # an armed raise crashes the job at the worker boundary, before the
+        # engine sees it
+        await failpoint_async("llm_gateway.worker_stream")
         limits = model.limits or {}
         limits_max = int(limits.get("max_output_tokens", 1024))
         sampling = SamplingParams(
@@ -729,7 +751,8 @@ class LocalTorchWorker(LlmWorkerApi):
         if entry.batcher is not None:
             entry.batcher.submit(_Request(list(prompt_ids), sampling, queue))
         else:
-            self._submit(entry, prompt_ids, sampling, queue, request_id, params)
+            self._submit(entry, prompt_ids, sampling, queue, request_id, params,
+                         model.canonical_id)
         self._live.add(request_id)
         stop_strings = tuple(params.get("stop", ()) or ())
         max_stop_len = max((len(s) for s in stop_strings), default=0)
@@ -763,8 +786,10 @@ class LocalTorchWorker(LlmWorkerApi):
                         entry.supervisor.note_ok()
                     if n_tokens == 0:
                         # 408 when it lapsed while still queued (it never took
-                        # a slot), 504 when it lapsed after admission
-                        if engine.lapse_phase(request_id) == "queued":
+                        # a slot), 504 when it lapsed after admission: the
+                        # phase on the flight record's terminal event
+                        rec = default_recorder.lookup(request_id) or {}
+                        if (rec.get("timeline") or [{}])[-1].get("phase") == "queued":
                             raise ERR.llm.request_timeout.error(
                                 "request deadline lapsed before admission "
                                 "(X-Request-Deadline-Ms / gateway default TTL); it never "
@@ -896,6 +921,78 @@ class LocalTorchWorker(LlmWorkerApi):
         entry = _EmbedEntry(tokenizer=tokenizer, params=params, cfg=cfg)
         self._embed_entries[key] = entry
         return entry
+
+    # ---------------------------------------------------------- observability
+    def schedulers(self) -> list[tuple[str, Any]]:
+        """(name, continuous engine) pairs, pool replicas as ``name[i]``:
+        the doctor's watchdogs and the monitoring gauges read each one. A
+        snapshot: the doctor's thread calls it while the event loop builds
+        or evicts entries."""
+        out: list[tuple[str, Any]] = []
+        for name, e in dict(self._entries).items():
+            if e.scheduler is not None:
+                out.append((name, e.scheduler))
+            elif e.pool is not None:
+                out.extend((f"{name}[{i}]", eng) for i, eng in enumerate(list(e.pool.replicas)))
+        return out
+
+    def replica_capacity(self) -> dict[str, Any]:
+        """The replica census the doctor scales its shedding with, and the
+        ``llm_replicas_healthy`` / ``llm_replicas_benched`` source. A single
+        engine is one replica: serving while servable, benched when its
+        supervisor benched it."""
+        counts = {"replicas": 0, "serving": 0, "healthy": 0, "probation": 0,
+                  "draining": 0, "drained": 0, "quarantined": 0,
+                  "rebuilding": 0, "benched": 0}
+        for entry in dict(self._entries).values():
+            if entry.pool is not None and entry.pool.lifecycle is not None:
+                c = entry.pool.lifecycle.counts()
+                counts["replicas"] += c["replicas"]
+                counts["serving"] += c["serving"]
+                for k in ("healthy", "probation", "draining", "drained",
+                          "quarantined", "rebuilding", "benched"):
+                    counts[k] += c[k]
+            elif entry.pool is not None:
+                per = entry.pool.stats()
+                counts["replicas"] += per["replicas"]
+                counts["serving"] += per["healthy"]
+                counts["healthy"] += per["healthy"]
+            elif entry.scheduler is not None:
+                counts["replicas"] += 1
+                sup = entry.supervisor
+                if sup is not None and sup.benched:
+                    counts["benched"] += 1
+                elif entry.scheduler.servable():
+                    counts["serving"] += 1
+                    counts["healthy"] += 1
+                else:
+                    counts["quarantined"] += 1
+        return counts
+
+    def tenant_usage(self) -> dict[str, dict[str, Any]]:
+        """Per-tenant live accounting summed over every continuous engine
+        (pool replicas included), with the per-model rows: the
+        ``/v1/monitoring/tenants`` source."""
+        out: dict[str, dict[str, Any]] = {}
+        for name, sched in self.schedulers():
+            try:
+                rows = sched.tenant_snapshot()
+            except Exception:  # noqa: BLE001 — a dying engine
+                continue
+            for tenant, row in rows.items():
+                agg = out.setdefault(tenant, {
+                    "tenant": tenant, "charged_tokens": 0, "active_slots": 0, "pages": 0,
+                    "pending": 0, "soft_yields": 0, "virtual_counter": 0.0,
+                    "rejections": {}, "per_model": {}})
+                for key in ("charged_tokens", "active_slots", "pages", "pending",
+                            "soft_yields"):
+                    agg[key] += row.get(key, 0)
+                agg["virtual_counter"] = round(
+                    agg["virtual_counter"] + row.get("virtual_counter", 0.0), 3)
+                for reason, n in (row.get("rejections") or {}).items():
+                    agg["rejections"][reason] = agg["rejections"].get(reason, 0) + n
+                agg["per_model"][name] = row
+        return out
 
     # -------------------------------------------------- replica control plane
     def _replica_rows(self) -> list[tuple[dict[str, Any], _EngineEntry, int]]:

@@ -24,6 +24,9 @@ such rows by inverse CDF on an explicit generator (JAX's
 ``jax.random.categorical`` on a threefry key; the port's generator is
 Philox on CUDA, so sampled streams agree with JAX's in distribution, not
 token for token).
+
+Every running sum here goes through :func:`cumsum_rows`, so a seed gives the
+same tokens on every run of the same inputs, on the card too.
 """
 
 from __future__ import annotations
@@ -38,6 +41,18 @@ def make_slot_generator(seed: int, device: torch.device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(int(seed) & 0x7FFF_FFFF_FFFF_FFFF)
     return g
+
+
+def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum(x, dim=-1)`` of [B, V] rows, summed in the same order
+    on every call. CUDA scans a tensor of one row with a single-pass scan
+    whose float sums depend on the order its tiles finish, so one row's CDF
+    could differ in its last bits from run to run, and a seeded draw with
+    it; a tensor of two rows or more is scanned row by row in a fixed order.
+    One row therefore gets a zero row beside it."""
+    if x.shape[0] != 1:
+        return torch.cumsum(x, dim=-1)
+    return torch.cumsum(torch.cat([x, torch.zeros_like(x)]), dim=-1)[:1]
 
 
 def _warp_sorted(
@@ -56,7 +71,7 @@ def _warp_sorted(
     sorted_logits, sorted_idx = torch.sort(scaled, dim=-1, descending=True,
                                            stable=True)
     probs_sorted = torch.softmax(sorted_logits, dim=-1)
-    cumsum = torch.cumsum(probs_sorted, dim=-1)
+    cumsum = cumsum_rows(probs_sorted)
     # top-p: keep the smallest prefix with cumulative mass >= top_p
     keep_p = (cumsum - probs_sorted) < top_p[:, None]
     rank = torch.arange(V, device=logits.device)[None, :]
@@ -106,7 +121,7 @@ def sample_token_per_slot(
         return greedy
     masked_sorted, sorted_idx = _warp_sorted(logits, temperature, top_p, top_k)
     probs = torch.softmax(masked_sorted, dim=-1)
-    cdf = torch.cumsum(probs, dim=-1)
+    cdf = cumsum_rows(probs)
     target = (uniforms * cdf[:, -1]).unsqueeze(-1).contiguous()
     pos = torch.searchsorted(cdf, target, right=True)[:, 0]
     n_kept = torch.isfinite(masked_sorted).sum(dim=-1)
@@ -164,7 +179,7 @@ def categorical(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor
 
 def categorical_from_uniform(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """:func:`categorical` for given uniforms ``u`` [B] in [0, 1)."""
-    cdf = torch.cumsum(probs, dim=-1)
+    cdf = cumsum_rows(probs)
     target = (u * cdf[:, -1]).unsqueeze(-1).contiguous()
     pos = torch.searchsorted(cdf, target, right=True)[:, 0]
     # rounding can put the target at the total: take the last nonzero entry

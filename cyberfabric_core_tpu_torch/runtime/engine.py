@@ -24,7 +24,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable, Iterator, Mapping, Optional
+from typing import Any, Callable, Iterator, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -465,11 +465,60 @@ class InferenceEngine:
     def _bucket_for(self, length: int) -> int:
         return self.config.bucket_for(length)
 
-    def decode_cost_analysis(self, batch: Optional[int] = None) -> dict:
-        """Not ported: the device observability slice (ROADMAP queue 1 item
-        8) brings the decode chunk's cost counts."""
-        raise NotImplementedError("not ported yet: decode_cost_analysis (ROADMAP queue 1 "
-                                  "item 8, device observability)")
+    def decode_cost_analysis(self, batch: Optional[int] = None,
+                             lengths: Optional[Sequence[int]] = None) -> dict:
+        """The flops and bytes of one fused decode chunk, counted from the
+        model's shapes (JAX's keys: ``flops``, ``bytes_accessed``,
+        ``flops_per_token``, ``bytes_per_token``, ``batch``,
+        ``decode_chunk``; and the first step's ``flops_per_step`` and
+        ``bytes_per_step``): the roofline inputs for tokens/s work.
+
+        A step does, for each of ``batch`` rows, every layer's projections
+        and MLP (the routed experts only, for MoE) and the head: 2 flops a
+        weight; and attention over the row's keys: 4·Hq·D flops a key a
+        layer. It reads every weight once (the embedding's ``batch`` rows
+        only, unless the head shares it), each row's K and V at its length,
+        and writes each row's new K and V and its f32 logits. ``lengths``
+        are the rows' attended lengths at the chunk's first step (default:
+        the dense cache's whole span, which the lockstep step attends);
+        step j attends one key more per row.
+
+        JAX reads XLA's cost analysis of the chunk program instead, which
+        counts one iteration of its scan, so its ``flops`` is one step's and
+        its per-token figures are 1/k of the truth (ROADMAP departure 8)."""
+        cfg = self.model_config
+        B = batch or self.config.max_batch
+        k = max(1, self.config.decode_chunk)
+        S = self.config.max_seq_len
+        L0 = [min(S, int(n)) for n in lengths] if lengths is not None else [S] * B
+        if len(L0) != B:
+            raise ValueError(f"lengths has {len(L0)} rows, batch is {B}")
+        H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+        Hq, Hkv, D, n_layers = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+        mlp = 6 * H * I * (cfg.experts_per_token if cfg.num_experts else 1) \
+            + (2 * H * cfg.num_experts if cfg.num_experts else 0)
+        per_row = n_layers * (2 * H * (Hq + 2 * Hkv) * D + 2 * Hq * D * H + mlp) + 2 * H * V
+        state = self.params.state_dict()
+        embed_bytes = sum(t.numel() * t.element_size() for name, t in state.items()
+                          if name == "embed" or name.startswith("embed."))
+        weight_bytes = sum(t.numel() * t.element_size() for t in state.values())
+        if not cfg.tie_embeddings:  # the head reads its own matrix: B rows of the table
+            weight_bytes -= embed_bytes - embed_bytes * B // V
+        kv_elt = torch.finfo(self.dtype).bits // 8
+        kv_row = 2 * n_layers * Hkv * D * kv_elt  # K and V of one position, every layer
+
+        def step(j: int) -> tuple[int, int]:
+            keys = sum(min(S, n + j) for n in L0)
+            flops = B * per_row + 4 * n_layers * Hq * D * keys
+            nbytes = weight_bytes + kv_row * (keys + B) + 4 * B * V
+            return flops, nbytes
+
+        steps = [step(j) for j in range(k)]
+        flops, nbytes = sum(f for f, _ in steps), sum(b for _, b in steps)
+        return {"flops": float(flops), "bytes_accessed": float(nbytes),
+                "flops_per_token": flops / (B * k), "bytes_per_token": nbytes / (B * k),
+                "flops_per_step": float(steps[0][0]), "bytes_per_step": float(steps[0][1]),
+                "batch": B, "decode_chunk": k}
 
     # ------------------------------------------------------------------ device calls
     @torch.inference_mode()

@@ -31,9 +31,11 @@ self-healing serving capacity.
   stream clearing the strikes.
 
 The tick never raises out, and engine close / build / start run outside
-the manager's lock. The JAX package's flight-recorder events and metric
-counters wait for the observability slice; their counts are in
-:meth:`ReplicaLifecycleManager.status`.
+the manager's lock. Drains and rebuilds land in the flight recorder under
+JAX's episode ids (``pool1/replica0/drain-2``: ``drain_begin`` …
+``drain_end``; ``replica_rebuilt``), rebuild outcomes in
+``llm_replica_rebuilds_total``; :meth:`ReplicaLifecycleManager.status`
+keeps the counts.
 """
 
 from __future__ import annotations
@@ -46,7 +48,9 @@ import time
 from dataclasses import dataclass, field, fields
 from typing import Any, Callable, Optional
 
-from ..modkit.failpoints import failpoint
+from ..modkit.failpoints import failpoint, record_recovery
+from ..modkit.flight_recorder import record_event
+from ..modkit.metrics import bump_counter
 
 __all__ = ["STATES", "EngineSupervisor", "LifecycleConfig", "LifecycleStateError",
            "ReplicaLifecycleManager", "ReplicaUnavailable"]
@@ -134,6 +138,11 @@ class _ReplicaRecord:
     probation_ok: int = 0
     probation_inflight: int = 0
     drain_deadline: float = 0.0
+    #: flight-recorder episode ids (``pool1/replica0/drain-2``): a drain is
+    #: a live row from drain_begin to drain_end, a rebuild one closed record
+    drain_episode: int = 0
+    rebuild_episode: int = 0
+    drain_eid: Optional[str] = None
     #: a bounded (state, time) walk
     history: list = field(default_factory=list)
 
@@ -266,6 +275,7 @@ class ReplicaLifecycleManager:
                     actions.append(("rebuild", idx))
                 elif rec.state == "draining":
                     if broken:
+                        self._end_drain_locked(idx, rec, "broke")
                         self._quarantine_locked(idx, rec, broken)
                     elif idle:
                         actions.append(("drain_close", idx))
@@ -311,9 +321,16 @@ class ReplicaLifecycleManager:
                        "%.2fs): %s", self.name, idx, rec.strikes, self.config.max_strikes,
                        backoff, rec.last_error)
 
+    def _eid(self, idx: int, kind: str, episode: int) -> str:
+        return f"{self.name}/replica{idx}/{kind}-{episode}"
+
     def _do_rebuild(self, idx: int) -> bool:
         """Close the spent engine, build and start a fresh one on the same
         device from its params, and commit it; never under the lock."""
+        with self._lock:
+            rec = self._recs[idx]
+            rec.rebuild_episode += 1
+            eid = self._eid(idx, "rebuild", rec.rebuild_episode)
         old = self.pool.replicas[idx]
         try:
             old.close(timeout=5.0)
@@ -326,6 +343,9 @@ class ReplicaLifecycleManager:
             eng.start()
         except Exception as e:  # noqa: BLE001 — any build fault is one strike
             self.rebuilds_failed += 1
+            bump_counter("llm_replica_rebuilds_total", outcome="failed")
+            record_event(eid, "replica_rebuilt", replica=idx, outcome="failed",
+                         error=str(e)[:200])
             with self._lock:
                 self._quarantine_locked(idx, self._recs[idx], f"rebuild failed: {e}")
             return False
@@ -338,6 +358,10 @@ class ReplicaLifecycleManager:
             rec.probation_inflight = 0
             rec.walk("probation")
         self.rebuilds_ok += 1
+        record_recovery("replicas.rebuild", dt)
+        bump_counter("llm_replica_rebuilds_total", outcome="ok")
+        record_event(eid, "replica_rebuilt", replica=idx, outcome="ok",
+                     rebuild_ms=round(dt * 1000.0, 3))
         logger.info("lifecycle %s: replica %d rebuilt in %.2fs; on probation (%d clean "
                     "canaries to promote)", self.name, idx, dt,
                     self.config.probation_successes)
@@ -345,6 +369,14 @@ class ReplicaLifecycleManager:
 
     def _do_drain_close(self, idx: int, killed: bool) -> None:
         eng = self.pool.replicas[idx]
+        inflight = 0
+        if killed:
+            try:
+                st = eng.stats()
+                inflight = int(st.get("active", 0)) + int(st.get("pending", 0)) \
+                    + int(st.get("prefilling", 0)) + int(st.get("suspended", 0))
+            except Exception:  # noqa: BLE001
+                pass
         try:
             # close() ends stragglers with error; the pool fails them over
             eng.close(timeout=5.0)
@@ -354,11 +386,19 @@ class ReplicaLifecycleManager:
             rec = self._recs[idx]
             if rec.state != "draining":
                 return  # an undrain or restart raced the tick and owns the state
+            self._end_drain_locked(idx, rec, "killed" if killed else "clean",
+                                   failed_over=inflight)
             rec.walk("drained")
         if killed:
             self.drains_killed += 1
         else:
             self.drains_clean += 1
+
+    def _end_drain_locked(self, idx: int, rec: _ReplicaRecord, outcome: str,
+                          **attrs: Any) -> None:
+        if rec.drain_eid is not None:
+            record_event(rec.drain_eid, "drain_end", replica=idx, outcome=outcome, **attrs)
+            rec.drain_eid = None
 
     # ---------------------------------------------------------- control plane
     def _check_idx(self, idx: int) -> None:
@@ -378,7 +418,12 @@ class ReplicaLifecycleManager:
             if rec.state not in ("healthy", "probation"):
                 raise LifecycleStateError(f"cannot drain replica {idx} from state "
                                           f"{rec.state!r}")
+            rec.drain_episode += 1
+            rec.drain_eid = self._eid(idx, "drain", rec.drain_episode)
             rec.drain_deadline = time.monotonic() + deadline
+            # under the lock: the tick must not close the episode before its
+            # begin exists
+            record_event(rec.drain_eid, "drain_begin", replica=idx, deadline_s=deadline)
             rec.walk("draining")
         logger.info("lifecycle %s: draining replica %d (deadline %.1fs)", self.name, idx,
                     deadline)
@@ -394,6 +439,7 @@ class ReplicaLifecycleManager:
                 raise LifecycleStateError(
                     f"cannot undrain replica {idx} from state {rec.state!r} (only "
                     "'draining'; a drained replica needs restart)")
+            self._end_drain_locked(idx, rec, "undrained")
             rec.walk("healthy")
         return self.status_row(idx)
 
@@ -405,6 +451,8 @@ class ReplicaLifecycleManager:
             rec = self._recs[idx]
             if rec.state == "rebuilding":
                 raise LifecycleStateError(f"replica {idx} is already rebuilding")
+            if rec.state == "draining":
+                self._end_drain_locked(idx, rec, "restarted")
             rec.strikes = 0
             rec.backoff_until = 0.0
             rec.probation_ok = 0
@@ -526,6 +574,9 @@ class EngineSupervisor:
                 self._rebuilding = False
                 self.rebuilds_failed += 1
                 self.last_error = str(e)[:200]
+            bump_counter("llm_replica_rebuilds_total", outcome="failed")
+            record_event(f"{self.name}/rebuild-{self.rebuilds_failed}", "replica_rebuilt",
+                         outcome="failed", error=str(e)[:200])
             raise ReplicaUnavailable(
                 f"engine {self.name} rebuild failed: {e}",
                 retry_after_s=round(max(0.0, self.backoff_until - time.monotonic()), 2))
@@ -533,6 +584,11 @@ class EngineSupervisor:
         with self._lock:
             self._rebuilding = False
             self.rebuilds_ok += 1
+            n = self.rebuilds_ok
+        record_recovery("replicas.rebuild", dt)
+        bump_counter("llm_replica_rebuilds_total", outcome="ok")
+        record_event(f"{self.name}/rebuild-ok-{n}", "replica_rebuilt", outcome="ok",
+                     rebuild_ms=round(dt * 1000.0, 3))
         logger.info("supervisor %s: engine rebuilt in %.2fs", self.name, dt)
         return fresh
 

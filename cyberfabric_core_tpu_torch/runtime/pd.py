@@ -37,6 +37,8 @@ import threading
 import time
 from typing import Any, Optional
 
+from ..modkit.flight_recorder import record_event
+from ..modkit.metrics import bump_counter
 from .engine import EngineConfig, StepEvent
 from .replicas import DataParallelServingPool, pool_devices
 from .scheduler import ContinuousBatchingEngine
@@ -128,6 +130,7 @@ class PDServingPool(DataParallelServingPool):
             self.handoffs_failed += 1
             logger.warning("handoff of %s found no decode target (%s); failing over to "
                            "re-prefill", rid, e)
+            record_event(rid, "error", detail=f"handoff failed: {e}"[:200])
             try:
                 rec.state.emit(StepEvent(0, -1, "error"))
             except Exception:  # noqa: BLE001 — the wrapper owns terminals
@@ -144,6 +147,7 @@ class PDServingPool(DataParallelServingPool):
                 except Exception:  # noqa: BLE001
                     pass
         self.handoffs += 1
+        bump_counter("llm_pd_handoffs_total")
 
     # ------------------------------------------------------------------ flips
     def flip_role(self, idx: int, role: str,
@@ -162,6 +166,8 @@ class PDServingPool(DataParallelServingPool):
                              f"{self._roles[idx]}-role replica")
         old_role = self._roles[idx]
         self._roles[idx] = role
+        record_event(f"pd/replica{idx}", "role_flip", replica=idx, from_role=old_role,
+                     to_role=role)
         logger.info("PD role flip: replica %d %s -> %s", idx, old_role, role)
         if self.lifecycle is None:
             try:

@@ -25,8 +25,11 @@ goes on token for token; a stream whose budget was already served gets a
 synthesized ``length`` terminal instead. A cancelled request is never
 resubmitted.
 
-The JAX pool's flight-recorder events and metric counters wait for the
-observability slice; :meth:`stats` keeps their counts.
+Failovers, synthesized terminals and lapses land in the flight recorder
+under the request's id (``failover`` reopens the closed record), and the
+``llm_replica_failovers_total`` / ``llm_cache_aware_placements_total``
+counters in the metrics registry, as in JAX; :meth:`stats` keeps the same
+counts.
 """
 
 from __future__ import annotations
@@ -44,7 +47,9 @@ import torch
 
 from ..device import resolve_device, same_device
 from ..models.configs import get_config
-from ..modkit.failpoints import failpoint
+from ..modkit.failpoints import failpoint, record_recovery
+from ..modkit.flight_recorder import record_event
+from ..modkit.metrics import bump_counter
 from .engine import EngineConfig, SamplingParams, StepEvent
 from .lifecycle import LifecycleConfig, ReplicaLifecycleManager
 from .quant import is_quantized, quant_bits, quantize_llama_params
@@ -217,9 +222,11 @@ class DataParallelServingPool:
             if hint is not None and hint != best \
                     and loads[hint] - best_load <= self.cache_affinity_slack:
                 self.placement_hint_hits += 1
+                bump_counter("llm_cache_aware_placements_total")
                 return hint
             if hint is not None and hint == best and hint_len > 0:
                 self.placement_hint_hits += 1
+                bump_counter("llm_cache_aware_placements_total")
         return best
 
     def submit(self, prompt_ids: list[int], sampling: SamplingParams,
@@ -333,18 +340,27 @@ class DataParallelServingPool:
         """Resubmit on another replica, carrying the emitted tokens as prompt
         continuation; True when the client's stream is taken care of
         (resubmitted, or closed with a synthesized terminal)."""
+        t0 = time.monotonic()
         old = tracked.replica
         if tracked.deadline is not None and time.monotonic() >= tracked.deadline:
             self._close_tracked(rid, tracked)
+            record_event(rid, "deadline_exceeded", reason="deadline",
+                         phase="failover", tokens=len(tracked.emitted))
             self._note_departed(old)
             tracked.emit(StepEvent(0, -1, "deadline"))
             return True
         remaining = tracked.sampling.max_tokens - len(tracked.emitted)
         if remaining <= 0:
             # the replica died after the whole budget was emitted: only the
-            # terminal was lost. Release the canary slot without credit.
+            # terminal was lost. Release the canary slot without credit; the
+            # timeline reads error → failover (synthesized) → finished
             self._close_tracked(rid, tracked)
             self.synthesized_terminals += 1
+            record_event(rid, "failover", from_replica=old, to_replica=None,
+                         tokens_carried=len(tracked.emitted),
+                         synthesized_terminal=True)
+            record_event(rid, "finished", reason="length",
+                         tokens=len(tracked.emitted), synthesized=True)
             self._note_departed(old)
             tracked.emit(StepEvent(0, -1, "length"))
             return True
@@ -357,6 +373,8 @@ class DataParallelServingPool:
                 delay = min(delay * 2.0, self.failover_backoff_max_s)
             if tracked.cancelled:
                 self._close_tracked(rid, tracked)
+                record_event(rid, "cancelled", reason="cancelled",
+                             phase="failover", tokens=len(tracked.emitted))
                 self._note_departed(old)
                 tracked.emit(StepEvent(0, -1, "cancelled"))
                 return True
@@ -369,6 +387,10 @@ class DataParallelServingPool:
             logger.warning("failover: replica %d broke; resuming request on %d (attempt %d, "
                            "%d tokens emitted, %d budget left)", old, idx, attempt + 1,
                            len(tracked.emitted), remaining)
+            # the same request id: the timeline reads error → failover →
+            # enqueued (attempt 2) as one story
+            record_event(rid, "failover", from_replica=old, to_replica=idx,
+                         tokens_carried=len(tracked.emitted))
             try:
                 self.replicas[idx].submit(cont_prompt, cont_sampling, self._wrap(rid, tracked),
                                           rid, **self._submit_extras(tracked))
@@ -385,6 +407,8 @@ class DataParallelServingPool:
                     pass
             self._note_departed(old)
             self.failovers += 1
+            record_recovery("replicas.failover", time.monotonic() - t0)
+            bump_counter("llm_replica_failovers_total")
             return True
         self.failovers_failed += 1
         return False
@@ -394,14 +418,6 @@ class DataParallelServingPool:
         """Requests the replicas hold (0: the pool may close with no stream
         ended)."""
         return sum(r.in_flight() for r in self.replicas)
-
-    def lapse_phase(self, request_id: str) -> Optional[str]:
-        """Where ``request_id`` lapsed, on whichever replica saw it."""
-        for r in self.replicas:
-            phase = r.lapse_phase(request_id)
-            if phase is not None:
-                return phase
-        return None
 
     def stats(self) -> dict[str, Any]:
         per = [r.stats() for r in self.replicas]

@@ -128,8 +128,20 @@ prefill and mixed-kind rounds and a decode engine only decode rounds.
 accepted and ignored (it only changes speed). Options that change what is
 computed or which path runs and are not ported raise
 ``NotImplementedError`` naming the slice that brings them (see
-:func:`_reject_unported`). ``trace`` is kept on the request and emits
-nothing yet: lifecycle spans come with the observability slice.
+:func:`_reject_unported`).
+
+Observability, at JAX's sites and with JAX's kinds and attributes: every
+lifecycle transition lands in the flight recorder under the request's id
+(``enqueued``, ``admitted``, ``prefill``, ``prefill_chunk``,
+``decode_chunk``, ``preempted``, ``resumed``, ``finished``, ``error``,
+``cancelled``, ``deadline_exceeded``, ...), and a request whose
+``trace`` (a W3C traceparent) is sampled gets retrospective spans through
+the global tracer (``llm.prefill``, ``llm.prefill_chunk``,
+``llm.decode_chunk``, ``llm.preempt``, ``llm.cancel``). No emit reads the
+device: a decode chunk's event and span are stamped at its drain from the
+host values the drain read, and a chunk discarded from the ring emits
+nothing. Counters (cancellations, tenant rejections and yields, speculative
+tokens) go to the metrics registry.
 """
 
 from __future__ import annotations
@@ -138,7 +150,7 @@ import logging
 import threading
 import time
 import uuid
-from collections import OrderedDict, deque
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping, Optional
 
@@ -146,7 +158,10 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, on_card, resolve_device, same_device, to_device
-from ..modkit.failpoints import failpoint
+from ..modkit.failpoints import failpoint, record_recovery
+from ..modkit.flight_recorder import record_event
+from ..modkit.metrics import bump_counter
+from ..modkit.telemetry import get_global_tracer, traceparent_ids
 from ..models import llama
 from ..models.configs import ModelConfig, get_config
 from ..ops import flash_attention as fa
@@ -166,8 +181,6 @@ logger = logging.getLogger("scheduler")
 
 _SEED_MASK = 0x7FFF_FFFF_FFFF_FFFF
 _ROUND_KINDS = ("mixed", "prefill", "decode")
-#: lapses kept for :meth:`ContinuousBatchingEngine.lapse_phase`
-_LAPSE_RECORD = 1024
 
 
 def _reject_unported(config: EngineConfig, cfg: ModelConfig) -> None:
@@ -256,10 +269,17 @@ class _SlotState:
     #: slot whenever the ring is empty: what a preemption saves)
     last_token: int = -1
     trace: Optional[str] = None
+    #: the traceparent's sampled flag, parsed once at admission: the span
+    #: guard of the hot loop is this one bool
+    trace_sampled: bool = False
     #: absolute ``time.monotonic()`` instant; None = unbounded
     deadline: Optional[float] = None
     tenant: str = "default"
     prefill_t0: float = 0.0
+    #: wall clock at admission (the backdated ``llm.prefill`` span's start)
+    prefill_wall: float = 0.0
+    #: mixed-round prompt chunks run so far
+    prefill_chunks: int = 0
     #: speculative rounds (``scheduler_spec_k`` > 0): the stream's
     #: prompt-lookup proposer, fed every emitted token; armed at decode
     #: activation for greedy, limit-bound requests only (:meth:`_arm_spec`).
@@ -300,6 +320,8 @@ class _Suspended:
     #: another tenant has pending work and this tenant is still over its cap
     soft_yielded: bool = False
     suspended_at: float = field(default_factory=time.monotonic)
+    #: wall clock of the same instant (the ``llm.preempt`` span's start)
+    suspended_wall: float = field(default_factory=time.time)
     #: a PD handoff from a prefill-role engine, not a local preemption: the
     #: resume imports the pages and counts no preemption or recovery
     handoff: bool = False
@@ -641,12 +663,6 @@ class ContinuousBatchingEngine:
         self._cancel_lock = threading.Lock()
         self._cancel_requests: dict[str, str] = {}
         self._has_deadlines = False
-        #: request id → the phase it lapsed in (queued, prefilling, decoding,
-        #: suspended), the newest _LAPSE_RECORD lapses: the worker tells a
-        #: 408 (lapsed while queued) from a 504 by it, as JAX does by the
-        #: flight recorder's last phase
-        self._lapse_lock = threading.Lock()
-        self._lapse_phases: OrderedDict[str, str] = OrderedDict()
         #: recent prefill rates (tokens/s) behind the admission estimate
         self._prefill_rates: deque[float] = deque(maxlen=32)
         self._suspended: deque[_Suspended] = deque()
@@ -698,6 +714,8 @@ class ContinuousBatchingEngine:
         self.reclaimed_tokens = 0
         self.resume_latency_samples: deque[float] = deque(maxlen=512)
         self.queue_wait_samples: deque[float] = deque(maxlen=2048)
+        #: host ms of the last admission pass (the rounds' chrome trace)
+        self._last_admit_ms = 0.0
         #: when the last round ended (the doctor's round watchdog)
         self.last_round_at = time.monotonic()
 
@@ -786,13 +804,31 @@ class ContinuousBatchingEngine:
                     f"pending queue full ({self.config.max_pending} requests); "
                     "retry later",
                     retry_after_s=self._saturation_retry_after(self._pending.qsize()))
+            # recorded BEFORE the put: once visible to the scheduler thread the
+            # request may be admitted (and finished) at once, and a late
+            # 'enqueued' would reopen a ghost record
+            extra = {}
             if deadline is not None:
                 self._has_deadlines = True
+                extra["deadline_ms"] = round((deadline - time.monotonic()) * 1000.0, 1)
+            record_event(rid, "enqueued", prompt_tokens=len(prompt_ids),
+                         trace_id=traceparent_ids(trace)[0], tenant=tenant, **extra)
             self._pending.put(_Pending(rid, list(prompt_ids), sampling, emit, trace=trace,
                                        deadline=deadline, tenant=tenant))
         self._wake.set()
-        self.start()
+        self._start_owned()
         return rid
+
+    def _start_owned(self) -> None:
+        """:meth:`start` once a request is queued: a break or close since the
+        locked check cannot lose it (the teardown drains the queue and ends it
+        with ``error``), so the caller must not see a refusal and submit the
+        request elsewhere too (its client would get two terminals)."""
+        try:
+            self.start()
+        except RuntimeError:
+            if not (self._broken or self._closed):
+                raise
 
     def submit_handoff(self, rec: _Suspended) -> None:
         """Take a stream a prefill-role engine handed off (prefill done
@@ -829,7 +865,7 @@ class ContinuousBatchingEngine:
                 self._has_deadlines = True
             self._suspended.append(rec)
         self._wake.set()
-        self.start()
+        self._start_owned()
 
     @property
     def active_slots(self) -> int:
@@ -896,7 +932,8 @@ class ContinuousBatchingEngine:
             self._cancel_finalize(req.emit, reason or "deadline",
                                   "cancelled" if reason else "deadline_exceeded",
                                   reclaimed=req.sampling.max_tokens,
-                                  request_id=req.request_id, phase="queued")
+                                  request_id=req.request_id, phase="queued",
+                                  trace=req.trace, tenant=req.tenant)
 
     def _cancel_suspended(self, cancels: dict[str, str], now: float) -> None:
         if not self._suspended:
@@ -915,7 +952,8 @@ class ContinuousBatchingEngine:
             st = rec.state
             self._cancel_finalize(st.emit, reason, kind,
                                   reclaimed=st.sampling.max_tokens - st.emitted,
-                                  request_id=st.request_id, phase="suspended")
+                                  request_id=st.request_id, phase="suspended",
+                                  emitted=st.emitted, trace=st.trace, tenant=st.tenant)
 
     def _cancel_slot(self, slot: int, state: _SlotState, reason: str, kind: str) -> None:
         """Free one occupied slot (prefill or decode phase): its chain, its
@@ -937,31 +975,40 @@ class ContinuousBatchingEngine:
             self._pt_dirty = True
         self._cancel_finalize(state.emit, reason, kind,
                               reclaimed=state.sampling.max_tokens - state.emitted,
-                              request_id=state.request_id,
-                              phase="prefilling" if state.phase == "prefill" else "decoding")
+                              request_id=state.request_id, phase=state.phase,
+                              emitted=state.emitted, slot=slot, trace=state.trace,
+                              tenant=state.tenant)
 
     def _cancel_finalize(self, emit: Callable[[StepEvent], None], reason: str,
-                         kind: str, *, reclaimed: int, request_id: str, phase: str) -> None:
+                         kind: str, *, reclaimed: int, request_id: str, phase: str,
+                         emitted: int = 0, slot: Optional[int] = None,
+                         trace: Optional[str] = None, tenant: str = "default") -> None:
         """One terminal per cancellation: the count by reason, the budget
-        reclaimed, where a lapsed request was (:meth:`lapse_phase`), and the
-        client's event (a raising emit belongs to a client that is gone)."""
-        if kind == "deadline_exceeded":
-            with self._lapse_lock:
-                self._lapse_phases[request_id] = phase
-                while len(self._lapse_phases) > _LAPSE_RECORD:
-                    self._lapse_phases.popitem(last=False)
+        reclaimed, the flight-recorder terminal (``cancelled`` /
+        ``deadline_exceeded``, whose ``phase`` the worker's 408 / 504 choice
+        reads), the counters, an ``llm.cancel`` span for a sampled trace, and
+        the client's event (a raising emit belongs to a client that is
+        gone)."""
         self.cancellations[reason] = self.cancellations.get(reason, 0) + 1
         self.reclaimed_tokens += max(0, int(reclaimed))
+        attrs: dict[str, Any] = {"reason": reason, "phase": phase, "tokens": emitted,
+                                 "tenant": tenant}
+        if slot is not None:
+            attrs["slot"] = slot
+        record_event(request_id, kind, **attrs)
+        bump_counter("llm_cancellations_total", reason=reason)
+        if reclaimed > 0:
+            bump_counter("llm_cancel_reclaimed_tokens_total", n=int(reclaimed))
+        if traceparent_ids(trace)[1]:
+            # the trace ends with why the request ended
+            get_global_tracer().emit_span(
+                "llm.cancel", traceparent=trace, start_unix_ns=int(time.time() * 1e9),
+                duration_ms=0.0, request_id=request_id, reason=reason, kind=kind,
+                phase=phase, tokens=emitted, tenant=tenant)
         try:
             emit(StepEvent(0, -1, "deadline" if kind == "deadline_exceeded" else "cancelled"))
         except Exception:  # noqa: BLE001 — the client is gone by definition
             pass
-
-    def lapse_phase(self, request_id: str) -> Optional[str]:
-        """The phase ``request_id`` was in when its deadline lapsed, while it
-        is among the newest lapses; None otherwise."""
-        with self._lapse_lock:
-            return self._lapse_phases.get(request_id)
 
     def _note_prefill_rate(self, tokens: int, dur_s: float) -> None:
         if tokens > 0 and dur_s > 0:
@@ -983,6 +1030,7 @@ class ContinuousBatchingEngine:
     def _bump_tenant_rejection(self, tenant: str, reason: str) -> None:
         per = self.tenant_rejections.setdefault(tenant, {})
         per[reason] = per.get(reason, 0) + 1
+        bump_counter("llm_tenant_rejections_total", tenant=tenant, reason=reason)
 
     #: drain-rate observations older than this are stale
     _DRAIN_RATE_WINDOW_S = 60.0
@@ -1058,6 +1106,9 @@ class ContinuousBatchingEngine:
             return
         self._soft_yield.add(best_slot)
         self.tenant_soft_yields[victim] = self.tenant_soft_yields.get(victim, 0) + 1
+        bump_counter("llm_tenant_soft_yields_total", tenant=victim)
+        record_event(self.slots[best_slot].request_id, "soft_yield_marked", slot=best_slot,
+                     tenant=victim, pages=over[victim], soft_cap=soft)
 
     def tenant_snapshot(self) -> dict[str, dict[str, Any]]:
         """Per-tenant live figures (advisory; any thread)."""
@@ -1247,18 +1298,23 @@ class ContinuousBatchingEngine:
         self._ring.clear()
         with self._cancel_lock:
             self._cancel_requests.clear()
-        stranded = [st.emit for st in self.slots if st is not None]
+        stranded = [(st.request_id, st.emit, why) for st in self.slots if st is not None]
         self.slots = [None] * self.n_slots
         self.active[:] = False
         self._prefill_slots.clear()
         self._soft_yield.clear()
         with self._submit_lock:
-            stranded += [rec.state.emit for rec in self._suspended]
+            stranded += [(rec.state.request_id, rec.state.emit, f"{why} while suspended")
+                         for rec in self._suspended]
             self._suspended.clear()
-            stranded += [req.emit for req in self._pending.drain_all()]
-        stranded += [st.emit for st in self._admitting]
+            stranded += [(req.request_id, req.emit, f"{why} while queued")
+                         for req in self._pending.drain_all()]
+        stranded += [(st.request_id, st.emit, why) for st in self._admitting]
         self._admitting = []
-        for emit in stranded:
+        for request_id, emit, detail in stranded:
+            # recorded BEFORE the emit: a pool's failover resubmits inside it,
+            # and the terminal must close this attempt's record
+            record_event(request_id, "error", detail=detail)
             try:
                 emit(StepEvent(0, -1, "error"))
             except Exception:  # noqa: BLE001 — one client's fault must not strand the rest
@@ -1268,10 +1324,15 @@ class ContinuousBatchingEngine:
     def _admit(self) -> int:
         """Resume suspended requests first (paged), then take pending ones
         by fair order and place them (:meth:`_take_pending`)."""
+        t0 = time.perf_counter()
+        failpoint("scheduler.admit")
         admitted = self._resume_suspended() if self.paged else 0
         if self.mixed:
-            return admitted + len(self._take_pending(place=self._admit_prefill_slot))
-        return admitted + self._admit_phase_separated()
+            admitted += len(self._take_pending(place=self._admit_prefill_slot))
+        else:
+            admitted += self._admit_phase_separated()
+        self._last_admit_ms = (time.perf_counter() - t0) * 1e3
+        return admitted
 
     def _take_pending(self, place: Optional[Callable[[_Pending], None]] = None
                       ) -> list[_Pending]:
@@ -1304,7 +1365,8 @@ class ContinuousBatchingEngine:
                                            self._estimate_prefill_s(len(req.prompt_ids))):
                     self._cancel_finalize(req.emit, "deadline", "deadline_exceeded",
                                           reclaimed=req.sampling.max_tokens,
-                                          request_id=req.request_id, phase="queued")
+                                          request_id=req.request_id, phase="queued",
+                                          trace=req.trace, tenant=req.tenant)
                     continue
             taken.append(req)
             spent += len(req.prompt_ids)
@@ -1312,7 +1374,10 @@ class ContinuousBatchingEngine:
                 tenant_taken[req.tenant] = tenant_taken.get(req.tenant, 0) + 1
                 if tenant_taken[req.tenant] >= max_slots:
                     blocked.add(req.tenant)
-            self.queue_wait_samples.append((time.monotonic() - req.enqueued_at) * 1e3)
+            wait_ms = (time.monotonic() - req.enqueued_at) * 1e3
+            self.queue_wait_samples.append(wait_ms)
+            record_event(req.request_id, "admitted", tenant=req.tenant,
+                         queue_wait_ms=round(wait_ms, 3))
             if place is not None:
                 place(req)
         if popped:
@@ -1332,7 +1397,8 @@ class ContinuousBatchingEngine:
             prompt_ids=list(req.prompt_ids), chain=[],
             generator=make_slot_generator(seed, self.device)
             if self.paged and s.temperature > 0 else None,
-            trace=req.trace, deadline=req.deadline, tenant=req.tenant)
+            trace=req.trace, trace_sampled=traceparent_ids(req.trace)[1],
+            deadline=req.deadline, tenant=req.tenant, prefill_wall=time.time())
 
     def _admit_prefill_slot(self, req: _Pending) -> None:
         """Claim a free slot in prefill phase with no device work: the round
@@ -1374,6 +1440,9 @@ class ContinuousBatchingEngine:
                 with self._submit_lock:
                     deferred.append(self._suspended.popleft())
                 continue
+            # an armed raise breaks the engine mid-recovery: every client
+            # still gets exactly one terminal
+            failpoint("scheduler.resume")
             try:
                 t_import = time.perf_counter()
                 # a PD handoff lands through the import half of the pair
@@ -1392,6 +1461,8 @@ class ContinuousBatchingEngine:
                     logger.warning("request %s (len=%d) cannot fit the pool; finishing "
                                    "with 'length'", rec.state.request_id, rec.length)
                     self.requests_completed += 1
+                    record_event(rec.state.request_id, "finished", reason="length",
+                                 shed=True, tokens=rec.state.emitted)
                     rec.state.emit(StepEvent(0, -1, "length"))
                     continue
                 break  # no room yet; stay suspended
@@ -1429,13 +1500,27 @@ class ContinuousBatchingEngine:
             self._pt_dirty = True
             self._epoch += 1
             resumed += 1
+            pause_s = time.monotonic() - rec.suspended_at
             if rec.handoff:
                 # routing, not pool pressure: no preemption or recovery sample
                 self.handoffs_imported += 1
                 self.handoff_ms_samples.append(
                     rec.export_ms + (time.perf_counter() - t_import) * 1e3)
+                record_event(state.request_id, "handoff_import", slot=slot,
+                             length=rec.length, pages=len(chain),
+                             pause_ms=round(pause_s * 1000.0, 3))
             else:
-                self.resume_latency_samples.append(time.monotonic() - rec.suspended_at)
+                self.resume_latency_samples.append(pause_s)
+                record_recovery("scheduler.resume", pause_s)
+                record_event(state.request_id, "resumed", slot=slot, phase=state.phase,
+                             pause_ms=round(pause_s * 1000.0, 3))
+                if state.trace_sampled:
+                    # the pause the stream saw, backdated to the preemption
+                    get_global_tracer().emit_span(
+                        "llm.preempt", traceparent=state.trace,
+                        start_unix_ns=int(rec.suspended_wall * 1e9),
+                        duration_ms=pause_s * 1000.0, request_id=state.request_id,
+                        slot=slot)
         if deferred:
             with self._submit_lock:
                 self._suspended.extendleft(reversed(deferred))
@@ -1492,7 +1577,21 @@ class ContinuousBatchingEngine:
         """Prefill one request: over its cached prefix when it has one (JAX
         ``_prefill_into_slot``). ``prematched`` is the admission's match
         (its pin still held on a hit); None matches here. Exactly one
-        release per held pin."""
+        release per held pin. An armed ``scheduler.prefill`` raise ends only
+        this request (its pin released), as JAX's failed-admission path."""
+        try:
+            failpoint("scheduler.prefill")
+        except Exception:  # noqa: BLE001 — injected before any work
+            logger.exception("prefill failed for %s", state.request_id)
+            if prematched is not None and prematched[0]:
+                self.pool.release(state.prompt_ids)
+            self._admitting.remove(state)
+            record_event(state.request_id, "error", detail="prefill failed")
+            try:
+                state.emit(StepEvent(0, -1, "error"))
+            except Exception:  # noqa: BLE001 — the emit may be the fault
+                pass
+            return
         T = len(state.prompt_ids)
         bucket = self.config.bucket_for(T)
         if self.pool is None:
@@ -1528,7 +1627,7 @@ class ContinuousBatchingEngine:
         ``batch_prefill`` for a coalesced group): rows pad to a power-of-two
         batch that replays row 0; the first token of each request is sampled
         in the same dispatch, and each request is placed into a free slot."""
-        t0 = time.perf_counter()
+        t0, wall0 = time.perf_counter(), time.time()
         dev, cfg = self.device, self.model_config
         B = len(states)
         Bp = 1 << (B - 1).bit_length()
@@ -1550,7 +1649,7 @@ class ContinuousBatchingEngine:
             warp = self._warp_rows([st])
             first = sample_token(logits, self._generator, *warp,
                                  all_greedy=not st.sampling.temperature > 0)
-        self._place_prefilled(states, kv, [[] for _ in states], first)
+        self._place_prefilled(states, kv, [[] for _ in states], first, t0, wall0)
         self.coalesced_prefills += int(B > 1)
         self.prefill_ms += (time.perf_counter() - t0) * 1e3
         self._note_prefill_rate(sum(len(st.prompt_ids) for st in states),
@@ -1564,7 +1663,7 @@ class ContinuousBatchingEngine:
         ``bucket`` positions, run :func:`suffix_prefill` over the suffix,
         sample the first token, and place the request (JAX's hit branch of
         ``_prefill_into_slot``). The caller holds the radix pin."""
-        t0 = time.perf_counter()
+        t0, wall0 = time.perf_counter(), time.time()
         dev = self.device
         suffix = state.prompt_ids[cached_len:]
         ids = np.zeros((1, suf_bucket), np.int32)
@@ -1575,7 +1674,8 @@ class ContinuousBatchingEngine:
                                     to_device(np.asarray([len(suffix)], np.int32), dev),
                                     cached_len, cache, self.rope_tables)
         state.cached_len = cached_len
-        self._place_prefilled([state], kv, [cached_pages], self._sample_rows(logits, [state]))
+        self._place_prefilled([state], kv, [cached_pages], self._sample_rows(logits, [state]),
+                              t0, wall0)
         self.suffix_prefills += 1
         self.prefill_ms += (time.perf_counter() - t0) * 1e3
         # only the uncached suffix is prefilled, and charged
@@ -1583,10 +1683,13 @@ class ContinuousBatchingEngine:
         self._charge_tenant(state.tenant, len(suffix))
 
     def _place_prefilled(self, states: list[_SlotState], kv: llama.KVCache,
-                         cached: list[list[int]], first: torch.Tensor) -> None:
+                         cached: list[list[int]], first: torch.Tensor, t0: float,
+                         wall0: float) -> None:
         """Put each prefilled request's KV row into its pool pages (or dense
         cache row), read the first tokens — the dispatch's one sync — and
-        activate the slots."""
+        activate the slots, each after its ``prefill`` event and span (the
+        first token may finish the request, and the terminal comes last).
+        ``t0`` / ``wall0``: the dispatch's start on the two clocks."""
         slots = []
         for i, st in enumerate(states):
             slot = self._free_slots.popleft()
@@ -1598,8 +1701,22 @@ class ContinuousBatchingEngine:
             slots.append(slot)
         first_host = first.cpu().numpy()  # sync-point: the prefill dispatch's one read
         self.prefill_dispatches += 1
+        dur_ms = (time.perf_counter() - t0) * 1e3
+        B = len(states)
         for i, (st, slot) in enumerate(zip(states, slots)):
             self._admitting.remove(st)
+            T = len(st.prompt_ids)
+            attrs = ({"coalesced": True, "batch": B, "cached_len": 0} if B > 1
+                     else {"coalesced": False, "cached_len": st.cached_len})
+            record_event(st.request_id, "prefill", slot=slot, prompt_tokens=T,
+                         dur_ms=round(dur_ms, 3), **attrs)
+            if st.trace:
+                get_global_tracer().emit_span(
+                    "llm.prefill", traceparent=st.trace, start_unix_ns=int(wall0 * 1e9),
+                    duration_ms=dur_ms, request_id=st.request_id, slot=slot,
+                    prompt_tokens=T, tenant=st.tenant,
+                    **({"coalesced": True, "batch": B} if B > 1
+                       else {"cached_len": st.cached_len}))
             self._activate_slot(slot, st, int(first_host[i]))
 
     def _activate_slot(self, slot: int, state: _SlotState, tok: int) -> None:
@@ -1692,9 +1809,19 @@ class ContinuousBatchingEngine:
                     self._preempt_slot(slot, state, soft_yielded=True)
                     continue
             try:
+                # an armed MemoryError forces the preempt-to-host path
+                # without real pool pressure
+                self._chain_pressure_check()
                 self._grow_chain(slot, state, horizon)
             except MemoryError:
                 self._preempt_slot(slot, state)
+
+    @staticmethod
+    def _chain_pressure_check() -> None:
+        """The ``scheduler.page_alloc`` failpoint, shared by every decode
+        chain growth: the capacity pass, ring extension and the mixed ring
+        span."""
+        failpoint("scheduler.page_alloc")
 
     def _preempt_slot(self, slot: int, state: _SlotState, soft_yielded: bool = False) -> None:
         """Preempt to host, never shed: copy the chain's KV to host, free its
@@ -1705,6 +1832,8 @@ class ContinuousBatchingEngine:
         put back."""
         is_prefill = state.phase == "prefill"
         length = state.prefill_pos if is_prefill else int(self.lengths[slot])
+        record_event(state.request_id, "preempted", slot=slot, phase=state.phase,
+                     length=length)
         logger.info("preempting %s to host (%s, len=%d, %d pages)%s", state.request_id,
                     state.phase, length, len(state.chain),
                     " (tenant soft-quota yield)" if soft_yielded else "")
@@ -1793,6 +1922,7 @@ class ContinuousBatchingEngine:
             fin = None
         self.tokens_emitted += 1
         if fin is not None:
+            record_event(state.request_id, "finished", reason=fin, tokens=state.emitted)
             self.active[slot] = False
             self.slots[slot] = None
             self.requests_completed += 1
@@ -1833,10 +1963,12 @@ class ContinuousBatchingEngine:
             self.last_round_at = time.monotonic()
 
     def _record_round(self, kind: str, dispatch_ms: float, sync_wait_ms: float,
-                      host_emit_ms: float, lookahead: bool, depth: int,
+                      host_emit_ms: float, lookahead: bool, depth: int, ts: float,
                       spec_tokens: int = 0) -> None:
         """Count a finished round (with ``lookahead``: served by the ring)
-        and its dispatch / sync-wait / host-emit split."""
+        and its dispatch / sync-wait / host-emit split; ``ts`` is its start
+        on the wall clock, and the admission pass before it rides along
+        (the rounds' chrome trace draws the four stages)."""
         self.rounds[kind] += 1
         if lookahead:
             self.lookahead["used"] += 1
@@ -1848,7 +1980,9 @@ class ContinuousBatchingEngine:
                                    "sync_wait_ms": sync_wait_ms,
                                    "host_emit_ms": host_emit_ms,
                                    "lookahead": lookahead, "depth": depth,
-                                   "spec_tokens": spec_tokens})
+                                   "spec_tokens": spec_tokens, "ts": ts,
+                                   "admit_ms": self._last_admit_ms,
+                                   "active": self.active_slots})
 
     def _note_sharing(self) -> None:
         """Track the most pages two live chains share (read at dispatch, on
@@ -1947,6 +2081,7 @@ class ContinuousBatchingEngine:
         horizon = (len(self._ring) + 1) * self._k_steps
         for slot in np.flatnonzero(self.active):
             try:
+                self._chain_pressure_check()
                 self._extend_chain_to(int(slot), self.slots[slot],
                                       min(int(self.lengths[slot]) + horizon,
                                           self.config.max_seq_len))
@@ -1955,6 +2090,9 @@ class ContinuousBatchingEngine:
         return True
 
     def _drain(self, rec: _InflightChunk) -> np.ndarray:
+        # an armed raise models a device fault at the readback (the engine
+        # breaks and every stream ends with error); a delay stalls every round
+        failpoint("scheduler.readback")
         if rec.ready is not None:
             rec.ready.synchronize()  # sync-point: the round's one blocking read
         tokens = rec.host.numpy().copy()
@@ -1966,7 +2104,7 @@ class ContinuousBatchingEngine:
         from committed state if the ring is empty, top the ring up to
         ``depth`` chunks beyond the one drained, drain the oldest, commit it
         and emit its tokens."""
-        t0 = time.perf_counter()
+        t0, wall0 = time.perf_counter(), time.time()
         k, depth = self._k_steps, self._depth
         if self._ring and self._ring[0].epoch != self._epoch:
             self._discard_ring()
@@ -1985,12 +2123,36 @@ class ContinuousBatchingEngine:
         chunk = self._drain(rec)
         t2 = time.perf_counter()
         self.depth_hist[ring_depth] = self.depth_hist.get(ring_depth, 0) + 1
-        self._emit_chunk(chunk, self._commit_chunk(rec))
+        old_lengths = self._commit_chunk(rec)
+        self._emit_decode_spans(wall0, (t2 - t0) * 1e3, used, depth=ring_depth)
+        self._emit_chunk(chunk, old_lengths, depth=ring_depth)
         if self._ring and self._ring[0].epoch != self._epoch:
             self._discard_ring()
         self._record_round("decode", (t1 - t0) * 1e3, (t2 - t1) * 1e3,
-                           (time.perf_counter() - t2) * 1e3, used, ring_depth)
+                           (time.perf_counter() - t2) * 1e3, used, ring_depth, wall0)
         return "decode"
+
+    def _emit_decode_spans(self, wall0: float, dur_ms: float, lookahead: bool,
+                           rows: Optional[list[int]] = None, tokens: Optional[int] = None,
+                           depth: int = 0, row_tokens: Optional[dict] = None,
+                           row_attrs: Optional[dict] = None) -> None:
+        """``llm.decode_chunk`` spans of the sampled requests a drained round
+        served, before its emit loop (a finish clears the slot's state): one
+        bool a slot for the rest. Mixed rounds pass their decode ``rows``
+        and ``tokens=1``; speculative ones the per-row advance
+        (``row_tokens``) and acceptance (``row_attrs``)."""
+        k = tokens if tokens is not None else self._k_steps
+        start_ns = int(wall0 * 1e9)
+        for slot in (rows if rows is not None else range(self.n_slots)):
+            state = self.slots[slot]
+            if state is None or not state.trace_sampled or not self.active[slot]:
+                continue
+            extra = row_attrs.get(slot, {}) if row_attrs else {}
+            get_global_tracer().emit_span(
+                "llm.decode_chunk", traceparent=state.trace, start_unix_ns=start_ns,
+                duration_ms=dur_ms, request_id=state.request_id, slot=slot,
+                tokens=row_tokens.get(slot, k) if row_tokens else k,
+                lookahead=lookahead, depth=depth, **extra)
 
     def _plan_prefill_chunks(self) -> list[tuple[int, _SlotState, int]]:
         """This round's prompt chunks: ``prefill_budget_tokens`` filled FIFO
@@ -2054,6 +2216,8 @@ class ContinuousBatchingEngine:
         if state.spec_accepted < floor * state.spec_proposed:
             state.proposer = None
             self.spec_stats["slots_disabled"] += 1
+            record_event(state.request_id, "spec_disabled", proposed=state.spec_proposed,
+                         accepted=state.spec_accepted)
             return True
         return False
 
@@ -2273,7 +2437,7 @@ class ContinuousBatchingEngine:
         read. ``spec_only``: the pure-decode entry (no prompt chunk);
         returns None without dispatching when no draft survives planning. A
         speculative dispatch never chains the ring."""
-        t0 = time.perf_counter()
+        t0, wall0 = time.perf_counter(), time.time()
         n, k = self.n_slots, self._k_steps
         if self._ring:
             self._discard_ring()
@@ -2284,6 +2448,8 @@ class ContinuousBatchingEngine:
         if not spec_only:
             for slot, state, chunk in self._plan_prefill_chunks():
                 try:
+                    # an armed MemoryError preempts mid-chunked-prefill
+                    failpoint("scheduler.prefill_chunk")
                     self._extend_chain_to(slot, state, state.prefill_pos + chunk)
                     plan.append((slot, state, chunk))
                 except MemoryError:
@@ -2322,26 +2488,53 @@ class ContinuousBatchingEngine:
         old_lengths = self.lengths.copy()
         self.lengths = np.where(self.active, self.lengths + emitted,
                                 self.lengths).astype(np.int32)
+        dur_ms = (t2 - t0) * 1e3
+        row_attrs = {slot: {"spec_proposed": len(drafts), "spec_accepted": int(accepts[slot])}
+                     for slot, _, drafts in spec_plan} if spec_plan else None
+        self._emit_decode_spans(
+            wall0, dur_ms, lookahead=False, rows=decode_rows, tokens=1, depth=spanned,
+            row_tokens={s: int(emitted[s]) for s in decode_rows} if spec_plan else None,
+            row_attrs=row_attrs)
         if spec_plan:
             # before the emit loop: a finish clears the slot's state
             self.spec_stats["rounds"] += 1
             self.spec_stats["mixed_rounds"] += int(bool(plan))
+            round_proposed = round_accepted = 0
             for slot, state, drafts in spec_plan:
                 a = int(accepts[slot])
+                round_proposed += len(drafts)
+                round_accepted += a
                 self.spec_stats["proposed"] += len(drafts)
                 self.spec_stats["accepted"] += a
                 self.spec_stats["emitted"] += int(emitted[slot])
                 self._spec_accept_hist[a] = self._spec_accept_hist.get(a, 0) + 1
                 state.spec_proposed += len(drafts)
                 state.spec_accepted += a
+            bump_counter("llm_spec_tokens_proposed_total", n=round_proposed)
+            bump_counter("llm_spec_tokens_accepted_total", n=round_accepted)
         for slot, state, chunk in plan:
             state.prefill_pos += chunk
+            state.prefill_chunks += 1
             self.prefill_chunks += 1
             self.chunked_prefill_tokens += chunk
             self._charge_tenant(state.tenant, chunk)
+            # one event per piggybacked chunk (as decode_chunk)
+            record_event(state.request_id, "prefill_chunk", slot=slot, tokens=chunk,
+                         pos=state.prefill_pos, of=len(state.prompt_ids))
+            if state.trace_sampled:
+                get_global_tracer().emit_span(
+                    "llm.prefill_chunk", traceparent=state.trace,
+                    start_unix_ns=int(wall0 * 1e9), duration_ms=dur_ms,
+                    request_id=state.request_id, slot=slot, tokens=chunk)
         for slot, state in finals:
             self._finish_prefill(slot, state, int(toks2d[slot, 0]), bump_epoch=spanned == 0)
         for slot in decode_rows:
+            state = self.slots[slot]
+            if state is None or not self.active[slot]:
+                continue
+            record_event(state.request_id, "decode_chunk", slot=slot,
+                         tokens=max(1, int(emitted[slot])), depth=spanned,
+                         **(row_attrs.get(slot, {}) if row_attrs else {}))
             # an active row always commits one token at least: a -1 here (the
             # device froze a row the host runs) raises in _emit_token
             for j in range(max(1, int(emitted[slot]))):
@@ -2353,7 +2546,7 @@ class ContinuousBatchingEngine:
             self._discard_ring()
         kind = ("mixed" if decode_rows else "prefill") if plan else "decode"
         self._record_round(kind, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
-                           (time.perf_counter() - t2) * 1e3, False, spanned,
+                           (time.perf_counter() - t2) * 1e3, False, spanned, wall0,
                            spec_tokens=sum(len(d) for _, _, d in spec_plan))
         return kind
 
@@ -2376,6 +2569,7 @@ class ContinuousBatchingEngine:
         for h in range(self._depth):
             horizon = 1 + (h + 1) * k  # the mixed token, then h+1 chunks
             try:
+                self._chain_pressure_check()
                 for slot in np.flatnonzero(draw):
                     state = self.slots[slot]
                     L = int(self.lengths[slot]) if self.active[slot] else len(state.prompt_ids)
@@ -2403,7 +2597,20 @@ class ContinuousBatchingEngine:
         self.active[slot] = True
         if bump_epoch:
             self._epoch += 1
-        self._note_prefill_rate(T - state.cached_len, time.monotonic() - state.prefill_t0)
+        dur_ms = (time.monotonic() - state.prefill_t0) * 1e3
+        self._note_prefill_rate(T - state.cached_len, dur_ms / 1e3)
+        # the terminal "prefill" event (ttft anchors here; the progress is in
+        # the prefill_chunk events), recorded before the first token's emit
+        record_event(state.request_id, "prefill", slot=slot, mixed=True,
+                     cached_len=state.cached_len, prompt_tokens=T,
+                     chunks=state.prefill_chunks, dur_ms=round(dur_ms, 3))
+        if state.trace:
+            get_global_tracer().emit_span(
+                "llm.prefill", traceparent=state.trace,
+                start_unix_ns=int(state.prefill_wall * 1e9), duration_ms=dur_ms,
+                request_id=state.request_id, slot=slot, prompt_tokens=T,
+                cached_len=state.cached_len, mixed=True, chunks=state.prefill_chunks,
+                tenant=state.tenant)
         self._emit_token(slot, tok, force_length=T + self._k_steps > self.config.max_seq_len)
         # a prefill-role engine's work ends at the first token; a stream the
         # emit just finished (stop or length on token one) has nothing to move
@@ -2422,6 +2629,7 @@ class ContinuousBatchingEngine:
         failpoint("scheduler.handoff")
         t0 = time.perf_counter()
         T = int(self.lengths[slot])
+        n_pages = len(state.chain)
         host_kv = self.pool.export_pages(state.chain)
         if host_kv[0].is_pinned():
             # the decode engine may live on another card or stream: the
@@ -2440,13 +2648,15 @@ class ContinuousBatchingEngine:
         self.page_table[slot, :] = 0
         self._pt_dirty = True
         self.handoffs_exported += 1
+        record_event(state.request_id, "handoff_export", slot=slot, length=T,
+                     pages=n_pages, tokens_emitted=state.emitted)
         self._handoff_sink(rec)
 
     def _decode_round_dense(self) -> str:
         """``decode_chunk`` fused decode steps over the dense cache
         (:func:`.engine.build_decode_chunk_fn`, device-side termination);
         synchronous, as in JAX."""
-        t0 = time.perf_counter()
+        t0, wall0 = time.perf_counter(), time.time()
         _, all_greedy = self._sampling_rows(self.active)
         chunk, k_cache, v_cache, last, _, lens, fin = self._dense_decode_fn(
             self.params, self.cache[0], self.cache[1], self._last_dev,
@@ -2460,15 +2670,24 @@ class ContinuousBatchingEngine:
         self._last_dev, self._lengths_dev, self._finished_dev = last, lens, fin
         old_lengths = self.lengths.copy()
         self.lengths = np.where(self.active, self.lengths + self._k_steps, 0).astype(np.int32)
+        self._emit_decode_spans(wall0, (t2 - t0) * 1e3, lookahead=False)
         self._emit_chunk(chunk_host, old_lengths)
         self._record_round("decode", (t1 - t0) * 1e3, (t2 - t1) * 1e3,
-                           (time.perf_counter() - t2) * 1e3, False, 0)
+                           (time.perf_counter() - t2) * 1e3, False, 0, wall0)
         return "decode"
 
-    def _emit_chunk(self, chunk: np.ndarray, old_lengths: np.ndarray) -> None:
+    def _emit_chunk(self, chunk: np.ndarray, old_lengths: np.ndarray,
+                    depth: int = 0) -> None:
         """Emit a fused chunk's tokens [n_slots, k] step by step; a stream
-        that cannot fit the next chunk ends with 'length' at this one's end."""
+        that cannot fit the next chunk ends with 'length' at this one's end.
+        First, one ``decode_chunk`` event a slot (``depth``: the ring chunks
+        still in flight at this drain), never one a token."""
         k = self._k_steps
+        for slot in range(self.n_slots):
+            state = self.slots[slot]
+            if state is not None and self.active[slot]:
+                record_event(state.request_id, "decode_chunk", slot=slot, tokens=k,
+                             depth=depth)
         for j in range(k):
             last_of_chunk = j == k - 1
             for slot in range(self.n_slots):

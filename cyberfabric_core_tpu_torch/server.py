@@ -3,16 +3,21 @@
     python -m cyberfabric_core_tpu_torch.server run --config cyberfabric_core_tpu_torch/config/quickstart.json
 
 boots one HTTP host serving ``POST /v1/chat/completions``,
-``POST /v1/completions`` (sync and SSE), ``GET /v1/models`` and
-``GET /health``, prints ``listening on http://HOST:PORT`` once it accepts
-connections, and stops gracefully on SIGINT or SIGTERM (exit code 0).
+``POST /v1/completions`` (sync and SSE), ``POST /v1/embeddings``,
+``GET /v1/models``, ``GET /health``, ``/healthz`` and ``/readyz``, and with
+the ``monitoring`` module ``GET /metrics`` and ``/v1/monitoring/*``; prints
+``listening on http://HOST:PORT`` once it accepts connections, and stops
+gracefully on SIGINT or SIGTERM (exit code 0).
 
-The config is JSON: ``logging`` and ``modules`` with the quickstart's
-``api_gateway``, ``tenant_resolver``, ``authn_resolver``, ``model_registry``
-and ``llm_gateway`` sections (:class:`Host` checks them). Engines run
-on the CUDA card unless ``llm_gateway.config.worker.device`` says ``cpu``;
-without a card the first engine build raises. Any other module or key
-raises at boot, naming the ROADMAP item that brings it.
+The config is JSON: ``server`` (``home_dir`` only: where device traces
+go), ``logging``, ``tracing`` (``enabled``, ``sample_ratio``,
+``otlp_endpoint``, ``service_name``; without the section tracing is off) and
+``modules`` with the quickstart's ``api_gateway``, ``tenant_resolver``,
+``authn_resolver``, ``model_registry``, ``llm_gateway`` and ``monitoring``
+sections (:class:`Host` checks them). Engines run on the CUDA card unless
+``llm_gateway.config.worker.device`` says ``cpu``; without a card the first
+engine build raises. Any other module or key raises at boot, naming the
+ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -29,9 +34,11 @@ from typing import Any, Optional, Sequence
 
 from .gateway.module import ApiGateway, GatewayConfig
 from .gateway.router import RestRouter
+from .modkit.telemetry import Tracer, set_global_tracer, tracer_from_config
 from .modules.llm_gateway.module import LlmGatewayModule
 from .modules.llm_gateway.worker import LocalTorchWorker
 from .modules.model_registry import ModelRegistry
+from .modules.monitoring import MonitoringModule
 
 logger = logging.getLogger("server")
 
@@ -41,7 +48,6 @@ QUICKSTART = Path(__file__).parent / "config" / "quickstart.json"
 _UNPORTED_MODULES = {
     "authz_resolver": "15 (auth modes)",
     "grpc_hub": "1 (the federated-worker entry)",
-    "monitoring": "16 (monitoring endpoints and tracing)",
     "types_registry": "17 (the other host modules)",
     "types": "17 (the other host modules)",
     "module_orchestrator": "17 (the other host modules)",
@@ -53,10 +59,30 @@ _UNPORTED_MODULES = {
     "serverless_runtime": "17 (the other host modules)",
     "user_settings": "17 (the other host modules)",
 }
-_UNPORTED_TOP = {
-    "server": "17 (the other host modules: home_dir holds their databases)",
-    "tracing": "16 (monitoring endpoints and tracing)",
-}
+TRACING_KEYS = frozenset({"enabled", "sample_ratio", "otlp_endpoint", "service_name"})
+
+
+def _home_dir(raw: Any) -> Path:
+    """``server.home_dir`` (default ``~/.tpu-fabric``); its other keys
+    configure the host modules the port does not serve yet."""
+    raw = dict(raw or {})
+    for key in raw:
+        if key != "home_dir":
+            raise ValueError(f"server config: {key!r} is not served by the port yet "
+                             "(ROADMAP queue 1 item 17: the other host modules)")
+    return Path(raw.get("home_dir", "~/.tpu-fabric")).expanduser()
+
+
+def _tracer(raw: Any) -> Tracer:
+    """The ``tracing`` section's tracer; no section at all is tracing off
+    (an unconfigured ratio-1.0 tracer would sample every request and pay
+    the decode loop's span emits for no exporter)."""
+    if not raw:
+        return Tracer(enabled=False)
+    unknown = sorted(set(raw) - TRACING_KEYS)
+    if unknown:
+        raise ValueError(f"tracing config: unknown keys {unknown}")
+    return tracer_from_config(dict(raw))
 
 
 def _section(modules: dict[str, Any], name: str) -> dict[str, Any]:
@@ -90,10 +116,7 @@ class Host:
 
     def __init__(self, config: dict[str, Any]) -> None:
         for key in config:
-            if key in _UNPORTED_TOP:
-                raise ValueError(f"config section {key!r} is not served by the port yet "
-                                 f"(ROADMAP queue 1 item {_UNPORTED_TOP[key]})")
-            if key not in ("logging", "modules"):
+            if key not in ("server", "logging", "tracing", "modules"):
                 raise ValueError(f"unknown config section {key!r}")
         modules = dict(config.get("modules") or {})
         for name in modules:
@@ -101,17 +124,28 @@ class Host:
                 raise ValueError(f"module {name!r} is not served by the port yet "
                                  f"(ROADMAP queue 1 item {_UNPORTED_MODULES[name]})")
             if name not in ("api_gateway", "tenant_resolver", "authn_resolver",
-                            "model_registry", "llm_gateway"):
+                            "model_registry", "llm_gateway", "monitoring"):
                 raise ValueError(f"unknown module {name!r}")
+        home_dir = _home_dir(config.get("server"))
         gw_cfg = GatewayConfig.from_config(_section(modules, "api_gateway"))
         tenant = _tenant(modules, gw_cfg)
+        # the scheduler threads and pools emit their llm.* spans through the
+        # global tracer: one exporter covers HTTP → tokens
+        self.tracer = set_global_tracer(_tracer(config.get("tracing")))
         self.registry = ModelRegistry(_section(modules, "model_registry"))
         llm_cfg = _section(modules, "llm_gateway")
         self.worker = LocalTorchWorker(llm_cfg.get("worker"))
         self.llm = LlmGatewayModule(llm_cfg, self.registry, self.worker)
         router = RestRouter()
         self.llm.register_rest(router)
-        self.gateway = ApiGateway(gw_cfg, router, tenant, self._health)
+        self.monitoring: Optional[MonitoringModule] = None
+        if "monitoring" in modules:
+            self.monitoring = MonitoringModule(_section(modules, "monitoring"),
+                                               self.worker, home_dir)
+            self.monitoring.register_rest(router)
+            # only a host that runs the doctor sheds
+            self.llm.doctor = self.monitoring.doctor
+        self.gateway = ApiGateway(gw_cfg, router, tenant, self._health, self.tracer)
 
     async def _health(self) -> dict[str, Any]:
         return {"status": "ok", "worker": await self.worker.health()}
@@ -122,11 +156,15 @@ class Host:
 
     async def start(self) -> None:
         await self.gateway.start()
+        if self.monitoring is not None:
+            self.monitoring.start()
 
     async def stop(self) -> None:
         """Stop accepting, let requests in progress finish (a few seconds),
-        then retire the engines."""
+        then retire the doctor and the engines."""
         await self.gateway.stop()
+        if self.monitoring is not None:
+            self.monitoring.stop()
         await asyncio.get_running_loop().run_in_executor(None, self.worker.close)
 
 

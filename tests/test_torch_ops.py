@@ -134,3 +134,43 @@ def test_shared_stream_sample_token_draws_one_uniform_per_row():
     u = torch.rand(3, generator=torch.Generator().manual_seed(11))
     want = sampling.sample_token_per_slot(logits, u, temp, top_p, top_k)
     assert torch.equal(got, want) and got[0] == greedy[0]
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+def test_cumsum_rows_is_torch_cumsum_on_the_cpu(rows):
+    """The sampler's running sums: on the CPU the same bits as
+    ``torch.cumsum`` (which sums each row in order), with one row or more;
+    a one-row input gets its zero row back off."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.random((rows, 1000)).astype(np.float32))
+    got = sampling.cumsum_rows(x)
+    assert got.shape == x.shape
+    assert torch.equal(got, torch.cumsum(x, dim=-1))
+
+
+def test_a_seeded_one_row_draw_uses_cumsum_rows(monkeypatch):
+    """Every CDF of the sampler goes through ``cumsum_rows`` (the warp's
+    top-p mass, ``categorical`` and the per-slot draw), so a one-row draw is
+    summed in a fixed order on the card too."""
+    calls = []
+    real = sampling.cumsum_rows
+    monkeypatch.setattr(sampling, "cumsum_rows", lambda x: calls.append(x.shape) or real(x))
+    logits = torch.from_numpy(np.random.default_rng(7).standard_normal((1, 40)).astype(np.float32))
+    t, p, k = torch.tensor([0.8]), torch.tensor([0.9]), torch.tensor([0])
+    probs = sampling.warped_probs(logits, t, p, k)
+    sampling.categorical(probs, torch.Generator().manual_seed(1))
+    sampling.sample_token(logits, torch.Generator().manual_seed(1), t, p, k)
+    assert calls == [(1, 40)] * 4
+
+
+@pytest.mark.cuda
+def test_one_row_cdf_is_the_same_on_every_call():
+    """On the card, 500 scans of one vocabulary-wide row of probabilities
+    give the same bits (``torch.cumsum`` alone did not: a seeded draw could
+    change between two runs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    probs = torch.softmax(torch.randn(1, 128256, generator=g, device="cuda") * 2.5, dim=-1)
+    first = sampling.cumsum_rows(probs).clone()
+    assert all(torch.equal(sampling.cumsum_rows(probs), first) for _ in range(500))

@@ -2,8 +2,7 @@
 scheduler's handoff path) on the CPU.
 
 Mirrors ``tests/test_pd_disaggregation.py`` (its tp=2 head-sharded move
-waits for the multi-GPU slice, its flight-recorder timeline for the
-observability slice): the export/import pair on bare pools (bitwise KV round
+waits for the multi-GPU slice): the export/import pair on bare pools (bitwise KV round
 trip, pages conserved, radix pins released with the warm prefix kept, the
 cast to the destination dtype, a pool too small to import into); and
 end to end a 1 prefill + 1 decode pool on ``["cpu", "cpu"]`` against a
@@ -209,6 +208,20 @@ def test_every_stream_handed_off_exactly_once(pd_runs):
     # a handoff is routing, not pool pressure
     assert st["decode"]["preemptions"] == 0
     assert st["decode"]["resume_recovery_ms"]["count"] == 0
+
+
+def test_handoff_events_in_flight_recorder(pd_runs):
+    """``tests/test_pd_disaggregation.py::test_handoff_events_in_flight_recorder``:
+    one request id carries the story across both engines, handoff_export
+    (prefill side) then handoff_import (decode side), once each."""
+    from cyberfabric_core_tpu_torch.modkit.flight_recorder import default_recorder
+
+    for i, rid in pd_runs["rids"].items():
+        events = [e["event"] for e in (default_recorder.lookup(rid) or {}).get("timeline", ())]
+        assert events.count("handoff_export") == 1, (i, events)
+        assert events.count("handoff_import") == 1, (i, events)
+        assert events.index("handoff_export") < events.index("handoff_import")
+        assert events[0] == "enqueued" and events[-1] == "finished", (i, events)
 
 
 def test_role_purity_of_dispatch_rounds(pd_runs):

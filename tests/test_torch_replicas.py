@@ -378,6 +378,29 @@ def test_failpoints_reject_a_submit_and_consume_a_failover_attempt():
 
 
 # --------------------------------------------------- concurrent-break torture
+def test_a_request_queued_before_a_break_belongs_to_the_engine():
+    """A break between a submit's locked check and its thread start: the
+    request is in the queue the broken loop's teardown drains, so ``submit``
+    must not raise (a pool would route it again, and its client would get
+    two terminals: the flake of the concurrent-break storm below)."""
+    from cyberfabric_core_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
+
+    engine = ContinuousBatchingEngine(_cfg(), device="cpu")
+    put = engine._pending.put
+
+    def put_then_break(req):
+        put(req)
+        engine._broken = "injected device fault"
+
+    engine._pending.put = put_then_break
+    events: list[StepEvent] = []
+    engine.submit([5, 6, 7], SamplingParams(max_tokens=4), events.append)
+    engine._fail_all_inflight("scheduler loop failed")  # the broken loop's teardown
+    assert [ev.finished for ev in events] == ["error"]
+    with pytest.raises(RuntimeError, match="broken"):  # a later submit is refused
+        engine.submit([5, 6, 7], SamplingParams(max_tokens=4), events.append)
+
+
 def test_concurrent_break_recovers_full_capacity(jax_model):
     """Two of three replicas break in the same storm (each at its first
     decode round): every stream ends exactly once, no tracking record

@@ -370,10 +370,11 @@ def test_quickstart_json_matches_the_yaml_sections():
     port = json.loads((ROOT / "cyberfabric_core_tpu_torch" / "config"
                        / "quickstart.json").read_text())
     ref = yaml.safe_load((ROOT / "config" / "quickstart.yaml").read_text())
-    assert set(port) == {"logging", "modules"}
-    assert port["logging"] == ref["logging"]
+    assert set(port) == {"server", "logging", "tracing", "modules"}
+    for top in ("server", "logging", "tracing"):
+        assert port[top] == ref[top], top
     assert set(port["modules"]) == {"api_gateway", "tenant_resolver", "authn_resolver",
-                                    "model_registry", "llm_gateway"}
+                                    "model_registry", "llm_gateway", "monitoring"}
     for name, section in port["modules"].items():
         if name != "model_registry":
             assert section == ref["modules"][name], name
@@ -495,12 +496,19 @@ def test_without_a_card_the_default_device_raises_at_the_engine_build():
 
 
 def test_the_engine_records_the_phase_a_request_lapsed_in():
-    """The worker's 408 / 504 source: a lapse while queued reads "queued",
-    one after admission "prefilling" (or "decoding", "suspended")."""
+    """The worker's 408 / 504 source: the phase on the flight record's
+    ``deadline_exceeded`` terminal, "queued" for a lapse while queued, the
+    slot's phase ("prefill", "decode") or "suspended" after admission."""
     import time
 
+    from cyberfabric_core_tpu_torch.modkit.flight_recorder import default_recorder
     from cyberfabric_core_tpu_torch.runtime.engine import SamplingParams
     from cyberfabric_core_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
+
+    def lapse_phase(rid):
+        rec = default_recorder.lookup(rid)
+        last = (rec or {}).get("timeline", [{}])[-1]
+        return last.get("phase") if last.get("event") == "deadline_exceeded" else None
 
     plan = plan_engine(_tiny("a"))
     eng = ContinuousBatchingEngine(plan.config, device="cpu")
@@ -515,14 +523,14 @@ def test_the_engine_records_the_phase_a_request_lapsed_in():
     slot = next(i for i, st in enumerate(eng.slots) if st and st.request_id == "admitted")
     eng.slots[slot].deadline = time.monotonic() - 1.0
     eng._service_cancellations()
-    assert eng.lapse_phase("admitted") == "prefilling"
+    assert lapse_phase("admitted") == "prefill"
     assert events["admitted"][-1].finished == "deadline"
     eng.submit([1, 5, 6], SamplingParams(max_tokens=4),
                emit=lambda ev: events.setdefault("late", []).append(ev),
                request_id="late", deadline=time.monotonic() - 1.0)
     eng._service_cancellations()
-    assert eng.lapse_phase("late") == "queued"
-    assert eng.lapse_phase("other") is None  # never lapsed
+    assert lapse_phase("late") == "queued"
+    assert lapse_phase("other") is None  # never lapsed
     eng.close()
 
 
