@@ -178,7 +178,30 @@ fatal on failure:
    within the margin of the dense-MoE oracle routed as the served forward
    routed; in f32 the
    same per-call check, no bucket drop and every greedy token within the
-   margin of the dense forward with the dense MoE oracle;
+   margin of the dense forward with the dense MoE oracle. Before mixtral, (ix)
+   tensor parallelism on the one card (every rank on ``cuda:0``): the storm
+   at tp=2 (4 kv heads a rank) on the mixed run's weights with the storm's
+   gates (one terminal a stream, I1 on the pool the ranks share, decode
+   chunks replayed as graphs, no flagged synchronising call at depth 2), its
+   greedy tokens within the margin of the unsharded dense forward, ragged
+   launches a mixed round and decode launches a decode chunk exactly tp
+   times the mixed run's, and the plan's ``param_bytes_per_rank`` and
+   ``kv_bytes_per_device`` equal to each rank's allocated bytes (rank 0's
+   weights the plan's ``param_bytes_per_device``); the decode
+   step's device time at tp=2 and tp=1 and the share of its rank-order
+   reductions; three requests at tp=8 (1 kv head a rank) with the same
+   gates, beside tp=1 on them; at llama-3-8b widths and 4 layers in f32,
+   TF32 off, every greedy stream at tp=2 equal to tp=1's, graph and eager
+   decode streams equal at each degree, and the seeded stream equal to
+   tp=1's up to its first difference, where both engines drew the seed's
+   uniform, each token follows from its engine's logits and the draw lies
+   within the two CDFs' difference of the boundary between the two tokens
+   (logits within TP_F32_LOGIT_TOL); llama-3-70b bf16 at tp=1 over the card's
+   memory refused by the gate with ``memory_allocated`` unchanged, and 70b
+   int8 at tp=8 planned within 80 GB; a host serving llama-3-8b at tp=2
+   over HTTP with monitoring: ``llm_mesh_devices`` 2 and the replicas' mesh
+   block. Tokens/s, ttft and inter-token latency of tp=2 and tp=8 are
+   printed beside tp=1's;
 6. golden parity: the five committed HF checkpoints (llama, qwen2, gemma,
    mixtral MoE, outlier llama) through the port's loader at f32 on the
    card, TF32 off: logits through the f32 flash kernel within rtol = atol
@@ -193,6 +216,9 @@ fatal on failure:
    storm and the speculative storm at k=4, each read just after its run;
    flash's from the phase-separated run and the lockstep storm), then
    ``{"ok": true, "device": {...}}`` last.
+
+``python3 chip_smoke.py --tp`` runs the mixed storm at tp=1 and phase (ix)
+alone, and prints no result line.
 """
 
 from __future__ import annotations
@@ -223,20 +249,27 @@ import torch
 from cyberfabric_core_tpu_torch import server
 from cyberfabric_core_tpu_torch.modkit import failpoints
 from cyberfabric_core_tpu_torch.models import llama
-from cyberfabric_core_tpu_torch.models.configs import get_config
+from cyberfabric_core_tpu_torch.models.configs import MODEL_CONFIGS, get_config
 from cyberfabric_core_tpu_torch.ops import _build
 from cyberfabric_core_tpu_torch.ops import flash_attention as fa
 from cyberfabric_core_tpu_torch.ops import paged_attention as pa
 from cyberfabric_core_tpu_torch.ops import sampling
 from cyberfabric_core_tpu_torch.modules.llm_gateway.worker import plan_engine
 from cyberfabric_core_tpu_torch.modules.sdk import ModelInfo
+from cyberfabric_core_tpu_torch.ops.rope import rope_frequencies
 from cyberfabric_core_tpu_torch.ops.timing import graph_ms
+from cyberfabric_core_tpu_torch.parallel.feasibility import (H100_HBM_BYTES,
+                                                             InfeasiblePlanError,
+                                                             card_hbm_bytes, gate_engine_plan)
+from cyberfabric_core_tpu_torch.parallel.sharding import rank_bytes
 from cyberfabric_core_tpu_torch.runtime.engine import (EngineConfig, InferenceEngine,
                                                        SamplingParams, build_decode_chunk_fn)
 from cyberfabric_core_tpu_torch.runtime.lifecycle import LifecycleConfig
 from cyberfabric_core_tpu_torch.runtime.pd import PDServingPool
 from cyberfabric_core_tpu_torch.runtime.quant import QuantWeight, quantized_bytes
 from cyberfabric_core_tpu_torch.runtime.replicas import DataParallelServingPool
+from cyberfabric_core_tpu_torch.runtime import programs as programs_module
+from cyberfabric_core_tpu_torch.runtime import scheduler as scheduler_module
 from cyberfabric_core_tpu_torch.runtime.scheduler import ContinuousBatchingEngine
 from cyberfabric_core_tpu_torch.runtime.speculative import (DraftModel, build_verify_fn,
                                                            span_verify_logits)
@@ -1033,6 +1066,7 @@ def serving_phase(card: str, label: str, engine, ecfg, requests,
     private switch; ``graphs_required=False``: none need have run, as in a
     speculative storm whose rounds may all verify drafts). Returns this
     run's launch counts, the engine's stats and the streams."""
+    before = engine.stats()
     try:
         for _, _, wrapper in KERNELS.values():
             wrapper.launches = 0
@@ -1045,6 +1079,12 @@ def serving_phase(card: str, label: str, engine, ecfg, requests,
     # read once the scheduler thread has stopped (its last round included)
     launches = {name: wrapper.launches for name, (_, _, wrapper) in KERNELS.items()}
     stats = engine.stats()
+    # this run's ragged rounds (mixed and prefill kinds) and decode chunks
+    # (the counts above are this run's)
+    stats["run"] = {key: sum(stats["pipeline"][k] - before["pipeline"][k] for k in keys)
+                    for key, keys in (("mixed_rounds", ("mixed_rounds",)),
+                                      ("decode_chunks", ("decode_graph_replays",
+                                                         "decode_eager_chunks")))}
     check_streams(recs, requests, lambda sp: set(sp.stop_token_ids) | set(ecfg.eos_token_ids))
     if any(launches[n] <= 0 for n in launched) or any(launches[n] for n in never):
         raise AssertionError(f"[{label}] launches {launches}: expected {launched} "
@@ -2194,7 +2234,8 @@ def decode_step(params, rope, pools):
     """One decode step at 8 rows of lengths 127..2046 through ``pools`` and
     the head: what a replayed decode chunk runs ``decode_chunk`` times."""
     cfg, dev = params.cfg, params.device
-    pt = make_table(8, 32, pools[0].shape[1], 9, dev)
+    k_pool = pools[0][0] if isinstance(pools[0], list) else pools[0]  # a list under tp
+    pt = make_table(8, 32, k_pool.shape[1], 9, dev)
     ids = torch.from_numpy(np.random.default_rng(9).integers(
         3, cfg.vocab_size, (8, 1)).astype(np.int32)).to(dev)
     lens = i32(DECODE_LENS, dev)
@@ -2908,6 +2949,409 @@ def pd_phase(card: str, smi: str, params, requests, unified: list) -> None:
     free_card()
 
 
+# ------------------------------------------------------------------ tensor parallelism
+#: the tp storm's degree: both ranks on the one card (4 kv heads a rank at
+#: llama-3-8b)
+TP = 2
+#: tp=8's requests (prompt lengths, 32 tokens out): 1 kv head a rank
+TP8_LENS = (16, 250, 700)
+#: llama-3-8b's widths at 4 layers, for the f32 identity (registered here)
+TP_F32_MODEL = "llama-3-8b-4l"
+#: f32, TF32 off: the most tp=2's logits may differ from tp=1's where a
+#: seeded stream first parts from tp=1's (a rank-order reduction moves last
+#: bits only)
+TP_F32_LOGIT_TOL = 1e-3
+
+
+@dataclasses.dataclass
+class DenseOracle:
+    """What :func:`oracle` reads of an engine, pointed at the unsharded
+    weights a tp engine was cut from (its dense forward is the reference)."""
+
+    params: object
+    model_config: object
+    rope_tables: tuple
+
+
+def tp_engine(label: str, opts: dict, params, tp: int, eager_decode: bool = False):
+    """A tp engine from worker-shaped ``opts`` over ``params`` (cut into tp
+    rank copies), every rank on the card; ``eager_decode`` as for
+    :func:`build_engine`."""
+    ecfg = engine_config_from_options(dict(opts, tp=tp))
+    t = time.perf_counter()
+    engine = ContinuousBatchingEngine(ecfg, params=params, seed=0, rank_devices=[CARD] * tp,
+                                      _eager_decode=eager_decode)
+    st = engine.stats()
+    log(f"serving engine [{label}] built: {ecfg.model}, tp={tp} on {st['mesh']['rank_devices']}, "
+        f"kv heads sharded {st['mesh']['kv_heads_sharded']}, {st['mode']}, "
+        f"{st['pages_total']} pages, decode graphs={st['pipeline']['decode_graphs']}, "
+        f"{time.perf_counter() - t:.1f} s (the cut and graph capture included)")
+    return engine, ecfg
+
+
+def per_round(launches: dict, stats: dict) -> tuple[float, float]:
+    """Ragged launches a mixed round and decode launches a decode chunk, of
+    one serving run (``stats["run"]`` from :func:`serving_phase`)."""
+    run = stats["run"]
+    return (launches["ragged_paged_attention"] / max(1, run["mixed_rounds"]),
+            launches["paged_decode_attention"] / max(1, run["decode_chunks"]))
+
+
+def plan_against_allocation(label: str, engine) -> dict:
+    """The gate's plan equals what each rank allocated, to the byte: its
+    weights the plan's per-rank figure (rank 0 the per-device one, the
+    others less the embedding and norms only rank 0 holds), its pool the
+    per-device kv bytes."""
+    mesh = engine.mesh_info()
+    plan = mesh["plan"]
+    weights, pool = rank_bytes(engine.params), engine.pool.rank_bytes()
+    if (weights != plan["param_bytes_per_rank"]
+            or weights[0] != plan["param_bytes_per_device"]
+            or pool != [plan["kv_bytes_per_device"]] * engine.tp):
+        raise AssertionError(f"[{label}] plan {plan} against ranks' weights {weights}, "
+                             f"pools {pool}")
+    log(f"serving [{label}] plan against allocation: the {engine.tp} ranks hold {weights} "
+        f"weight bytes (rank 0 the plan's param_bytes_per_device, the others its "
+        f"param_bytes_per_rank without the embedding and norms) and {pool[0]} pool bytes "
+        f"each, the plan's kv_bytes_per_device, exactly ({gib(weights[0])} + "
+        f"{gib(pool[0])} on rank 0, {gib(weights[-1])} + {gib(pool[0])} on the others)")
+    return mesh
+
+
+def tp_storm(card: str, label: str, engine, ecfg, requests, want_round: tuple,
+             dense: DenseOracle, min_caught=MIN_RUNNER_UP_CAUGHT):
+    """The storm's gates on a tp engine (one terminal a stream, ragged and
+    decode launched and flash not, decode chunks replayed as graphs, I1 on
+    the pool the ranks share, no flagged synchronising call), greedy tokens
+    through the dense oracle of the unsharded weights, and the launches a
+    round equal to ``want_round``."""
+    launches, stats, recs = serving_phase(
+        card, label, engine, ecfg, requests,
+        launched=("ragged_paged_attention", "paged_decode_attention"),
+        never=("flash_self_attention",), sync_free=True, check_oracle=False)
+    oracle(label, dense, recs, requests, min_caught)
+    got = per_round(launches, stats)
+    if got != want_round:
+        raise AssertionError(f"[{label}] launches a mixed round / a decode chunk {got}, "
+                             f"want {want_round}")
+    log(f"serving [{label}] launches: {got[0]:.0f} ragged a mixed round and {got[1]:.0f} "
+        f"decode a decode chunk ({stats['run']}), tp times tp=1's")
+    plan_against_allocation(label, engine)
+    return launches, stats, recs
+
+
+def reduction_share(card: str, engine, tp1_params, rope) -> None:
+    """Device time of a decode step (8 rows) at tp and at tp=1, and of the
+    step's reductions alone (two rank-order f32 sums a layer of [8, 1, H]
+    partials): the reduction's share of the step."""
+    cfg = engine.model_config
+    mesh = engine.mesh
+    n_pages = engine.pool.num_pages
+    tp_ms = decode_step_ms(engine.params, rope, engine.pool.pools)
+    k1 = torch.zeros((cfg.num_layers, n_pages, engine.pool.page_size, cfg.num_kv_heads,
+                      cfg.head_dim), dtype=tp1_params.dtype, device=CARD)
+    one_ms = decode_step_ms(tp1_params, rope, (k1, torch.zeros_like(k1)))
+    del k1
+    parts = [torch.randn((8, 1, cfg.hidden_size), device=CARD) for _ in range(mesh.tp)]
+
+    def reductions():
+        for _ in range(2 * cfg.num_layers):
+            mesh.all_reduce_sum(parts)
+
+    with torch.inference_mode():
+        red_ms = graph_ms(reductions, iters=4, reps=3)
+    free_card()
+    log(f"info [{card}] tp decode step (8 rows, lengths {DECODE_LENS[0]}..{DECODE_LENS[-1]}, "
+        f"device time): tp={mesh.tp} {tp_ms:.3f} ms, tp=1 {one_ms:.3f} ms; the step's "
+        f"{2 * cfg.num_layers} rank-order reductions {red_ms:.3f} ms = "
+        f"{red_ms / tp_ms:.3f} of the tp step")
+
+
+@contextlib.contextmanager
+def recording_samples():
+    """Every sampler call of a scheduler round or an eager decode chunk
+    records, for each row that samples, its logits, its uniform and the
+    token it drew (a replayed graph calls nothing: run the engine with
+    eager decode)."""
+    mods = (scheduler_module, programs_module)
+    orig = sampling.sample_token_per_slot
+    calls: list[dict] = []
+
+    def recording(logits, uniforms, temperature, top_p, top_k, all_greedy=None):
+        out = orig(logits, uniforms, temperature, top_p, top_k, all_greedy)
+        for i in torch.nonzero(temperature > 0).flatten().tolist():
+            calls.append({"logits": logits[i].clone(), "u": float(uniforms[i]),
+                          "tok": int(out[i]), "warp": (float(temperature[i]),
+                                                       float(top_p[i]), int(top_k[i]))})
+        return out
+
+    for m in mods:
+        m.sample_token_per_slot = recording
+    try:
+        yield calls
+    finally:
+        for m in mods:
+            m.sample_token_per_slot = orig
+
+
+def seeded_witness(sp, j: int, streams: dict, calls: dict) -> dict:
+    """Where tp=2's seeded stream first parts from tp=1's (token ``j``):
+    both engines drew the seed's own ``j``-th uniform u, each engine's token
+    follows from its own logits and u by the sampler's inverse CDF, the two
+    logits rows agree within TP_F32_LOGIT_TOL, and the parting is explained
+    by their difference: where the draw lands at two positions, u lies
+    within the two CDFs' difference of the boundary between them (each
+    engine's own CDF: the sampler's warp, sort and f32 running sum); where
+    it lands at one position that the two sorts fill with different tokens
+    (a near-tie ordered apart), the two tokens' logits lie within twice the
+    rows' difference of each other in both engines."""
+    if sp.seed is None or j >= min(len(t) for t in streams.values()):
+        raise AssertionError(f"[tp f32] a sampled stream without a seed, or one that ends "
+                             f"first at token {j}: {sp}")
+    g = sampling.make_slot_generator(sp.seed, CARD)
+    u = [float(torch.rand(1, generator=g, device=CARD)) for _ in range(j + 1)][j]
+    seen = {}
+    for tp, toks in streams.items():
+        hit = [c for c in calls[tp] if c["u"] == u and c["tok"] == toks[j]]
+        if not hit:
+            raise AssertionError(f"[tp f32] tp={tp}: no sampled row drew the seed's uniform "
+                                 f"{j} ({u}) and emitted {toks[j]}")
+        c = hit[0]
+        temp, top_p, top_k = (torch.tensor([x], device=CARD) for x in c["warp"])
+        masked, idx = sampling._warp_sorted(c["logits"][None], temp, top_p, top_k)
+        cdf = sampling.cumsum_rows(torch.softmax(masked, dim=-1))[0]
+        pos = min(int(torch.searchsorted(cdf, (u * cdf[-1]).reshape(1), right=True)),
+                  int(torch.isfinite(masked).sum()) - 1)
+        if int(idx[0, pos]) != toks[j]:
+            raise AssertionError(f"[tp f32] tp={tp}: the inverse CDF of u={u} gives "
+                                 f"{int(idx[0, pos])}, the engine emitted {toks[j]}")
+        seen[tp] = (c["logits"].double(), cdf.double() / float(cdf[-1]), pos, idx[0])
+    (l1, c1, p1, i1), (l2, c2, p2, i2) = seen[1], seen[TP]
+    d_logit = float((l1 - l2).abs().max())
+    a, b = int(i1[p1]), int(i2[p2])
+    out = {"token": j, "u": u, "tp1": [a, p1], f"tp{TP}": [b, p2],
+           "max_logit_difference": d_logit}
+    if p1 == p2:
+        # the draw lands at one position of both sorts, which order a
+        # near-tie apart: the two tokens' logits lie within the rows'
+        # difference of each other in both engines
+        gaps = [abs(float(l[a] - l[b])) for l in (l1, l2)]
+        out.update(kind="sort order", logit_gaps=gaps, bound=2 * d_logit,
+                   b_in_tp1_sort=int(torch.nonzero(i1 == b)[0, 0]),
+                   a_in_tp2_sort=int(torch.nonzero(i2 == a)[0, 0]))
+        held = max(gaps) <= 2 * d_logit
+    else:
+        # the last position both CDFs put below the draw
+        k = min(p1, p2)
+        dist, diff = abs(u - float(c1[k])), abs(float(c1[k]) - float(c2[k]))
+        out.update(kind="cdf", boundary=k, draw_to_boundary=dist, cdf_difference=diff)
+        held = dist <= diff + 1e-7
+    if not held or d_logit > TP_F32_LOGIT_TOL:
+        raise AssertionError(f"[tp f32] the seeded stream parts from tp=1's unexplained "
+                             f"(logit tolerance {TP_F32_LOGIT_TOL}): {json.dumps(out)}")
+    return out
+
+
+def f32_identity(card: str, requests) -> None:
+    """At llama-3-8b widths and 4 layers, f32, TF32 off, every request
+    pending before the first admission so both engines run the same rounds:
+    every greedy stream at tp=2 equals tp=1's token for token. Each engine
+    serves twice, with decode graphs and with eager decode, and the two
+    runs' streams are equal (the graph draws each seeded stream's uniforms
+    as eager decode does). A seeded sampled stream equals tp=1's up to its
+    first difference, and there :func:`seeded_witness` holds on the eager
+    runs' recorded logits: its inverse-CDF draw sums 128256 probabilities,
+    so logits that differ in their last bits (the rank-order reduction,
+    ROADMAP departure 12) move its CDF, and a draw that lands within that
+    move of a boundary takes the next token."""
+    MODEL_CONFIGS[TP_F32_MODEL] = dataclasses.replace(
+        get_config("llama-3-8b"), name=TP_F32_MODEL, num_layers=4)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opts = dict(QUICKSTART, model_config=TP_F32_MODEL, dtype="float32")
+    try:
+        params = llama.init_params(get_config(TP_F32_MODEL), 0, torch.float32, CARD)
+        runs, calls = {}, {}
+        for tp in (1, TP):
+            for eager in (False, True):
+                label = f"tp f32, tp={tp}" + (", eager decode" if eager else "")
+                if tp == 1:
+                    engine, ecfg = build_engine(label, opts, params, eager_decode=eager)
+                else:
+                    engine, ecfg = tp_engine(label, opts, params, tp, eager_decode=eager)
+                with recording_samples() if eager else contextlib.nullcontext([]) as rec:
+                    _, _, recs = serving_phase(
+                        card, label, engine, ecfg, requests,
+                        launched=("ragged_paged_attention", "paged_decode_attention"),
+                        never=("flash_self_attention",), at_once=True, check_oracle=False)
+                runs[tp, eager] = [(r["toks"], r["fins"]) for r in recs]
+                if eager:
+                    calls[tp] = rec
+                del engine
+                free_card()
+            if runs[tp, False] != runs[tp, True]:
+                raise AssertionError(f"[tp f32] tp={tp}: graph and eager decode streams differ "
+                                     f"at requests {[i for i, (x, y) in enumerate(zip(runs[tp, False], runs[tp, True])) if x != y]}")
+        greedy = [i for i, (_, sp) in enumerate(requests) if sp.temperature == 0]
+        differ = [i for i in greedy if runs[1, False][i] != runs[TP, False][i]]
+        if differ:
+            raise AssertionError(f"[tp f32] tp={TP} greedy streams differ from tp=1's at "
+                                 f"requests {differ}")
+        sampled = {}
+        for i, (_, sp) in enumerate(requests):
+            if i in greedy:
+                continue
+            streams = {tp: runs[tp, True][i][0] for tp in (1, TP)}
+            j = first_divergence(streams[1], streams[TP])
+            sampled[i] = None if j is None else seeded_witness(sp, j, streams, calls)
+        log(f"serving [tp f32]: {TP_F32_MODEL} (llama-3-8b widths, 4 layers) at f32, TF32 "
+            f"off: the {len(greedy)} greedy streams at tp={TP} equal tp=1's token for token "
+            f"({sum(len(runs[1, False][i][0]) for i in greedy)} tokens), graph and eager "
+            f"decode streams equal at both degrees; seeded sampled streams (None: equal to "
+            f"tp=1's throughout; else where they part, and the witness there): "
+            f"{json.dumps(sampled)}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        MODEL_CONFIGS.pop(TP_F32_MODEL, None)
+        free_card()
+
+
+def gate_phase(card: str) -> None:
+    """The gate refuses without allocating: llama-3-70b bf16 at tp=1 over the
+    card's memory raises InfeasiblePlanError and ``memory_allocated`` does
+    not move; llama-3-70b int8 at tp=8 plans as fitting 80 GB (and the
+    card)."""
+    total = card_hbm_bytes(CARD)
+    ecfg = EngineConfig(model="llama-3-70b", max_seq_len=2048, max_batch=8,
+                        prefix_cache_pages=321, prefix_page_size=64,
+                        hbm_bytes_per_device=total)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(CARD)
+    try:
+        ContinuousBatchingEngine(ecfg)
+    except InfeasiblePlanError as e:
+        refused = e
+    else:
+        raise AssertionError("[tp gate] llama-3-70b bf16 at tp=1 was built on one card")
+    after = torch.cuda.memory_allocated(CARD)
+    if after != before:
+        raise AssertionError(f"[tp gate] the refused build allocated {after - before} bytes")
+    fits = {budget: gate_engine_plan("llama-3-70b", 8, quantization="int8", hbm_bytes=budget)
+            for budget in (H100_HBM_BYTES, total)}
+    if not all(p["fits"] and p["enforced"] for p in fits.values()):
+        raise AssertionError(f"[tp gate] llama-3-70b int8 tp=8 does not fit: {fits}")
+    p = refused.plan
+    log(f"serving [tp gate] on {card} (total_memory {total} bytes): llama-3-70b bf16 tp=1 "
+        f"refused before allocating (memory_allocated {before} before and after): needs "
+        f"{p['total_bytes_per_device']} bytes/device = {p['hbm_utilization']}x; llama-3-70b "
+        f"int8 tp=8 fits: {fits[H100_HBM_BYTES]['total_bytes_per_device']} bytes/device = "
+        f"{fits[H100_HBM_BYTES]['hbm_utilization']} of 80 GB, "
+        f"{fits[total]['hbm_utilization']} of the card")
+
+
+def tp_gauge_phase(card: str) -> None:
+    """A host serving llama-3-8b at tp=2 over HTTP (both ranks on the card:
+    the worker's ``device`` names it), with monitoring: a completion, then
+    ``llm_mesh_devices`` reads 2 and ``/v1/monitoring/replicas`` carries the
+    mesh block."""
+    cfg = http_config()
+    entry = next(m for m in cfg["modules"]["model_registry"]["config"]["models"]
+                 if m["provider_model_id"] == "llama-3-8b")
+    entry["engine_options"] = dict(QUICKSTART, tp=TP)
+    cfg["modules"]["model_registry"]["config"]["models"] = [entry]
+    cfg["modules"]["llm_gateway"]["config"]["worker"] = {"device": str(CARD)}
+    cfg["modules"]["monitoring"] = {"config": {}}
+    cfg["server"] = {"home_dir": str(Path(__file__).resolve().parent / "build" / "chip_smoke"
+                                     / "home-tp")}
+    srv = BackgroundServer(cfg).start()
+    try:
+        t = time.perf_counter()
+        status, _, body = http_json(srv.port, "/v1/completions",
+                                    {"model": HTTP_MODEL, "prompt": "tensor parallel",
+                                     "max_tokens": 8})
+        if status != 200 or body["usage"]["output_tokens"] != 8:
+            raise AssertionError(f"[tp http] completion: {status} {body}")
+        status, _, text = http_call(srv.port, "GET", "/metrics")
+        gauges = parse_metrics(text)
+        mesh_devices = gauges.get("llm_mesh_devices", {}).get("")
+        status_r, _, rows = http_call(srv.port, "GET", "/v1/monitoring/replicas")
+        rows = rows["replicas"] if isinstance(rows, dict) else rows
+        mesh = rows[0].get("mesh") or {}
+        if status != 200 or mesh_devices != float(TP) or status_r != 200 or \
+                mesh.get("tp") != TP or not mesh.get("kv_heads_sharded"):
+            raise AssertionError(f"[tp http] llm_mesh_devices {mesh_devices}, replicas "
+                                 f"{status_r} {rows}")
+        log(f"serving [tp http]: llama-3-8b at tp={TP} on {mesh['rank_devices']} served a "
+            f"completion in {time.perf_counter() - t:.1f} s (build included); "
+            f"llm_mesh_devices {mesh_devices:.0f}, replicas mesh block {json.dumps(mesh)}")
+    finally:
+        srv.stop()
+    del srv
+    free_card()
+
+
+def tp_phase(card: str, smi: str, params, requests, tp1_launches: dict, tp1_stats: dict) -> None:
+    """Tensor-parallel serving on the one card: the storm at tp=2 (both
+    ranks on the card) beside tp=1's on the same weights (the mixed run
+    above), three requests at tp=8, the f32 identity, the reduction's share
+    of a decode step, the plan against allocation, the gate, and the
+    ``llm_mesh_devices`` gauge over HTTP. ``smi`` labels every number."""
+    t_phase = time.perf_counter()
+    free_card()
+    cfg = get_config("llama-3-8b")
+    rope = rope_frequencies(cfg.head_dim, max(cfg.max_position, QUICKSTART["max_seq_len"]),
+                            cfg.rope_theta, device=CARD)
+    dense = DenseOracle(params, cfg, rope)
+    tp1_round = per_round(tp1_launches, tp1_stats)
+    if tp1_round != (cfg.num_layers, cfg.num_layers * QUICKSTART["decode_chunk"]):
+        raise AssertionError(f"[tp] tp=1 launches a round {tp1_round} ({tp1_stats['run']})")
+
+    engine, ecfg = tp_engine(f"tp={TP}", QUICKSTART, params, TP)
+    serve(engine, [(requests[3][0], SamplingParams(max_tokens=12))], 1)  # the probe, as tp=1
+    tp_storm(card, f"tp={TP}", engine, ecfg, requests, tuple(TP * x for x in tp1_round), dense)
+    reduction_share(smi, engine, params, rope)
+    del engine
+    free_card()
+
+    rng = np.random.default_rng(8)
+    few = [(rng.integers(3, cfg.vocab_size, n).tolist(), SamplingParams(max_tokens=32))
+           for n in TP8_LENS]
+    engine, ecfg = build_engine("tp=1, three requests", QUICKSTART, params)
+    serving_phase(card, "tp=1, three requests", engine, ecfg, few,
+                  launched=("ragged_paged_attention", "paged_decode_attention"),
+                  never=("flash_self_attention",), check_oracle=False)
+    del engine
+    free_card()
+    engine, ecfg = tp_engine("tp=8", QUICKSTART, params, 8)
+    tp_storm(card, "tp=8", engine, ecfg, few, tuple(8 * x for x in tp1_round), dense,
+             min_caught=None)
+    del engine
+    free_card()
+    for label in ("mixed", f"tp={TP}", "tp=1, three requests", "tp=8"):
+        log(f"info [{smi}] serving [{label}]: {format_latency(STORM_NUMBERS[label])}")
+
+    f32_identity(card, requests)
+    gate_phase(card)
+    tp_gauge_phase(card)
+    log(f"serving [tp] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+def tp_only(card: str, smi: str) -> None:
+    """``--tp``: the mixed storm at tp=1 (the tp phase's reference), then the
+    tp phase alone, for a check of that phase without the whole script."""
+    with torch.inference_mode():
+        engine, ecfg = build_engine("mixed", QUICKSTART)
+        requests = storm_requests(engine, ecfg)
+        mixed, stats, _ = serving_phase(
+            card, "mixed", engine, ecfg, requests,
+            launched=("ragged_paged_attention", "paged_decode_attention"),
+            never=("flash_self_attention",), sync_free=True)
+        params = engine.params
+        del engine
+        free_card()
+        tp_phase(card, smi, params, requests, mixed, stats)
+
+
 def serving_phases(card: str, smi: str) -> dict[str, int]:
     """The serving runs on one set of weights. Returns the kernels'
     main-path launch counts: the paged kernels from the mixed run, flash
@@ -2972,6 +3416,7 @@ def serving_phases(card: str, smi: str) -> dict[str, int]:
     quant_phase(card, smi, params)
     dp_phase(card, smi, params)
     pd_phase(card, smi, params, requests, unified)
+    tp_phase(card, smi, params, requests, mixed, stats)
     del params
     free_card()
     mixtral_phase(card, smi)
@@ -4357,6 +4802,12 @@ def main() -> int:
     if sys.argv[1:] == ["--sampling-determinism"]:
         _build.build_all()
         sampling_determinism(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
+        return 0
+    if sys.argv[1:] == ["--tp"]:
+        _build.build_all()
+        tp_only(torch.cuda.get_device_name(0), subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
         return 0

@@ -8,7 +8,9 @@ TREE in the order given, a child process imports that checkout's
 ``chip_smoke.py`` and package, builds its kernels, and serves the storm of
 chip_smoke's first two serving runs at llama-3-8b width (random weights from
 seed 0, quickstart engine options): mixed at ring depth 2, under the sync
-gate, then mixed at depth 0. Each run prints its ttft and tokens/s lines.
+gate, then mixed at depth 0. Each run prints its ttft and tokens/s lines;
+then the device time of one bf16 decode step (8 rows at lengths 127..2046
+and the head, CUDA-graph replay) is taken three times on the same weights.
 Give the trees as parent, change, change, parent to compare two versions
 within one call. Needs one CUDA card; exits non-zero when a turn fails.
 """
@@ -47,6 +49,15 @@ def one_turn(tree: str) -> None:
         cs.serving_phase(card, "mixed, depth 0", engine, ecfg, requests,
                          launched=("ragged_paged_attention", "paged_decode_attention"),
                          never=("flash_self_attention",))
+        cfg, rope = engine.model_config, engine.rope_tables
+        del engine
+        torch.cuda.empty_cache()
+        shape = (cfg.num_layers, 321, 64, cfg.num_kv_heads, cfg.head_dim)
+        pools = (torch.zeros(shape, dtype=params.dtype, device=params.device),
+                 torch.zeros(shape, dtype=params.dtype, device=params.device))
+        step = [cs.decode_step_ms(params, rope, pools) for _ in range(3)]
+        cs.log(f"turn {tree}: decode step (8 rows, lengths 127..2046, the head; device "
+               f"ms) {', '.join(f'{ms:.3f}' for ms in step)}")
 
 
 def main() -> int:

@@ -12,10 +12,17 @@ pool tensors for signature parity.
 
 Matrix products follow the JAX package's ``preferred_element_type=f32``
 einsums. Where JAX casts the f32 product straight to the activation dtype
-(``wo``, ``down``), a product in the activation dtype computes the same (the
-GEMM accumulates in f32 and rounds once). Where JAX works on the f32 product
-first (the logits; ``act(gate) * up``; the qwen2 q/k/v bias), the port asks for
-an f32 result too (:func:`_mm_f32`) and rounds where JAX rounds.
+(q/k/v), a product in the activation dtype computes the same (the GEMM
+accumulates in f32 and rounds once); so do ``wo`` and ``down`` of an
+unsharded model. Where JAX works on the f32 product first (the logits;
+``act(gate) * up``; the qwen2 q/k/v bias), and for the ``wo`` / ``down``
+partial sums that tensor parallelism adds, the port asks for an f32 result
+too (:func:`_mm_f32`) and rounds where JAX rounds.
+
+Every forward runs one layer loop, :func:`_tp_stack`, over the ranks of a
+:class:`ShardedLlama`; an unsharded :class:`LlamaModel` runs it as a mesh of
+one rank on its own device (:func:`_as_ranks`), whose one partial sum the
+collectives hand through.
 
 Mixture-of-experts configs run the routed MLP (:func:`_moe_mlp`, with
 :func:`_moe_mlp_dense` as its oracle); it reads no device value on the host,
@@ -49,6 +56,7 @@ from ..ops.flash_attention import flash_self_attention
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import paged_decode_attention, ragged_paged_attention
 from ..ops.rope import apply_rope
+from ..parallel.mesh import RankMesh
 from ..runtime.quant import QuantEmbed, QuantWeight, quantize_leaf
 from .configs import ModelConfig
 
@@ -99,16 +107,19 @@ def _leaf(t):
 class LlamaModel(nn.Module):
     """The parameter tree: ``embed [V, H]``, ``final_norm [H]``, ``layers``
     and, for untied configs, ``lm_head [H, V]``; quantized trees hold a
-    :class:`QuantEmbed` and :class:`QuantWeight` leaves in their place."""
+    :class:`QuantEmbed` and :class:`QuantWeight` leaves in their place. A
+    rank of a :class:`ShardedLlama` past the first holds no embedding and
+    no norms (``embed`` and ``final_norm`` None): rank 0 runs them."""
 
-    def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
-                 final_norm: torch.Tensor, layers: list[dict[str, torch.Tensor]],
+    def __init__(self, cfg: ModelConfig, embed: Optional[torch.Tensor],
+                 final_norm: Optional[torch.Tensor], layers: list[dict[str, torch.Tensor]],
                  lm_head: Optional[torch.Tensor] = None) -> None:
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.embed = _leaf(embed)
-        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
+        self.embed = None if embed is None else _leaf(embed)
+        self.final_norm = None if final_norm is None else nn.Parameter(
+            final_norm, requires_grad=False)
         self.layers = nn.ModuleList(LlamaLayer(lv) for lv in layers)
         if cfg.tie_embeddings:
             self.lm_head = None
@@ -124,6 +135,58 @@ class LlamaModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.final_norm.device
+
+
+class ShardedLlama:
+    """A model cut ``tp`` ways (:func:`..parallel.sharding.shard_llama_params`):
+    ``ranks[r]`` is rank r's :class:`LlamaModel` on ``mesh.devices[r]``,
+    holding its Megatron slices under the rank config (its attention heads,
+    intermediate and vocab slices). Every forward of this module takes it
+    where it takes a :class:`LlamaModel`, with the KV tensors of its caches
+    and pools given as lists, one tensor a rank (:func:`init_model_cache`).
+    ``embed``, ``final_norm`` and the layer norms are rank 0's, the only
+    copies; the hidden stream, the logits and every control row live on
+    rank 0's device."""
+
+    def __init__(self, cfg: ModelConfig, mesh, ranks: list[LlamaModel],
+                 kv_sharded: bool, rank_cfg: Optional[ModelConfig] = None) -> None:
+        check_supported(cfg)
+        self.cfg, self.mesh, self.ranks, self.kv_sharded = cfg, mesh, ranks, kv_sharded
+        self.rank_cfg = rank_cfg if rank_cfg is not None else ranks[0].cfg
+
+    @property
+    def tp(self) -> int:
+        return len(self.ranks)
+
+    @property
+    def embed(self):
+        return self.ranks[0].embed
+
+    @property
+    def final_norm(self) -> torch.Tensor:
+        return self.ranks[0].final_norm
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.ranks[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.ranks[0].device
+
+
+def _ranks(x) -> list:
+    """A KV leaf as a list of rank tensors (one tensor: one rank)."""
+    return x if isinstance(x, list) else [x]
+
+
+def _as_ranks(params, cfg: ModelConfig) -> ShardedLlama:
+    """``params`` as ranks: a :class:`ShardedLlama` as it is, an unsharded
+    model as one rank, on its device, that runs ``cfg``."""
+    if isinstance(params, ShardedLlama):
+        return params
+    return ShardedLlama(cfg, RankMesh([params.device]), [params], kv_sharded=True,
+                        rank_cfg=cfg)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
@@ -214,24 +277,29 @@ def _linear(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
-def _qkv_proj(lp: LlamaLayer, x: torch.Tensor, cfg: ModelConfig,
-              positions: torch.Tensor, cos_t: torch.Tensor, sin_t: torch.Tensor):
-    """Shared q/k/v projection + reshape + rope for one layer (any T). The
-    qwen2 bias is added to the f32 product and rounded once with it."""
-    B, T = x.shape[0], x.shape[1]
-    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+def _qkv_cols(lp: LlamaLayer, x: torch.Tensor, cfg: ModelConfig):
+    """A layer's q/k/v projections ``[B, T, width]`` in x's dtype; the qwen2
+    bias is added to the f32 product and rounded once with it."""
     if cfg.attention_bias:
-        q, k, v = ((_linear_f32(x, w) + b).to(x.dtype)
-                   for w, b in ((lp.wq, lp.bq), (lp.wk, lp.bk), (lp.wv, lp.bv)))
-    else:
-        q, k, v = _linear(x, lp.wq), _linear(x, lp.wk), _linear(x, lp.wv)
+        return tuple((_linear_f32(x, w) + b).to(x.dtype)
+                     for w, b in ((lp.wq, lp.bq), (lp.wk, lp.bk), (lp.wv, lp.bv)))
+    return _linear(x, lp.wq), _linear(x, lp.wk), _linear(x, lp.wv)
+
+
+def _qkv_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor, cos_t: torch.Tensor, sin_t: torch.Tensor):
+    """Projections → heads ``[B, T, H, D]``, q and k roped."""
+    B, T = q.shape[0], q.shape[1]
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = apply_rope(q.reshape(B, T, Hq, D), positions, cos_t, sin_t)
     k = apply_rope(k.reshape(B, T, Hkv, D), positions, cos_t, sin_t)
     return q, k, v.reshape(B, T, Hkv, D)
 
 
-def _attn_out(lp: LlamaLayer, h: torch.Tensor, attn_flat: torch.Tensor) -> torch.Tensor:
-    return h + _linear(attn_flat, lp.wo).to(h.dtype)
+def _qkv_proj(lp: LlamaLayer, x: torch.Tensor, cfg: ModelConfig,
+              positions: torch.Tensor, cos_t: torch.Tensor, sin_t: torch.Tensor):
+    """Shared q/k/v projection + reshape + rope for one layer (any T)."""
+    return _qkv_heads(*_qkv_cols(lp, x, cfg), cfg, positions, cos_t, sin_t)
 
 
 def _bmm_f32(a: torch.Tensor, b) -> torch.Tensor:
@@ -355,17 +423,31 @@ def _moe_mlp(x: torch.Tensor, lp: LlamaLayer, cfg: ModelConfig,
     return out.reshape(B, T, H)
 
 
+def _mlp(lp: LlamaLayer, x: torch.Tensor, cfg: ModelConfig, down=_linear,
+         valid: Optional[torch.Tensor] = None,
+         n_tokens: Optional[int] = None) -> torch.Tensor:
+    """The (routed MoE or dense gated) MLP of the normed ``x``: ``down``
+    (:func:`_linear`, or :func:`_linear_f32` for a rank's partial sum) over
+    ``act(gate) * up``, whose gate and up stay f32 until the product is
+    rounded; the routed MoE's f32 combine. ``valid`` and ``n_tokens`` reach
+    the routed MoE (see :func:`_moe_mlp`)."""
+    if cfg.num_experts > 0:
+        return _moe_mlp(x, lp, cfg, valid, n_tokens)
+    return down(_gated(lp, x, cfg), lp.down)
+
+
 def _mlp_residual(lp: LlamaLayer, h: torch.Tensor, cfg: ModelConfig,
                   valid: Optional[torch.Tensor] = None,
                   n_tokens: Optional[int] = None) -> torch.Tensor:
-    """Post-attention norm + (routed MoE or dense gated) MLP + residual;
-    gate and up stay f32 until ``act(gate) * up`` is rounded. ``valid`` and
-    ``n_tokens`` reach the routed MoE (see :func:`_moe_mlp`)."""
+    """Post-attention norm + MLP + residual of one unsharded layer: what
+    :func:`_tp_stack` computes on one rank."""
     x = rms_norm(h, lp.mlp_norm, cfg.rms_norm_eps, cfg.norm_weight_offset)
-    if cfg.num_experts > 0:
-        return h + _moe_mlp(x, lp, cfg, valid, n_tokens).to(h.dtype)
-    act = (_act(_linear_f32(x, lp.gate), cfg) * _linear_f32(x, lp.up)).to(h.dtype)
-    return h + _linear(act, lp.down).to(h.dtype)
+    return h + _mlp(lp, x, cfg, _linear, valid, n_tokens).to(h.dtype)
+
+
+def _gated(lp: LlamaLayer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``act(x @ gate) * (x @ up)`` from f32 products, rounded to x's dtype."""
+    return (_act(_linear_f32(x, lp.gate), cfg) * _linear_f32(x, lp.up)).to(x.dtype)
 
 
 def _input_norm(lp: LlamaLayer, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -384,6 +466,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
             torch.zeros(shape, dtype=dtype, device=dev))
 
 
+def init_model_cache(params, cfg: ModelConfig, batch: int, max_seq: int,
+                     device: DeviceLike = None) -> KVCache:
+    """A zeroed dense cache for ``params``: :func:`init_cache` on ``device``
+    (else the model's), or under tp one cache a rank with its kv heads, on
+    its device, as ``([k_r], [v_r])``."""
+    if isinstance(params, ShardedLlama):
+        caches = [init_cache(params.rank_cfg, batch, max_seq, params.dtype, d)
+                  for d in params.mesh.devices]
+        return [c[0] for c in caches], [c[1] for c in caches]
+    return init_cache(cfg, batch, max_seq, params.dtype,
+                      device=params.device if device is None else device)
+
+
+def kv_row(kv: KVCache, i: int) -> KVCache:
+    """Row ``i`` (kept as a batch of one) of a collected ``[L, B, ...]`` KV,
+    every rank's."""
+    def row(x):
+        return [t[:, i:i + 1] for t in x] if isinstance(x, list) else x[:, i:i + 1]
+    return row(kv[0]), row(kv[1])
+
+
 def forward(params: LlamaModel, cfg: ModelConfig, input_ids: torch.Tensor,
             positions: torch.Tensor, cache: KVCache, cache_start: torch.Tensor,
             rope_tables: tuple[torch.Tensor, torch.Tensor], use_flash: bool = False,
@@ -396,29 +499,14 @@ def forward(params: LlamaModel, cfg: ModelConfig, input_ids: torch.Tensor,
     JAX forward does: ONLY valid for a fresh cache (cache_start all zero),
     since the kernel sees the new tokens, not the cache history. ``valid``
     [B, T]: a padded batch's real tokens, for the routed MoE."""
-    cos_t, sin_t = rope_tables
     B, T = input_ids.shape
-    Hq, D = cfg.num_heads, cfg.head_dim
     h = _embed_scale(embed_lookup(params.embed, input_ids, params.dtype), cfg)
     kv_len_after = cache_start + T
     flash_lens = kv_len_after.to(torch.int32).contiguous() if use_flash else None
     b_idx = torch.arange(B, device=h.device)[:, None]
     t_idx = cache_start.long()[:, None] + torch.arange(T, device=h.device)[None, :]
-    k_cache, v_cache = cache
-    for layer, lp in enumerate(params.layers):
-        x = _input_norm(lp, h, cfg)
-        q, k, v = _qkv_proj(lp, x, cfg, positions, cos_t, sin_t)
-        k_cache[layer, b_idx, t_idx] = k.to(k_cache.dtype)
-        v_cache[layer, b_idx, t_idx] = v.to(v_cache.dtype)
-        if use_flash:
-            attn = flash_self_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                        flash_lens, sliding_window=cfg.sliding_window)
-        else:
-            attn = attention_with_cache(q, k_cache[layer], v_cache[layer], positions,
-                                        kv_len_after, sliding_window=cfg.sliding_window)
-        h = _attn_out(lp, h, attn.reshape(B, T, Hq * D))
-        h = _mlp_residual(lp, h, cfg, valid)
-    return _final_norm(params, h, cfg), (k_cache, v_cache)
+    return _tp_dense(_as_ranks(params, cfg), h, positions, rope_tables, cache, b_idx, t_idx,
+                     kv_len_after, flash_lens, valid), cache
 
 
 def prefill_collect(params: LlamaModel, cfg: ModelConfig, input_ids: torch.Tensor,
@@ -431,7 +519,7 @@ def prefill_collect(params: LlamaModel, cfg: ModelConfig, input_ids: torch.Tenso
     B, T = input_ids.shape
     dev = input_ids.device
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None, :].expand(B, T)
-    cache = init_cache(cfg, B, T, params.dtype, device=dev)
+    cache = init_model_cache(params, cfg, B, T, device=dev)
     valid = positions < lengths.to(positions.dtype)[:, None] if cfg.num_experts else None
     hidden, kv = forward(params, cfg, input_ids, positions, cache,
                          torch.zeros(B, dtype=torch.int32, device=dev), rope_tables,
@@ -444,7 +532,8 @@ def insert_slot_kv(cache: KVCache, new_kv: KVCache, slot: int) -> KVCache:
     ``0 .. T-1`` of its dense cache row ``slot``, in place (the JAX function
     donates the cache to a dynamic_update_slice). Returns the cache."""
     for c, new in zip(cache, new_kv):
-        c[:, int(slot), :new.shape[2]] = new[:, 0].to(c.dtype)
+        for c_r, new_r in zip(_ranks(c), _ranks(new)):
+            c_r[:, int(slot), :new_r.shape[2]] = new_r[:, 0].to(c_r.dtype)
     return cache
 
 
@@ -463,11 +552,8 @@ def forward_paged_decode(
     Each slot's new k/v lands at (page_table[b, len//page], len%page), in
     place; rows with ``write_mask`` False write to scratch page 0 instead.
     Attention runs :func:`paged_decode_attention` over ``lengths + 1`` keys."""
-    cos_t, sin_t = rope_tables
-    B = input_ids.shape[0]
-    Hq, D = cfg.num_heads, cfg.head_dim
-    k_pool, v_pool = pools
-    page = k_pool.shape[2]
+    cos_t = rope_tables[0]
+    page = _ranks(pools[0])[0].shape[2]
     lengths = lengths.to(torch.int32)
     # a frozen row may sit at the window (length == Pmax * page): its write
     # goes to scratch and its output is dropped, but its indices must stay
@@ -481,19 +567,14 @@ def forward_paged_decode(
         off = torch.where(write_mask, off, torch.zeros_like(off))
     kv_len = (lengths + 1).contiguous()
     h = _embed_scale(embed_lookup(params.embed, input_ids, params.dtype), cfg)
-    for layer, lp in enumerate(params.layers):
-        x = _input_norm(lp, h, cfg)
-        q, k, v = _qkv_proj(lp, x, cfg, positions, cos_t, sin_t)
-        # inactive slots all target scratch page 0: duplicate writes there
-        # are harmless
-        k_pool[layer].index_put_((pid, off), k[:, 0].to(k_pool.dtype))
-        v_pool[layer].index_put_((pid, off), v[:, 0].to(v_pool.dtype))
-        attn = paged_decode_attention(q[:, 0].contiguous(), k_pool[layer],
-                                      v_pool[layer], page_table, kv_len,
+
+    def decode(q, kp, vp, pt, n_kv):
+        return paged_decode_attention(q[:, 0].contiguous(), kp, vp, pt, n_kv,
                                       sliding_window=cfg.sliding_window)
-        h = _attn_out(lp, h, attn.reshape(B, 1, Hq * D))
-        h = _mlp_residual(lp, h, cfg)
-    return _final_norm(params, h, cfg), pools
+    # inactive slots all target scratch page 0: duplicate writes there are
+    # harmless
+    return _tp_paged(_as_ranks(params, cfg), h, positions, rope_tables, pools, pid[:, None],
+                     off[:, None], decode, (page_table, kv_len)), pools
 
 
 def forward_paged_mixed(
@@ -517,11 +598,8 @@ def forward_paged_mixed(
     (in place, before attending, so the span reads its own earlier tokens);
     padding positions and ``write_mask`` False rows write to scratch page 0
     and give hidden states nothing downstream reads."""
-    cos_t, sin_t = rope_tables
-    B, Qmax = input_ids.shape
-    Hq, D = cfg.num_heads, cfg.head_dim
-    k_pool, v_pool = pools
-    page = k_pool.shape[2]
+    Qmax = input_ids.shape[1]
+    page = _ranks(pools[0])[0].shape[2]
     hist = hist.to(torch.int32).contiguous()
     q_lens = q_lens.to(torch.int32).contiguous()
     offs = torch.arange(Qmax, device=input_ids.device)[None, :]
@@ -533,17 +611,12 @@ def forward_paged_mixed(
     pid = torch.where(valid, pid, torch.zeros_like(pid))
     off = torch.where(valid, positions % page, torch.zeros_like(positions)).long()
     h = _embed_scale(embed_lookup(params.embed, input_ids, params.dtype), cfg)
-    for layer, lp in enumerate(params.layers):
-        x = _input_norm(lp, h, cfg)
-        q, k, v = _qkv_proj(lp, x, cfg, positions, cos_t, sin_t)
-        k_pool[layer].index_put_((pid, off), k.to(k_pool.dtype))
-        v_pool[layer].index_put_((pid, off), v.to(v_pool.dtype))
-        attn = ragged_paged_attention(q.contiguous(), k_pool[layer], v_pool[layer],
-                                      page_table, hist, q_lens,
+
+    def ragged(q, kp, vp, pt, hist_r, q_lens_r):
+        return ragged_paged_attention(q.contiguous(), kp, vp, pt, hist_r, q_lens_r,
                                       sliding_window=cfg.sliding_window)
-        h = _attn_out(lp, h, attn.reshape(B, Qmax, Hq * D))
-        h = _mlp_residual(lp, h, cfg, valid, moe_tokens)
-    return _final_norm(params, h, cfg), pools
+    return _tp_paged(_as_ranks(params, cfg), h, positions, rope_tables, pools, pid, off,
+                     ragged, (page_table, hist, q_lens), valid, moe_tokens), pools
 
 
 def _softcap(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -557,7 +630,14 @@ def lm_head_logits(params: LlamaModel, cfg: ModelConfig,
                    hidden: torch.Tensor) -> torch.Tensor:
     """hidden [B, H] (or [B, T, H]) → logits in f32 (tied or untied head,
     gemma-2 softcap). A tied int8 head multiplies the rows' int values and
-    then each vocab column by its row scale."""
+    then each vocab column by its row scale. Under tp an untied head is
+    vocab-sharded: each rank's logits slice, gathered in rank order on rank
+    0 (a tied head is the replicated table, on rank 0)."""
+    if isinstance(params, ShardedLlama) and not cfg.tie_embeddings:
+        mesh = params.mesh
+        logits = mesh.all_gather([_linear_f32(x, m.lm_head) for x, m in
+                                  zip(mesh.scatter(hidden), params.ranks)])
+        return _softcap(logits, cfg)
     if cfg.tie_embeddings:
         embed = params.embed
         if isinstance(embed, QuantEmbed):
@@ -573,3 +653,96 @@ def gather_last_hidden(hidden: torch.Tensor, lengths: torch.Tensor) -> torch.Ten
     """hidden [B, T, H], lengths [B] → [B, H] at index lengths-1 per row."""
     idx = torch.clamp_min(lengths.long() - 1, 0)
     return hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
+
+
+# ---------------------------------------------------------------- tensor parallelism
+def _tp_stack(params: ShardedLlama, h: torch.Tensor, positions: torch.Tensor,
+              rope_tables: tuple[torch.Tensor, torch.Tensor], attend,
+              valid: Optional[torch.Tensor] = None,
+              moe_tokens: Optional[int] = None) -> torch.Tensor:
+    """The decoder layers over the hidden stream ``h`` [B, T, H] (on rank 0),
+    then the final norm: every forward's layer loop (an unsharded model is
+    one rank). Per layer: every rank projects its
+    q/k/v columns and ``attend(r, layer, q, k, v)`` runs its attention
+    ([B, T, heads, D]); its rows of ``wo`` give an f32 partial sum, and the
+    partials are added in rank order and rounded where the unsharded product
+    rounds; the MLP likewise (``gate`` / ``up`` columns, ``down`` rows; a
+    MoE rank routes every token, as the router is replicated, and runs its
+    intermediate slice of each expert). One rank's ``wo`` and ``down``
+    products are its sums: they round once either way, and in the
+    activation dtype the GEMM writes no f32 result to cast (a cast kernel
+    each, 1% of llama-3-8b's bf16 decode step).
+
+    When tp does not divide the kv heads (a replicated pool), a rank's
+    columns are not whole heads: the ranks' q/k/v columns are gathered into
+    all heads, every rank attends over all heads on its own pool replica,
+    and keeps its columns of the output for its rows of ``wo``."""
+    cfg, mesh, rc, tp = params.cfg, params.mesh, params.rank_cfg, params.tp
+    row = _linear if tp == 1 else _linear_f32
+    B, T = h.shape[0], h.shape[1]
+    pos, cos, sin = (mesh.scatter(t) for t in (positions, *rope_tables))
+    valids = mesh.scatter(valid)
+    for layer in range(cfg.num_layers):
+        lps = [m.layers[layer] for m in params.ranks]
+        cols = [_qkv_cols(lp, x, cfg) for lp, x in
+                zip(lps, mesh.scatter(_input_norm(lps[0], h, cfg)))]
+        if not params.kv_sharded:
+            full = [mesh.scatter(mesh.all_gather([c[i] for c in cols])) for i in range(3)]
+            cols = list(zip(*full))
+        parts = []
+        for r, (lp, (q, k, v)) in enumerate(zip(lps, cols)):
+            q, k, v = _qkv_heads(q, k, v, rc, pos[r], cos[r], sin[r])
+            attn = attend(r, layer, q, k, v).reshape(B, T, -1)
+            if not params.kv_sharded:
+                w = attn.shape[-1] // tp
+                attn = attn[..., r * w:(r + 1) * w]
+            parts.append(row(attn, lp.wo))
+        h = h + mesh.all_reduce_sum(parts).to(h.dtype)
+        xs = mesh.scatter(rms_norm(h, lps[0].mlp_norm, cfg.rms_norm_eps, cfg.norm_weight_offset))
+        parts = [_mlp(lp, x, rc, row, vr, moe_tokens) for lp, x, vr in zip(lps, xs, valids)]
+        h = h + mesh.all_reduce_sum(parts).to(h.dtype)
+    return _final_norm(params, h, cfg)
+
+
+def _tp_dense(params: ShardedLlama, h: torch.Tensor, positions: torch.Tensor,
+              rope_tables, cache: KVCache, b_idx: torch.Tensor, t_idx: torch.Tensor,
+              kv_len_after: torch.Tensor, flash_lens: Optional[torch.Tensor],
+              valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`forward`'s layers: each rank writes its k/v heads into its
+    cache and attends (flash over the step's own k/v, or plain attention
+    over its cache)."""
+    mesh, window = params.mesh, params.cfg.sliding_window
+    k_caches, v_caches = (_ranks(c) for c in cache)
+    b_r, t_r, pos_r, len_r, flash_r = (mesh.scatter(t) for t in
+                                       (b_idx, t_idx, positions, kv_len_after, flash_lens))
+
+    def attend(r, layer, q, k, v):
+        k_caches[r][layer, b_r[r], t_r[r]] = k.to(k_caches[r].dtype)
+        v_caches[r][layer, b_r[r], t_r[r]] = v.to(v_caches[r].dtype)
+        if flash_r[r] is not None:
+            return flash_self_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                        flash_r[r], sliding_window=window)
+        return attention_with_cache(q, k_caches[r][layer], v_caches[r][layer], pos_r[r],
+                                    len_r[r], sliding_window=window)
+    return _tp_stack(params, h, positions, rope_tables, attend, valid)
+
+
+def _tp_paged(params: ShardedLlama, h: torch.Tensor, positions: torch.Tensor,
+              rope_tables, pools: PagedPools, pid: torch.Tensor, off: torch.Tensor,
+              kernel, kernel_args: tuple, valid: Optional[torch.Tensor] = None,
+              moe_tokens: Optional[int] = None) -> torch.Tensor:
+    """The paged forwards' layers: each rank writes its k/v heads at
+    (``pid``, ``off``) [B, T] of its pool, in place, then runs ``kernel(q,
+    k_pool[layer], v_pool[layer], *kernel_args)`` on its own pool slice,
+    with ``kernel_args`` (page table, lengths) on its device."""
+    mesh = params.mesh
+    k_pools, v_pools = (_ranks(p) for p in pools)
+    pid_r, off_r = mesh.scatter(pid), mesh.scatter(off)
+    args_r = list(zip(*(mesh.scatter(a) for a in kernel_args)))
+
+    def attend(r, layer, q, k, v):
+        kp, vp = k_pools[r], v_pools[r]
+        kp[layer].index_put_((pid_r[r], off_r[r]), k.to(kp.dtype))
+        vp[layer].index_put_((pid_r[r], off_r[r]), v.to(vp.dtype))
+        return kernel(q, kp[layer], vp[layer], *args_r[r])
+    return _tp_stack(params, h, positions, rope_tables, attend, valid, moe_tokens)

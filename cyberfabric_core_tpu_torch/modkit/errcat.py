@@ -19,7 +19,8 @@ _TITLES = {400: "Bad Request", 403: "Forbidden", 404: "Not Found", 408: "Request
            409: "Conflict", 413: "Payload Too Large", 415: "Unsupported Media Type",
            422: "Unprocessable Entity", 429: "Too Many Requests",
            499: "Client Closed Request", 500: "Internal Server Error",
-           501: "Not Implemented", 503: "Service Unavailable", 504: "Gateway Timeout"}
+           501: "Not Implemented", 503: "Service Unavailable", 504: "Gateway Timeout",
+           507: "Insufficient Storage"}
 
 #: namespace → code → HTTP status
 _CATALOG: dict[str, dict[str, int]] = {
@@ -37,6 +38,7 @@ _CATALOG: dict[str, dict[str, int]] = {
         "scheduler_saturated": 429, "tenant_saturated": 429,
         "tenant_quota_exceeded": 429, "replica_unavailable": 503,
         "load_shed": 429, "tenant_shed": 429, "not_ported": 501,
+        "infeasible_plan": 507,
     },
     "monitoring": {
         "profiler_running": 409, "profiler_not_running": 400,

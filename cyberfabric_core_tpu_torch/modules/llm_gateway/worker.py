@@ -42,11 +42,15 @@ JAX's warning and the scheduler's own rounds (``scheduler_spec_k``,
 ``spec_min_accept``, ``spec_max_ngram``, ``spec_min_ngram``) are what
 speculate.
 
-Options the JAX worker maps to paths the port does not have (tensor
-parallelism and the feasibility gate) raise a ``not_ported`` problem
-naming their ROADMAP item; none is ignored. The combinations the JAX worker
-refuses (a one-sided PD split, PD with dp or tp, dp with tp) raise its
-``ValueError``s.
+Tensor parallelism: ``tp`` > 1 builds one continuous engine over ``tp``
+ranks: the first ``tp`` CUDA cards by default, or ``tp`` times the worker's
+``device`` when the config names one (``"cpu"``, or ``"cuda:0"`` to put
+every rank on one card). ``hbm_bytes_per_device`` > 0 arms the engine's
+feasibility gate; a plan over that budget is the ``llm.infeasible_plan``
+problem (507) at the model's first request, and no entry is kept, so a
+retry gates again. The lockstep scheduler reads no ``tp``, as in JAX. The
+combinations the JAX worker refuses (a one-sided PD split, PD with dp or
+tp, dp with tp) raise its ``ValueError``s.
 
 Observability: the worker stamps each continuous request's model and
 tenant on its flight record at submit (the scheduler emits the lifecycle
@@ -86,6 +90,7 @@ from ...modkit.failpoints import failpoint_async
 from ...modkit.flight_recorder import annotate_request, default_recorder
 from ...models import bert
 from ...models.configs import ModelConfig, get_config
+from ...parallel.feasibility import InfeasiblePlanError
 from ...device import on_card
 from ...runtime.engine import (EngineConfig, InferenceEngine, SamplingParams,
                                SchedulerSaturated, StepEvent, TenantQuotaExceeded,
@@ -138,12 +143,6 @@ def _flag(raw: Any) -> bool:
     return str(raw).strip().lower() not in ("0", "false", "no", "off")
 
 
-def _not_ported(model: ModelInfo, what: str, item: str) -> ProblemError:
-    return ERR.llm.not_ported.error(
-        f"engine_options for {model.canonical_id}: {what} is not ported yet "
-        f"(ROADMAP queue 1 item {item})")
-
-
 @dataclass
 class EnginePlan:
     """What the worker builds for one registry entry."""
@@ -166,8 +165,8 @@ def plan_engine(model: ModelInfo, scheduler: str = "continuous") -> EnginePlan:
     """``engine_options`` → :class:`EngineConfig`, field for field as
     ``worker.py:312-397`` maps them (the same defaults and the same default
     page count), then the chat family, the lifecycle knobs and the
-    checkpoint. Raises a ``not_ported`` problem for an option the port does
-    not serve and for one the JAX worker does not know, and ``ValueError``
+    checkpoint. Raises a ``not_ported`` problem for an option the JAX worker
+    does not know, and ``ValueError``
     for a ``scheduler`` that is not in :data:`SCHEDULERS`. Under the
     lockstep scheduler the pool and lifecycle options are inert (the JAX
     worker reads them only for the continuous one); ``speculative`` is inert
@@ -254,14 +253,6 @@ def plan_engine(model: ModelInfo, scheduler: str = "continuous") -> EnginePlan:
             "field drives the lockstep bs=1 path); set engine_options.scheduler_spec_k "
             "for batched speculative decoding in the continuous scheduler, or scheduler: "
             "lockstep for this model", cfg.speculative)
-    unported = [
-        (cfg.tp > 1, f"tp={cfg.tp}", "9 (multi-GPU)"),
-        (cfg.hbm_bytes_per_device > 0,
-         f"hbm_bytes_per_device={cfg.hbm_bytes_per_device}", "9 (feasibility gate)"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise _not_ported(model, what, item)
     if opts:
         raise ERR.llm.not_ported.error(
             f"engine_options for {model.canonical_id}: {sorted(opts)} are not options "
@@ -500,8 +491,13 @@ class LocalTorchWorker(LlmWorkerApi):
                 entry.last_used = time.monotonic()
                 return entry
             self._maybe_evict_for(model)
-            entry = await asyncio.get_running_loop().run_in_executor(
-                self._executor, self._build_entry, model)
+            try:
+                entry = await asyncio.get_running_loop().run_in_executor(
+                    self._executor, self._build_entry, model)
+            except InfeasiblePlanError as e:
+                # the engine's gate refused the plan before allocating: a
+                # typed 507, never an out-of-memory error mid-build
+                raise ERR.llm.infeasible_plan.error(str(e)) from e
             entry.last_used = time.monotonic()
             entry.est_bytes = self._estimate_bytes(model)
             self._entries[key] = entry
@@ -610,12 +606,15 @@ class LocalTorchWorker(LlmWorkerApi):
                         cfg.max_batch, cfg.max_seq_len)
             return _EngineEntry(config=cfg, tokenizer=tokenizer, scheduler=None, pool=pool,
                                 model_family=plan.chat_family)
-        scheduler = ContinuousBatchingEngine(cfg, params=params, device=self._device)
+        placement = ({"rank_devices": self._pool_devices(cfg.tp)} if cfg.tp > 1
+                     else {"device": self._device})
+        scheduler = ContinuousBatchingEngine(cfg, params=params, **placement)
         supervisor = None
         if plan.lifecycle.enabled:
             def _rebuild(old: ContinuousBatchingEngine) -> ContinuousBatchingEngine:
-                # a fresh engine off the spent one's weights
-                return ContinuousBatchingEngine(cfg, params=old.params, device=self._device)
+                # a fresh engine off the spent one's weights (under tp, its
+                # rank slices)
+                return ContinuousBatchingEngine(cfg, params=old.params, **placement)
 
             supervisor = EngineSupervisor(_rebuild, plan.lifecycle, name=model.canonical_id)
         logger.info("continuous engine ready for %s (%s on %s, slots=%d, max_seq=%d)",
@@ -625,9 +624,9 @@ class LocalTorchWorker(LlmWorkerApi):
                             supervisor=supervisor, model_family=plan.chat_family)
 
     def _pool_devices(self, n: int) -> Optional[list[Any]]:
-        """A pool's devices: the visible CUDA cards (None) for the default
-        device, else ``n`` times the worker's device (the CPU, or the one
-        card it names)."""
+        """A pool's (or a tp engine's rank) devices: the visible CUDA cards
+        (None) for the default device, else ``n`` times the worker's device
+        (the CPU, or the one card it names)."""
         dev = resolve_device(self._device)
         if dev.type == "cuda" and dev.index is None:
             return None
@@ -1023,7 +1022,7 @@ class LocalTorchWorker(LlmWorkerApi):
                         "state": sr["state"] if sr is not None else (
                             "broken" if engine.get("broken") else "healthy"),
                         "role": roles[i] if roles is not None else None,
-                        "lifecycle": sr, "engine": engine,
+                        "lifecycle": sr, "engine": engine, "mesh": self._mesh_of(eng),
                     }, entry, i))
             elif entry.scheduler is not None:
                 engine = engine_row(entry.scheduler)
@@ -1036,9 +1035,22 @@ class LocalTorchWorker(LlmWorkerApi):
                               else "broken" if engine.get("broken") else "healthy"),
                     "role": None,
                     "supervisor": sup.status() if sup is not None else None,
-                    "engine": engine,
+                    "engine": engine, "mesh": self._mesh_of(entry.scheduler),
                 }, entry, 0))
         return rows
+
+    @staticmethod
+    def _mesh_of(engine: Any) -> Optional[dict[str, Any]]:
+        """A replica's serving-mesh block (tp degree, rank devices, sharded
+        page bytes, the feasibility plan) from ``mesh_info()``; None for an
+        engine without it or one that fails to answer."""
+        fn = getattr(engine, "mesh_info", None)
+        if fn is None:
+            return None
+        try:
+            return fn()
+        except Exception:  # noqa: BLE001 — monitoring must not fail on a dying engine
+            return None
 
     def replicas_view(self) -> list[dict[str, Any]]:
         """One row a replica (pool replicas and single engines)."""

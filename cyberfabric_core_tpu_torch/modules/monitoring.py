@@ -86,6 +86,24 @@ def _chrome_trace(per_model: dict[str, list[dict]]) -> dict:
     return {"traceEvents": events, "displayTimeUnit": "ms"}
 
 
+def _mesh_info(sched: Any) -> dict:
+    """An engine's ``mesh_info()``, or {} (a test double without it, a
+    dying engine): a scrape never fails on it."""
+    fn = getattr(sched, "mesh_info", None)
+    if fn is None:
+        return {}
+    try:
+        return fn() or {}
+    except Exception:  # noqa: BLE001
+        return {}
+
+
+def _rank_devices(sched: Any) -> list[torch.device]:
+    """Every device an engine's ranks run on (its own device without tp)."""
+    mesh = getattr(sched, "mesh", None)
+    return list(mesh.devices) if mesh is not None else [sched.device]
+
+
 def _all_threads() -> Optional[Any]:
     """The profiler's option to record every thread's operators (the
     scheduler's and the worker's, not only the one that starts it), where
@@ -218,7 +236,7 @@ class MonitoringModule:
     def _cuda_devices(self) -> list[torch.device]:
         """The CUDA cards the engines serve on (none when they run on the
         CPU or none is built yet)."""
-        devs = {s.device for s in self._schedulers() if s.device.type == "cuda"}
+        devs = {d for s in self._schedulers() for d in _rank_devices(s) if d.type == "cuda"}
         return sorted(devs, key=lambda d: d.index or 0)
 
     def _register_gauges(self) -> None:
@@ -235,19 +253,34 @@ class MonitoringModule:
             return float(torch.cuda.memory_allocated(devs[0])) if devs else 0.0
 
         def hbm_utilization_per_device() -> float:
-            return max((torch.cuda.memory_allocated(d)
-                        / torch.cuda.get_device_properties(d).total_memory
-                        for d in self._cuda_devices()), default=0.0)
+            worst = max((torch.cuda.memory_allocated(d)
+                         / torch.cuda.get_device_properties(d).total_memory
+                         for d in self._cuda_devices()), default=0.0)
+            if worst > 0.0:
+                return worst
+            # off the card: the engines' plans, and only enforced ones (an
+            # unenforced plan's budget is no device this host has)
+            for sched in self._schedulers():
+                plan = _mesh_info(sched).get("plan") or {}
+                if plan.get("enforced"):
+                    worst = max(worst, float(plan.get("hbm_utilization", 0.0)))
+            return worst
+
+        def mesh_devices() -> float:
+            width = 1 if any(True for _ in self._schedulers()) else 0
+            for sched in self._schedulers():
+                width = max(width, int(_mesh_info(sched).get("devices", 1)))
+            return float(width)
 
         g("tpu_devices", "Accelerator devices visible to this host (CUDA cards when the "
           "engines serve on the card, else 0)").set_function(device_count)
         g("tpu_hbm_bytes_in_use", "Device memory in use on the serving CUDA card (the "
           "allocator's bytes in use; 0 off the card)").set_function(hbm_in_use)
         g("llm_mesh_devices", "Devices in the widest serving mesh (tp degree; 1 = "
-          "unsharded)").set_function(
-            lambda: 1.0 if any(True for _ in self._schedulers()) else 0.0)
+          "unsharded)").set_function(mesh_devices)
         g("llm_hbm_utilization_per_device", "Worst per-card device-memory utilization "
-          "(the allocator's bytes in use over the CUDA card's total memory)"
+          "(the allocator's bytes in use over the CUDA card's total memory; off the "
+          "card, the worst enforced feasibility plan's)"
           ).set_function(hbm_utilization_per_device)
         g("llm_batch_active_slots", "Active continuous-batching slots").set_function(
             lambda: float(sum(s.active_slots for s in self._schedulers())))

@@ -28,6 +28,17 @@ The movers (:meth:`gather_for_prefill`, :meth:`store_prefill`,
 :meth:`scatter_tail`, the host copies) are one indexed copy per pool; the
 JAX package pads page lists to powers of two to bound its compile variants,
 which eager PyTorch does not need.
+
+Tensor parallelism (``mesh``, :mod:`..parallel.mesh`): one pool pair a rank,
+``[L, N, page, Hkv/tp, D]`` on the rank's device when tp divides the kv
+heads, else all heads on every rank (JAX's replicated fallback). Page ids,
+the allocator, the radix tree and the chains are host bookkeeping shared by
+every rank. A collected KV handed to the movers holds one tensor a rank
+(``([k_r], [v_r])``, :func:`..models.llama.init_model_cache`). The host
+copies join the ranks' heads (:meth:`save_chain_to_host`) and split them
+again (:meth:`restore_chain_from_host`), so a saved chain is the unsharded
+``[L, n, page, Hkv, D]`` whatever the tp: preemption and PD handoff work
+across engines of any tp.
 """
 
 from __future__ import annotations
@@ -40,6 +51,8 @@ import torch
 
 from ..device import to_device
 from ..models.configs import ModelConfig
+from ..parallel.mesh import RankMesh
+from ..parallel.sharding import kv_heads_sharded
 from .native import BlockAllocator, PrefixCache
 
 logger = logging.getLogger("paged")
@@ -51,13 +64,21 @@ class PrefixKVPool:
     """Device page pool + host allocator and radix tree."""
 
     def __init__(self, model_config: ModelConfig, *, num_pages: int,
-                 page_size: int, dtype: torch.dtype, device: torch.device) -> None:
+                 page_size: int, dtype: torch.dtype, device: torch.device,
+                 mesh: Optional[RankMesh] = None) -> None:
         self.page_size = page_size
         self.num_pages = num_pages
-        shape = (model_config.num_layers, num_pages, page_size,
-                 model_config.num_kv_heads, model_config.head_dim)
-        self.k_pool = torch.zeros(shape, dtype=dtype, device=device)
-        self.v_pool = torch.zeros(shape, dtype=dtype, device=device)
+        tp = mesh.tp if mesh is not None else 1
+        #: whether each rank holds a kv-head slice (else all heads)
+        self.kv_sharded = kv_heads_sharded(model_config, tp)
+        heads = model_config.num_kv_heads // (tp if self.kv_sharded else 1)
+        shape = (model_config.num_layers, num_pages, page_size, heads, model_config.head_dim)
+        devices = mesh.devices if mesh is not None else (device,)
+        #: one pool pair a rank
+        self.k_ranks = [torch.zeros(shape, dtype=dtype, device=d) for d in devices]
+        self.v_ranks = [torch.zeros(shape, dtype=dtype, device=d) for d in devices]
+        #: rank 0's pools (the only ones without tp)
+        self.k_pool, self.v_pool = self.k_ranks[0], self.v_ranks[0]
         self.allocator = BlockAllocator(num_pages - 1)  # page 0 is scratch
         self._page_offset = 1
         self.tree = PrefixCache(page_size)
@@ -77,11 +98,36 @@ class PrefixKVPool:
         """Pages a single chain could ever hold (page 0 is scratch)."""
         return self.num_pages - self._page_offset
 
+    @property
+    def tp(self) -> int:
+        return len(self.k_ranks)
+
+    @property
+    def pools(self) -> tuple:
+        """What the paged forwards take: ``(k_pool, v_pool)``, or under tp
+        the ranks' lists ``([k_r], [v_r])``."""
+        if self.tp == 1:
+            return self.k_pool, self.v_pool
+        return self.k_ranks, self.v_ranks
+
+    def rank_bytes(self) -> list[int]:
+        """Bytes of each rank's k and v pools."""
+        return [k.numel() * k.element_size() + v.numel() * v.element_size()
+                for k, v in zip(self.k_ranks, self.v_ranks)]
+
     def pages_for(self, length: int) -> int:
         return (length + self.page_size - 1) // self.page_size
 
-    def _ids(self, pages: list[int]) -> torch.Tensor:
-        return to_device(torch.tensor(pages, dtype=torch.long), self.k_pool.device)
+    @staticmethod
+    def _ids(pages: list[int], device: torch.device) -> torch.Tensor:
+        return to_device(torch.tensor(pages, dtype=torch.long), device)
+
+    def _rank_pairs(self, kv: KV) -> list[tuple]:
+        """(k pool, v pool, k, v) a rank, for a collected KV of every rank."""
+        ks, vs = kv
+        if not isinstance(ks, list):
+            ks, vs = [ks], [vs]
+        return list(zip(self.k_ranks, self.v_ranks, ks, vs))
 
     # ------------------------------------------------------------ movers
     def _scatter_full_pages(self, kv: KV, page_ids: list[int],
@@ -91,13 +137,14 @@ class PrefixKVPool:
         the pages is padded."""
         n = len(page_ids)
         span = n * self.page_size
-        ids = self._ids(page_ids)
-        for pool, new in ((self.k_pool, kv[0]), (self.v_pool, kv[1])):
-            L, _, _, Hkv, D = new.shape
-            src = new[:, 0, start_token: start_token + span]
-            if src.shape[1] < span:
-                src = torch.nn.functional.pad(src, (0, 0, 0, 0, 0, span - src.shape[1]))
-            pool[:, ids] = src.reshape(L, n, self.page_size, Hkv, D).to(pool.dtype)
+        for k_pool, v_pool, k, v in self._rank_pairs(kv):
+            ids = self._ids(page_ids, k_pool.device)
+            for pool, new in ((k_pool, k), (v_pool, v)):
+                L, _, _, Hkv, D = new.shape
+                src = new[:, 0, start_token: start_token + span]
+                if src.shape[1] < span:
+                    src = torch.nn.functional.pad(src, (0, 0, 0, 0, 0, span - src.shape[1]))
+                pool[:, ids] = src.reshape(L, n, self.page_size, Hkv, D).to(pool.dtype)
 
     def scatter_tail(self, kv: KV, start_token: int, page_id: int) -> None:
         """Place a slot's partial tail (one page of tokens from
@@ -111,12 +158,13 @@ class PrefixKVPool:
         prefill cache, in place. Returns the cache."""
         if not page_ids:
             return cache
-        ids = self._ids(page_ids)
         span = min(len(page_ids) * self.page_size, seq_bucket)
-        for c, pool in zip(cache, (self.k_pool, self.v_pool)):
-            L, _, page, Hkv, D = pool.shape
-            blk = pool[:, ids].reshape(L, len(page_ids) * page, Hkv, D)
-            c[:, 0, :span] = blk[:, :span].to(c.dtype)
+        for k_pool, v_pool, k, v in self._rank_pairs(cache):
+            ids = self._ids(page_ids, k_pool.device)
+            for c, pool in ((k, k_pool), (v, v_pool)):
+                L, _, page, Hkv, D = pool.shape
+                blk = pool[:, ids].reshape(L, len(page_ids) * page, Hkv, D)
+                c[:, 0, :span] = blk[:, :span].to(c.dtype)
         return cache
 
     # ------------------------------------------------------------ allocation
@@ -303,12 +351,15 @@ class PrefixKVPool:
         there once the stream has run it, so a host reader synchronises
         first, while :meth:`restore_chain_from_host` (a copy queued later on
         the same stream) needs no wait."""
-        ids = self._ids(chain)
-        if self.k_pool.device.type != "cuda":
-            return (self.k_pool[:, ids], self.v_pool[:, ids])
+        n_ranks = self.tp if self.kv_sharded else 1  # a replica holds every head
         out = []
-        for pool in (self.k_pool, self.v_pool):
-            src = pool[:, ids]
+        for ranks in (self.k_ranks, self.v_ranks):
+            home = ranks[0].device
+            parts = [pool[:, self._ids(chain, pool.device)] for pool in ranks[:n_ranks]]
+            src = parts[0] if n_ranks == 1 else torch.cat([p.to(home) for p in parts], dim=3)
+            if home.type != "cuda":
+                out.append(src)
+                continue
             host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
             host.copy_(src, non_blocking=True)
             out.append(host)
@@ -322,13 +373,17 @@ class PrefixKVPool:
             return []
         ids = self._alloc(n)
         self.ref_pages(ids)
-        idx = self._ids(ids)
-        for pool, host in ((self.k_pool, host_kv[0]), (self.v_pool, host_kv[1])):
-            host = host.to(pool.dtype)
+        for ranks, host in ((self.k_ranks, host_kv[0]), (self.v_ranks, host_kv[1])):
+            host = host.to(ranks[0].dtype)
             # a pinned buffer of save_chain_to_host goes straight to the
-            # device: staging it would read it on the host before its copy ran
-            pool[:, idx] = (host.to(pool.device, non_blocking=True) if host.is_pinned()
-                            else to_device(host, pool.device))
+            # device: staging it would read it on the host before its copy
+            # ran. The ranks' heads are split on the device.
+            full = (host.to(ranks[0].device, non_blocking=True) if host.is_pinned()
+                    else to_device(host, ranks[0].device))
+            heads = ranks[0].shape[3]
+            for r, pool in enumerate(ranks):
+                part = full[:, :, :, r * heads:(r + 1) * heads] if self.kv_sharded else full
+                pool[:, self._ids(ids, pool.device)] = part.to(pool.device)
         return ids
 
     def export_pages(self, chain: list[int],

@@ -27,6 +27,12 @@ the lookahead ring's generator restore keeps streams equal at every depth.
 The generators are not registered with the graph: a slot's generator
 changes at each admission.
 
+Under tensor parallelism the body runs every rank's forward
+(:mod:`..models.llama` with a ``ShardedLlama``): when the ranks share one
+card, one capture holds all of them. The engine captures nothing when the
+ranks span several cards (capture across cards is unverified) and runs the
+chunk eagerly there; ``stats()["pipeline"]`` says which.
+
 Capture happens once, in the constructor (the engine's start, on whichever
 thread builds the engine), never inside a round: two warm-up runs of each
 body on a side stream with every row inactive (their KV writes land on
@@ -63,7 +69,9 @@ class PagedDecodeChunk:
                  pools: llama.PagedPools, rows: dict[str, torch.Tensor],
                  rope_tables: tuple[torch.Tensor, torch.Tensor], n_slots: int,
                  k_steps: int, max_seq_len: int, graphs: bool) -> None:
-        dev = pools[0].device
+        # under tp the pools are lists, one tensor a rank: the chunk's own
+        # buffers live on rank 0's device
+        dev = (pools[0][0] if isinstance(pools[0], list) else pools[0]).device
         if graphs and dev.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, the pools are on {dev}")
         self.params, self.cfg, self.pools, self.rows = params, cfg, pools, rows

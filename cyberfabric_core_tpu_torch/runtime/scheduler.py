@@ -124,11 +124,32 @@ its suspended list, and the resume path imports the pages
 prefill, without counting a preemption. So a prefill engine runs only
 prefill and mixed-kind rounds and a decode engine only decode rounds.
 
+Tensor parallelism (``tp`` > 1, :mod:`..parallel`): one engine and one
+scheduler thread hold ``tp`` rank shard sets, as the JAX engine lifts itself
+onto a mesh. The weights are cut Megatron-style
+(:func:`..parallel.sharding.shard_llama_params`), the paged pool (or the
+dense cache) on its kv-head axis, one tensor pair a rank (all heads on every
+rank when tp does not divide the kv heads), and every forward runs each
+rank's projections and kernels on its own slice, the partial sums reduced in
+rank order on rank 0, where the hidden stream, the logits, the sampler and
+every control row live. Page allocation, the radix tree and the page table
+stay host bookkeeping shared by the ranks. By default the ranks take the
+first ``tp`` CUDA cards; ``rank_devices`` places them explicitly and may
+repeat a device (``["cpu"] * tp`` off the card, ``["cuda:0"] * tp`` on one
+card). A pinned ``device`` refuses tp, as in JAX. Before anything is
+allocated, :func:`..parallel.feasibility.gate_engine_plan` plans the
+per-device bytes at the engine's real page count; with
+``hbm_bytes_per_device`` > 0 an over-budget plan raises
+:class:`..parallel.feasibility.InfeasiblePlanError`. :meth:`mesh_info` (and
+``stats()["mesh"]``) reports the degree, the devices, whether the kv heads
+shard, the per-device page bytes and the plan. When the ranks share one card
+the decode chunk is one CUDA graph holding all of them; ranks on several
+cards run it eagerly (capture across cards is unverified):
+``stats()["pipeline"]`` then shows ``decode_graphs`` False and counts
+``decode_eager_chunks``.
+
 ``prefill_coalesce`` where no phase-separated paged prefill runs is
-accepted and ignored (it only changes speed). Options that change what is
-computed or which path runs and are not ported raise
-``NotImplementedError`` naming the slice that brings them (see
-:func:`_reject_unported`).
+accepted and ignored (it only changes speed).
 
 Observability, at JAX's sites and with JAX's kinds and attributes: every
 lifecycle transition lands in the flight recorder under the request's id
@@ -152,7 +173,7 @@ import time
 import uuid
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Callable, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -169,6 +190,9 @@ from ..ops import paged_attention as pa
 from ..ops.rope import rope_frequencies
 from ..ops.sampling import (make_slot_generator, sample_token, sample_token_per_slot,
                             split_keys_per_slot)
+from ..parallel.feasibility import gate_engine_plan
+from ..parallel.mesh import RankMesh, cuda_rank_devices
+from ..parallel.sharding import shard_llama_params
 from .engine import (EngineConfig, SamplingParams, SchedulerSaturated, StepEvent,
                      TenantQuotaExceeded, TenantSaturated, build_decode_chunk_fn)
 from .paged import PrefixKVPool
@@ -181,13 +205,6 @@ logger = logging.getLogger("scheduler")
 
 _SEED_MASK = 0x7FFF_FFFF_FFFF_FFFF
 _ROUND_KINDS = ("mixed", "prefill", "decode")
-
-
-def _reject_unported(config: EngineConfig, cfg: ModelConfig) -> None:
-    """Options that change what is computed or which path runs, and are not
-    in this slice of the port."""
-    if config.tp > 1:
-        raise NotImplementedError("not ported yet: tp>1 (multi-GPU slice)")
 
 
 def _check_pd_role(config: EngineConfig) -> str:
@@ -483,17 +500,48 @@ class ContinuousBatchingEngine:
     """Runs a scheduler thread driving the device; submission is
     thread-safe. ``emit`` callbacks fire on the scheduler thread.
 
+    ``rank_devices`` (tp > 1 only): rank r's device, one a rank, repeats
+    allowed; None takes the first ``tp`` CUDA cards.
+
     ``_eager_decode`` (private, not an ``EngineConfig`` option): on CUDA,
     enqueue the paged decode chunk launch by launch instead of replaying its
     CUDA graph; a comparison run's switch, nothing a deployment sets."""
 
     def __init__(self, config: EngineConfig, params: Any = None, seed: int = 0,
-                 device: DeviceLike = None, *, _eager_decode: bool = False) -> None:
-        self.device = resolve_device(device)
+                 device: DeviceLike = None, *,
+                 rank_devices: Optional[Sequence[DeviceLike]] = None,
+                 _eager_decode: bool = False) -> None:
         self.config = config
         self.model_config = get_config(config.model)
-        _reject_unported(config, self.model_config)
         self.pd_role = _check_pd_role(config)
+        self.tp = max(1, int(config.tp))
+        if self.tp > 1 and device is not None:
+            raise ValueError("tp > 1 cannot combine with a pinned device (dp replica pools "
+                             "own one device per engine; shard OR replicate, not both)")
+        if rank_devices is not None and len(rank_devices) != self.tp:
+            raise ValueError(f"rank_devices names {len(rank_devices)} devices for tp={self.tp}")
+        #: the paged pool's pages (None: dense mode): every slot must be able
+        #: to hold a full-window chain; tree pages past that are evicted on
+        #: demand. The gate budgets this count and the pool allocates it.
+        self._num_pages: Optional[int] = None
+        if config.prefix_cache_pages > 0:
+            pmax = -(-config.max_seq_len // config.prefix_page_size)
+            self._num_pages = max(config.prefix_cache_pages, config.max_batch * pmax + 1)
+        self.feasibility: Optional[dict] = None
+        if self.tp > 1 or config.hbm_bytes_per_device > 0:
+            # the gate runs before anything is allocated: an over-budget plan
+            # raises here, typed, never as an out-of-memory error later
+            self.feasibility = gate_engine_plan(
+                self.model_config, self.tp, quantization=config.quantization,
+                dtype=getattr(torch, config.dtype), max_batch=config.max_batch,
+                max_seq_len=config.max_seq_len, page_size=config.prefix_page_size,
+                num_pages=self._num_pages, hbm_bytes=config.hbm_bytes_per_device or None,
+                device=(rank_devices[0] if rank_devices else device))
+            self.feasibility.pop("leaves", None)
+            self.feasibility.pop("read_plan", None)
+        self.mesh: Optional[RankMesh] = (
+            RankMesh(rank_devices or cuda_rank_devices(self.tp)) if self.tp > 1 else None)
+        self.device = self.mesh.devices[0] if self.mesh is not None else resolve_device(device)
         #: set by the PD pool on prefill-role engines: called on the scheduler
         #: thread with each stream's handoff record after its first token
         self._handoff_sink: Optional[Callable[[_Suspended], None]] = None
@@ -513,16 +561,29 @@ class ContinuousBatchingEngine:
         cfg = self.model_config
         self.dtype = getattr(torch, config.dtype)
         bits = quant_bits(config.quantization)
-        if params is None:
-            params = llama.init_params(cfg, seed, self.dtype, self.device, quant_bits=bits)
-        elif isinstance(params, Mapping):
-            params = model_from_state_dict(params, cfg, self.device, self.dtype)
-        elif not same_device(params.device, self.device):
-            raise ValueError(f"params live on {params.device}, engine on {self.device}")
-        if bits is not None and not is_quantized(params):
-            # a tree passed in unquantized is quantized, never served in bf16
-            params = quantize_llama_params(params, bits)
+        if isinstance(params, llama.ShardedLlama):
+            # a tp engine's own weights, passed on to its rebuild
+            if params.tp != self.tp or [str(d) for d in params.mesh.devices] != \
+                    [str(d) for d in self.mesh.devices]:
+                raise ValueError(f"params are cut for {params.mesh}, the engine runs "
+                                 f"{self.mesh}")
+        else:
+            if params is None:
+                params = llama.init_params(cfg, seed, self.dtype, self.device, quant_bits=bits)
+            elif isinstance(params, Mapping):
+                params = model_from_state_dict(params, cfg, self.device, self.dtype)
+            elif not same_device(params.device, self.device) and self.mesh is None:
+                raise ValueError(f"params live on {params.device}, engine on {self.device}")
+            if bits is not None and not is_quantized(params):
+                # a tree passed in unquantized is quantized, never served in bf16
+                params = quantize_llama_params(params, bits)
+            if self.mesh is not None:
+                # each rank's slices are copies of their own; the tree passed
+                # in (or drawn here) is left to its owner (or dropped)
+                params = shard_llama_params(params, self.mesh)
         self.params = params
+        #: the heads, intermediate and vocab slice one rank runs
+        self.rank_config = params.rank_cfg if self.mesh is not None else cfg
         self.seed = seed
         self.rope_tables = rope_frequencies(
             cfg.head_dim, max(cfg.max_position, config.max_seq_len),
@@ -533,25 +594,22 @@ class ContinuousBatchingEngine:
         self.mixed = self.paged and config.mixed_batch
         self.use_flash = config.resolve_use_flash(self.device)
         if self.device.type == "cuda":  # a model the kernels cannot take fails here
+            rc = self.rank_config  # each rank's kernels see its own heads
             if self.use_flash:
-                fa.check_kernel_supports(cfg.head_dim, cfg.num_heads, cfg.num_kv_heads,
+                fa.check_kernel_supports(rc.head_dim, rc.num_heads, rc.num_kv_heads,
                                          self.dtype)
             if self.paged:
-                pa.check_kernel_supports(cfg.head_dim, cfg.num_heads, cfg.num_kv_heads,
+                pa.check_kernel_supports(rc.head_dim, rc.num_heads, rc.num_kv_heads,
                                          self.dtype, config.prefix_page_size)
         page = config.prefix_page_size
         self.pmax = -(-config.max_seq_len // page)
         self.pool: Optional[PrefixKVPool] = None
         self.cache: Optional[llama.KVCache] = None
         if self.paged:
-            # every slot must be able to hold a full-window chain; tree pages
-            # past that are evicted on demand
-            num_pages = max(config.prefix_cache_pages, n * self.pmax + 1)
-            self.pool = PrefixKVPool(cfg, num_pages=num_pages, page_size=page,
-                                     dtype=self.dtype, device=self.device)
+            self.pool = PrefixKVPool(cfg, num_pages=self._num_pages, page_size=page,
+                                     dtype=self.dtype, device=self.device, mesh=self.mesh)
         else:
-            self.cache = llama.init_cache(cfg, n, config.max_seq_len, self.dtype,
-                                          device=self.device)
+            self.cache = llama.init_model_cache(self.params, cfg, n, config.max_seq_len)
             # dense mode: ONE sampling stream shared by the batch
             self._generator = make_slot_generator(seed, self.device)
             self._dense_decode_fn = build_decode_chunk_fn(
@@ -611,6 +669,10 @@ class ContinuousBatchingEngine:
         self._pinned: dict[tuple, list[torch.Tensor]] = {}
         self._chunk: Optional[PagedDecodeChunk] = None
         self._step = None
+        #: decode chunks as CUDA graphs: on the card, unless the comparison
+        #: switch is set or the ranks span several cards
+        self._graphs = (dev.type == "cuda" and not _eager_decode
+                        and (self.mesh is None or self.mesh.shared))
         if self.paged:
             if dev.type == "cuda":
                 self._pinned = {
@@ -625,17 +687,16 @@ class ContinuousBatchingEngine:
                     "limit": self._limit_dev, "temperature": self._temp_dev,
                     "top_p": self._top_p_dev, "top_k": self._top_k_dev}
             self._chunk = PagedDecodeChunk(
-                self.params, cfg, (self.pool.k_pool, self.pool.v_pool), rows,
-                self.rope_tables, n, self._k_steps, config.max_seq_len,
-                graphs=dev.type == "cuda" and not _eager_decode)
+                self.params, cfg, self.pool.pools, rows,
+                self.rope_tables, n, self._k_steps, config.max_seq_len, graphs=self._graphs)
             #: a speculative round's first pass: one decode step over every
             #: slot, the same program as a chunk's step (its termination
             #: outputs unused), so a row that does not speculate gets a
             #: decode step's bits (see :meth:`_dispatch_verify`)
             self._step: Optional[PagedDecodeChunk] = PagedDecodeChunk(
-                self.params, cfg, (self.pool.k_pool, self.pool.v_pool), rows,
+                self.params, cfg, self.pool.pools, rows,
                 self.rope_tables, n, 1, config.max_seq_len,
-                graphs=dev.type == "cuda" and not _eager_decode) if self.spec_k else None
+                graphs=self._graphs) if self.spec_k else None
         #: bumped by every change the in-flight ring cannot have seen
         self._epoch = 0
 
@@ -1249,9 +1310,34 @@ class ContinuousBatchingEngine:
                 "flash_self_attention": fa.flash_self_attention.launches,
             },
             "speculative": self._spec_snapshot(),
+            "mesh": self.mesh_info(),
             "device": str(self.device),
             "broken": self._broken,
         }
+
+    def mesh_info(self) -> dict[str, Any]:
+        """The serving-mesh block (JAX ``mesh_info``; ``stats()["mesh"]``,
+        ``/v1/monitoring/replicas``, the ``llm_mesh_*`` gauges): tp degree,
+        rank devices (ranks sharing a card each count), whether the kv heads
+        shard, the page-pool bytes a device holds and the feasibility plan.
+        Attribute reads only."""
+        devices = self.mesh.devices if self.mesh is not None else (self.device,)
+        kv_sharded = self.mesh is not None and self.params.kv_sharded
+        info: dict[str, Any] = {
+            "tp": self.tp,
+            "devices": len(devices),
+            "distinct_devices": len({str(d) for d in devices}),
+            "rank_devices": [str(d) for d in devices],
+            "topology": f"{self.device.type}:{self.tp}",
+            "kv_heads_sharded": kv_sharded,
+        }
+        if self.pool is not None:
+            info["sharded_page_bytes_per_device"] = self.pool.rank_bytes()[0]
+        if self.feasibility is not None:
+            info["plan"] = {k: self.feasibility.get(k) for k in (
+                "param_bytes_per_device", "param_bytes_per_rank", "kv_bytes_per_device",
+                "total_bytes_per_device", "hbm_bytes", "hbm_utilization", "fits", "enforced", "quantization")}
+        return info
 
     def _spec_snapshot(self) -> dict[str, Any]:
         """``stats()["speculative"]``: the counts, the accept rate and the
@@ -1668,7 +1754,7 @@ class ContinuousBatchingEngine:
         suffix = state.prompt_ids[cached_len:]
         ids = np.zeros((1, suf_bucket), np.int32)
         ids[0, :len(suffix)] = suffix
-        cache = llama.init_cache(self.model_config, 1, bucket, self.dtype, device=dev)
+        cache = llama.init_model_cache(self.params, self.model_config, 1, bucket)
         cache = self.pool.gather_for_prefill(cached_pages, bucket, cache)
         logits, kv = suffix_prefill(self.params, self.model_config, to_device(ids, dev),
                                     to_device(np.asarray([len(suffix)], np.int32), dev),
@@ -1693,7 +1779,7 @@ class ContinuousBatchingEngine:
         slots = []
         for i, st in enumerate(states):
             slot = self._free_slots.popleft()
-            row = (kv[0][:, i:i + 1], kv[1][:, i:i + 1])
+            row = llama.kv_row(kv, i)
             if self.paged:
                 st.chain = self.pool.admit_slot(st.prompt_ids, cached[i], row)
             else:
@@ -2331,7 +2417,7 @@ class ContinuousBatchingEngine:
         run = active & ~fin
         spec = (lens_d > 0) & run
         hidden, _ = llama.forward_paged_mixed(
-            self.params, self.model_config, drafts_d, (self.pool.k_pool, self.pool.v_pool),
+            self.params, self.model_config, drafts_d, self.pool.pools,
             self._page_table_dev, lengths + 1, torch.where(spec, lens_d, 0), self.rope_tables,
             write_mask=spec, moe_tokens=int(spec_lens.sum()))
         outs = torch.cat([step[:, :1], self._greedy_span(hidden, W - 1)], dim=1)
@@ -2389,7 +2475,7 @@ class ContinuousBatchingEngine:
         hist_d = torch.where(active, lengths, hist_d)
         hidden, _ = llama.forward_paged_mixed(
             self.params, self.model_config, q_ids_d,
-            (self.pool.k_pool, self.pool.v_pool), self._page_table_dev,
+            self.pool.pools, self._page_table_dev,
             hist_d, q_lens_d, self.rope_tables, write_mask=run | ~active,
             moe_tokens=int(q_lens.sum()))
         logits = llama.lm_head_logits(self.params, self.model_config,

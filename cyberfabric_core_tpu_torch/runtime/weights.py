@@ -161,6 +161,26 @@ class SafetensorsIndex:
         return torch.frombuffer(buf, dtype=dtype).reshape(shape)
 
 
+    def slice_array(self, name: str, axis: int, lo: int, hi: int) -> np.ndarray:
+        """Rows (``axis`` 0) or columns (``axis`` 1, a 2-D tensor) ``lo ..
+        hi-1`` of one tensor, read through a memory map, so only the pages
+        holding the slice leave the disk. BF16 comes back as its raw
+        ``uint16`` bits (numpy has no bfloat16)."""
+        f = self.name_to_file.get(name)
+        if f is None:
+            raise KeyError(f"tensor {name!r} not found in {self.model_dir}")
+        header, base = self._header(f)
+        meta = header[name]
+        np_dtype = {"F32": np.float32, "F16": np.float16, "BF16": np.uint16}.get(meta["dtype"])
+        if np_dtype is None:
+            raise ValueError(f"tensor {name!r} has dtype {meta['dtype']}")
+        shape = tuple(meta["shape"])
+        arr = np.memmap(f, dtype=np_dtype, mode="r", offset=base + meta["data_offsets"][0],
+                        shape=shape)
+        index = (slice(lo, hi),) if axis == 0 else (slice(None), slice(lo, hi))
+        return np.array(arr[index])
+
+
 def write_safetensors(tensors: Mapping[str, torch.Tensor], path: PathLike) -> Path:
     """Write ``tensors`` (CPU, F32 / F16 / BF16) as one safetensors file."""
     header, offset, blobs = {}, 0, []
@@ -402,3 +422,8 @@ def bert_params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig) -> dict[str,
         for i in range(cfg.num_layers):
             out[f"layers.{i}.{name}"] = torch.from_numpy(np.array(stacked[i], copy=True))
     return out
+
+
+def checkpoint_size_bytes(model_dir: PathLike) -> int:
+    """Bytes of every safetensors file of a checkpoint directory."""
+    return sum(f.stat().st_size for f in Path(model_dir).glob("*.safetensors"))

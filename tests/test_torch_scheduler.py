@@ -278,13 +278,24 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
                                       dict(quantization="int4"), dict(tp=2),
                                       dict(pd_role="prefill")])
 def test_path_changing_options_name_their_later_slice(override):
-    """tp > 1 still raises, naming its later slice. Quantization and the PD
-    roles are served since ROADMAP items 5 and 6: the engine draws its
-    weights at the config's bit width, and a prefill-role engine hands each
-    stream to its sink after the first token (here the sink keeps it)."""
+    """Every one of these options is served now. Quantization and the PD
+    roles since ROADMAP items 5 and 6: the engine draws its weights at the
+    config's bit width, and a prefill-role engine hands each stream to its
+    sink after the first token (here the sink keeps it). tp > 1 since item
+    9: a pinned device refuses it, as in JAX, and on two CPU ranks its
+    tokens are the tp=1 engine's."""
     if "tp" in override:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(ValueError, match="pinned device"):
             ContinuousBatchingEngine(_config(**override), device="cpu")
+        request = (list(range(5, 17)), SamplingParams(max_tokens=6))
+        runs = []
+        for engine in (ContinuousBatchingEngine(_config(**override), rank_devices=["cpu"] * 2),
+                       ContinuousBatchingEngine(_config(), device="cpu")):
+            try:
+                runs.append(_run(engine, [request]))
+            finally:
+                engine.shutdown()
+        assert runs[0] == runs[1] and len(runs[0][0][0]) == 6
         return
     from cyberfabric_core_tpu_torch.runtime.quant import QuantWeight
 

@@ -71,13 +71,13 @@ SERVED_SETS = {
                    "spec_max_ngram": "4", "spec_min_ngram": "2"},
 }
 #: (option set, worker config, the ROADMAP item the problem names). The PD
-#: split, the dp pool, quantization, the lockstep scheduler and
-#: ``speculative`` were not ported until ROADMAP items 5, 6 and 7 landed:
-#: their rows name no item (None), and their cases check the entry the
-#: worker now builds and one completion it serves
+#: split, the dp pool, quantization, the lockstep scheduler, ``speculative``,
+#: tp and the feasibility gate were not ported until ROADMAP items 5, 6, 7
+#: and 9 landed: their rows name no item (None), and their cases check the
+#: entry the worker now builds and one completion it serves
 UNPORTED_SETS = {
-    "tp": ({**QUICKSTART_OPTS, "tp": 8, "hbm_bytes_per_device": 0}, {}, "item 9"),
-    "feasibility": ({**QUICKSTART_OPTS, "hbm_bytes_per_device": 1 << 34}, {}, "item 9"),
+    "tp": ({**QUICKSTART_OPTS, "tp": 8, "hbm_bytes_per_device": 0}, {}, None),
+    "feasibility": ({**QUICKSTART_OPTS, "hbm_bytes_per_device": 1 << 34}, {}, None),
     "pd": ({**QUICKSTART_OPTS, "pd_prefill_replicas": 1, "pd_decode_replicas": 1}, {},
            None),
     "dp": ({**QUICKSTART_OPTS, "dp_replicas": 2}, {}, None),
@@ -127,8 +127,9 @@ def test_unported_options_raise_a_problem_naming_their_item(name):
 def _check_served_entry(name, info, worker_cfg):
     """The worker builds the entry (a PD pool of 1 + 1 CPU replicas, a dp
     pool of 2 sharing one params tree, an int8 engine, a lockstep engine
-    behind its batcher, a continuous engine that ignores ``speculative``)
-    and serves one greedy completion through it."""
+    behind its batcher, a continuous engine that ignores ``speculative``, a
+    tp=8 engine on eight CPU ranks, an engine whose gate is armed) and
+    serves one greedy completion through it."""
     import asyncio
 
     from cyberfabric_core_tpu_torch.runtime.engine import InferenceEngine
@@ -155,6 +156,14 @@ def _check_served_entry(name, info, worker_cfg):
         elif name.startswith("draft"):
             assert entry.engine is None and entry.scheduler.spec_k == (
                 4 if name == "draft-beside-spec" else 0)
+        elif name == "tp":  # eight CPU ranks; tiny-llama's 2 kv heads replicate
+            mesh = entry.scheduler.mesh_info()
+            assert mesh["tp"] == mesh["devices"] == 8 and not mesh["kv_heads_sharded"]
+            assert mesh["plan"]["enforced"] is False
+        elif name == "feasibility":  # the gate armed at 16 GiB, tp=1
+            plan = entry.scheduler.mesh_info()["plan"]
+            assert plan["enforced"] is True and plan["fits"] is True
+            assert plan["hbm_bytes"] == 1 << 34
         else:
             assert entry.pool is None
             wq = entry.scheduler.params.layers[0].wq
