@@ -151,7 +151,35 @@ fatal on failure:
    ``scheduler.readback`` armed over REST as a delay, ``/readyz`` 503
    naming ``slo:itl_p99`` and a new chat 429 ``llm.load_shed`` with
    ``Retry-After`` while a stream is in flight, disarmed: every stream
-   through the oracle, ``/readyz`` 200, a chat served;
+   through the oracle, ``/readyz`` 200, a chat served; (k) federation, after
+   the earlier phases freed their engines: a gateway in this process with
+   ``grpc_hub``, ``llm_gateway`` (federation on, no engine) and
+   ``monitoring``, serving two worker host processes (``python -m
+   cyberfabric_core_tpu_torch.modules.llm_gateway.worker``, ``fedhost-0`` and
+   ``fedhost-1``) on ``cuda:0``, each llama-3-8b (random bf16 weights from
+   seed 0) at the quickstart worker's options, which load the kernels built
+   in phase 2: both announce and ``/v1/monitoring/workers`` lists them, one
+   greedy prompt gives the same ids on each host (the same weights); the
+   federated storm (the http storm's 8 SSE completions from 3 threads with its
+   SSE and usage gates, each stream's token ids, kept at the gateway's pool,
+   through the oracle; ttft, inter-token latency and tokens/s at the socket
+   beside the one-host http storm's, and each host's rounds); by each host's
+   Health RPC, read before and after the storm: its engine on ``cuda``, the
+   ragged and decode kernels launched in the host process and flash not,
+   mixed rounds and decode graph replays, no eager chunk; one storm
+   request's timeline stitched from the gateway and its host;
+   ``/v1/monitoring/fleet`` and the hosts' ``llm_*`` series in ``/metrics``
+   labelled ``host``; a 1024-token head then 7 requests behind it, all placed
+   by ``prefix`` on the head's host, 7 radix hits; SIGKILL of the host serving
+   a 256-token greedy stream after 4 deltas: one terminal,
+   ``llm_federated_failovers_total`` +1, the continuation through the oracle,
+   I1 on the survivor, where the stream parts from the undisturbed one (and
+   the dense forward's row there); the storm again on the survivor alone
+   (the gRPC hop without a second process on the card; the same host
+   gates); then two hosts of a
+   4-layer cut at llama-3-8b widths in f32, TF32 off (``--fed-f32-host``):
+   the same kill, and the continued stream equal to the undisturbed one token
+   for token;
    At llama-3-8b width also: (v) quant-8b, the storm on int8 and
    on int4 engines (random weights quantized as drawn on the card) with
    the storm's gates, the oracle over the same quantized tree, the trees'
@@ -213,16 +241,19 @@ fatal on failure:
    bits, mean |Δlogit| against transformers' under 0.02 / 0.12, W8 below
    W4, and the outlier fixture's CE moved less than 0.01 / 0.05 nats;
 7. a ``{"kernels": [...]}`` line (the paged kernels' launches from the HTTP
-   storm and the speculative storm at k=4, each read just after its run;
+   storm, the speculative storm at k=4 and the federated storm, each read
+   just after its run, the federated storm's in its hosts over Health;
    flash's from the phase-separated run and the lockstep storm), then
    ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --tp`` runs the mixed storm at tp=1 and phase (ix)
-alone, and prints no result line.
+alone, and prints no result line; ``--federation`` runs the one-host HTTP
+storm (with its gates) and phase 5(k) alone, and prints no result line either.
 """
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import dataclasses
 import gc
@@ -254,6 +285,9 @@ from cyberfabric_core_tpu_torch.ops import _build
 from cyberfabric_core_tpu_torch.ops import flash_attention as fa
 from cyberfabric_core_tpu_torch.ops import paged_attention as pa
 from cyberfabric_core_tpu_torch.ops import sampling
+from cyberfabric_core_tpu_torch.modules.llm_gateway import worker as worker_module
+from cyberfabric_core_tpu_torch.modules.llm_gateway.grpc_service import (GrpcLlmWorkerClient,
+                                                                       model_ref_dict)
 from cyberfabric_core_tpu_torch.modules.llm_gateway.worker import plan_engine
 from cyberfabric_core_tpu_torch.modules.sdk import ModelInfo
 from cyberfabric_core_tpu_torch.ops.rope import rope_frequencies
@@ -262,6 +296,7 @@ from cyberfabric_core_tpu_torch.parallel.feasibility import (H100_HBM_BYTES,
                                                              InfeasiblePlanError,
                                                              card_hbm_bytes, gate_engine_plan)
 from cyberfabric_core_tpu_torch.parallel.sharding import rank_bytes
+from cyberfabric_core_tpu_torch.runtime.federation import digest_chain, match_depth
 from cyberfabric_core_tpu_torch.runtime.engine import (EngineConfig, InferenceEngine,
                                                        SamplingParams, build_decode_chunk_fn)
 from cyberfabric_core_tpu_torch.runtime.lifecycle import LifecycleConfig
@@ -1127,6 +1162,8 @@ def serving_phase(card: str, label: str, engine, ecfg, requests,
 
 #: label → the latency numbers of a serving run (read by the HTTP phase)
 STORM_NUMBERS: dict[str, dict] = {}
+#: each HTTP storm's rounds by kind (:func:`round_split`), by label
+STORM_SPLITS: dict[str, dict] = {}
 #: the speculative storm's kernel launches (k=4), for the kernels line
 SPEC_LAUNCHES: dict[str, int] = {}
 
@@ -3621,71 +3658,114 @@ def open_stream(port: int, body: dict, headers: dict | None = None) -> socket.so
     return sock
 
 
+def storm_prompts(seed: int = 5, lens: tuple[int, ...] = HTTP_STORM_LENS) -> list[str]:
+    """One prompt of each length in ``lens`` tokens (bos + n - 1 letters),
+    drawn from ``seed``: by default the http storm's."""
+    rng = np.random.default_rng(seed)
+    return [letters(rng, n - 1) for n in lens]
+
+
+def request_ids(tag: str, n: int) -> list[dict]:
+    """``X-Request-Id: {tag}-{i}`` for request ``i`` of a storm."""
+    return [{"X-Request-Id": f"{tag}-{i}"} for i in range(n)]
+
+
+def socket_storm(port: int, model: str, prompts: list[str],
+                 headers_each: list[dict] | None = None,
+                 max_tokens: int = 32) -> tuple[list[dict], float]:
+    """The prompts as SSE completions from 3 client threads, all in flight
+    at once (thread ``k`` sends prompts k, k + 3, ... through
+    :func:`sse_streams`), request ``i`` with the headers ``headers_each[i]``.
+    Returns each stream's record in prompt order and the wall time."""
+    recs: list = [None] * len(prompts)
+
+    def client(idx):
+        got = sse_streams(port, [{"model": model, "prompt": prompts[i],
+                                  "max_tokens": max_tokens} for i in idx],
+                          headers_each=[headers_each[i] for i in idx] if headers_each else None)
+        for i, rec in zip(idx, got):
+            recs[i] = rec
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(range(k, len(prompts), 3),))
+               for k in range(3)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    return recs, time.perf_counter() - t0
+
+
+def socket_numbers(recs: list[dict], served: int, wall: float) -> dict:
+    """:func:`latency_numbers` of SSE records, each data frame stamped on arrival."""
+    return latency_numbers([r["t0"] for r in recs],
+                           [[t for t, _, d in r["frames"] if d != "[DONE]"] for r in recs],
+                           served, wall)
+
+
+def storm_gates(label: str, recs: list[dict], wall: float, prompts: list[str],
+                ids: list[list[int]], tok, reference,
+                max_tokens: int = 32) -> tuple[list[list[dict]], dict]:
+    """The gates every SSE storm holds: each stream's SSE contract
+    (:func:`sse_chunks`); its usage: the input tokens its prompt's, the
+    output tokens its token ids ``ids[i]`` (the serving engine's record or
+    the federated pool's ledger: the values its text cannot show), fewer
+    than ``max_tokens`` only at a stop; its text the decode of those ids;
+    every id through :func:`oracle` against ``reference`` (the serving
+    engine or a :class:`DenseOracle`). Returns the chunks and the numbers at
+    the socket, kept under ``label`` in ``STORM_NUMBERS``."""
+    chunks = [sse_chunks(f"{label} {i}", rec) for i, rec in enumerate(recs)]
+    requests = [(tok.encode(p), SamplingParams(max_tokens=max_tokens)) for p in prompts]
+    for i, (c, got, (prompt, _)) in enumerate(zip(chunks, ids, requests)):
+        u = c[-1]["usage"]
+        if u["input_tokens"] != len(prompt) or u["output_tokens"] != len(got) or (
+                u["output_tokens"] != max_tokens and c[-1]["finish_reason"] != "stop"):
+            raise AssertionError(f"[{label}] request {i}: usage {u} against {len(prompt)} "
+                                 f"prompt tokens and {len(got)} token ids, finish "
+                                 f"{c[-1]['finish_reason']}")
+        if streamed_text(c) != tok.decode(got):
+            raise AssertionError(f"[{label}] request {i}: the streamed text is not the "
+                                 f"decode of its {len(got)} token ids")
+    # the oracle's power is printed, not required: the letters of these
+    # prompts leave narrower top-1/top-2 gaps (p50 ~0.10 at llama-3-8b) than
+    # the bare storms' random ids, which require it on the same weights
+    oracle(label, reference, [{"toks": t} for t in ids], requests, None)
+    numbers = socket_numbers(recs, sum(len(t) for t in ids), wall)
+    STORM_NUMBERS[label] = numbers
+    return chunks, numbers
+
+
 def http_storm(card: str, port: int, engine, bare, recorded: list[dict],
                label: str = "http storm", lens: tuple[int, ...] = HTTP_STORM_LENS,
                max_tokens: int = 32, seed: int = 5) -> dict[str, int]:
     """8 SSE completions from 3 client threads, all in flight at once as in
     the bare storm, prompts of ``lens`` tokens (by default 16..1500, as the
     bare storm's), ``max_tokens`` each, with every kernel count set to 0
-    just before and read just after; each request's token ids
-    (``recorded``, see :func:`record_tokens`) held to the dense forward by
-    :func:`oracle` and to its stream's usage and text; then the same
-    prompts' token ids submitted to ``bare`` (a fresh engine with the same
-    weights and config) from 3 threads, for the engine's side of the same
-    work."""
-    rng = np.random.default_rng(seed)
-    prompts = [letters(rng, n - 1) for n in lens]  # bos + n - 1 bytes
-    recs: list = [None] * len(prompts)
-
-    def client(idx):
-        got = sse_streams(port, [{"model": HTTP_MODEL, "prompt": prompts[i],
-                                  "max_tokens": max_tokens} for i in idx])
-        for i, rec in zip(idx, got):
-            recs[i] = rec
-
+    just before and read just after; :func:`storm_gates` on each request's
+    token ids (``recorded``, see :func:`record_tokens`), the ids the engine
+    emitted over the storm, the paged kernels and graph replays, I1 and the
+    sync gate; then, unless ``bare`` is None, the same prompts' token ids
+    submitted to ``bare`` (a fresh engine with the same weights and config)
+    from 3 threads, for the engine's side of the same work."""
+    prompts = storm_prompts(seed, lens)
     tokens0 = engine.tokens_emitted
     pipe0 = engine.stats()["pipeline"]
     for _, _, wrapper in KERNELS.values():
         wrapper.launches = 0
-    t0 = time.perf_counter()
     with watch_syncs() as flagged:
-        threads = [threading.Thread(target=client, args=(range(t, len(prompts), 3),))
-                   for t in range(3)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(600)
-    wall = time.perf_counter() - t0
+        recs, wall = socket_storm(port, HTTP_MODEL, prompts,
+                                  request_ids(label.replace(" ", "-"), len(prompts)),
+                                  max_tokens)
     launches = {name: wrapper.launches for name, (_, _, wrapper) in KERNELS.items()}
     wait_idle(engine)
     stats = engine.stats()
-    # the engine's side of the same work: the prompts' ids on a fresh engine
     tok = ByteTokenizer(engine.model_config.vocab_size)
-    requests = [(tok.encode(p), SamplingParams(max_tokens=max_tokens)) for p in prompts]
-    t1 = time.perf_counter()
-    bare_recs = serve(bare, requests)
-    bare_numbers = latency_numbers([r["t0"] for r in bare_recs], [r["ts"] for r in bare_recs],
-                                   sum(len(r["toks"]) for r in bare_recs),
-                                   time.perf_counter() - t1)
-    chunks = [sse_chunks(f"{label} {i}", rec) for i, rec in enumerate(recs)]
-    usage = [c[-1]["usage"] for c in chunks]
-    served = sum(u["output_tokens"] for u in usage)
+    ids = [recorded_for(label, recorded, tok.encode(p)) for p in prompts]
+    chunks, numbers = storm_gates(label, recs, wall, prompts, ids, tok, engine, max_tokens)
+    served = numbers["tokens"]
     if served != engine.tokens_emitted - tokens0:
         raise AssertionError(f"[{label}] usage counts {served} output tokens, the engine "
                              f"emitted {engine.tokens_emitted - tokens0}")
-    ids = [recorded_for(label, recorded, prompt) for prompt, _ in requests]
-    for i, (u, c) in enumerate(zip(usage, chunks)):
-        if u["input_tokens"] != lens[i] or (
-                u["output_tokens"] != max_tokens and c[-1]["finish_reason"] != "stop"):
-            raise AssertionError(f"[{label}] request {i}: usage {u}, "
-                                 f"finish {c[-1]['finish_reason']}")
-        if u["output_tokens"] != len(ids[i]) or streamed_text(c) != tok.decode(ids[i]):
-            raise AssertionError(f"[{label}] request {i}: usage {u} and the streamed "
-                                 f"text against the engine's {len(ids[i])} token ids")
-    # the oracle's power is printed, not required: the letters of these
-    # prompts leave narrower top-1/top-2 gaps (p50 ~0.10 at llama-3-8b) than
-    # the bare storms' random ids, which require it on the same weights
-    oracle(label, engine, [{"toks": t} for t in ids], requests, None)
     if launches["ragged_paged_attention"] <= 0 or launches["paged_decode_attention"] <= 0 \
             or launches["flash_self_attention"]:
         raise AssertionError(f"[{label}] launches {launches}: expected ragged and decode, "
@@ -3701,10 +3781,7 @@ def http_storm(card: str, port: int, engine, bare, recorded: list[dict],
         # executor thread: its rounds must still wait only at their drains
         raise AssertionError(f"[{label}] a round waited on the device outside its "
                              f"drain: {sorted(set(flagged))}")
-    numbers = latency_numbers([r["t0"] for r in recs],
-                              [[t for t, _, d in r["frames"] if d != "[DONE]"] for r in recs],
-                              served, wall)
-    STORM_NUMBERS[label] = numbers
+    STORM_SPLITS[label] = round_split(pipe0, stats["pipeline"])
     log(f"serving [{label}]: 8 SSE streams, SSE contract held, finish "
         f"{[c[-1]['finish_reason'] for c in chunks]}, usage = engine tokens ({served}), "
         "each stream's text = decode of its engine token ids (oracle above), "
@@ -3712,8 +3789,18 @@ def http_storm(card: str, port: int, engine, bare, recorded: list[dict],
         "flagged, pages conserved")
     log(f"info [{card}] serving [{label}] (client side, at the socket): "
         f"{format_latency(numbers)}")
-    log(f"info [{card}] serving [{label} prompts, bare engine] (the same prompts' ids "
-        f"submitted to a fresh engine, same weights and config): {format_latency(bare_numbers)}")
+    if bare is not None:
+        # the engine's side of the same work: the prompts' ids on a fresh engine
+        requests = [(tok.encode(p), SamplingParams(max_tokens=max_tokens)) for p in prompts]
+        t1 = time.perf_counter()
+        bare_recs = serve(bare, requests)
+        bare_numbers = latency_numbers([r["t0"] for r in bare_recs],
+                                       [r["ts"] for r in bare_recs],
+                                       sum(len(r["toks"]) for r in bare_recs),
+                                       time.perf_counter() - t1)
+        log(f"info [{card}] serving [{label} prompts, bare engine] (the same prompts' ids "
+            f"submitted to a fresh engine, same weights and config): "
+            f"{format_latency(bare_numbers)}")
     return launches
 
 
@@ -4073,36 +4160,11 @@ def observability_config(home: Path, otlp_endpoint: str) -> dict:
 def traced_prompts(seed: int, tag: str) -> tuple[list[str], list[str], list[dict]]:
     """The http storm's prompt lengths drawn from ``seed``, each with its own
     ``x-request-id`` and sampled ``traceparent`` (and the trace ids)."""
-    rng = np.random.default_rng(seed)
-    prompts = [letters(rng, n - 1) for n in HTTP_STORM_LENS]
+    prompts = storm_prompts(seed)
     traces = [os.urandom(16).hex() for _ in prompts]
     headers = [{"x-request-id": f"{tag}-{i}", "traceparent": f"00-{t}-{os.urandom(8).hex()}-01"}
                for i, t in enumerate(traces)]
     return prompts, traces, headers
-
-
-def storm_from_threads(port: int, prompts: list[str], headers: list[dict],
-                       max_tokens: int = 32) -> tuple[list[dict], float]:
-    """SSE completions of ``prompts`` from 3 client threads, all in flight at
-    once (as the http storm sends them); the records in prompt order and the
-    wall time."""
-    recs: list = [None] * len(prompts)
-
-    def client(idx):
-        got = sse_streams(port, [{"model": HTTP_MODEL, "prompt": prompts[i],
-                                  "max_tokens": max_tokens} for i in idx],
-                          headers_each=[headers[i] for i in idx])
-        for i, rec in zip(idx, got):
-            recs[i] = rec
-
-    t0 = time.perf_counter()
-    threads = [threading.Thread(target=client, args=(range(t, len(prompts), 3),))
-               for t in range(3)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(600)
-    return recs, time.perf_counter() - t0
 
 
 TIMELINE = re.compile(r"^enqueued admitted( prefill_chunk)+ prefill( decode_chunk)+ finished$")
@@ -4136,7 +4198,7 @@ def observability_storm(smi: str, port: int, srv, engine, collector: OtlpCollect
     scraper = Scraper(port)
     with watch_syncs() as flagged:
         scraper.start()
-        recs, wall = storm_from_threads(port, prompts, headers)
+        recs, wall = socket_storm(port, HTTP_MODEL, prompts, headers)
         wait_idle(engine)
         scraper.halt.set()
         scraper.join(30)
@@ -4145,20 +4207,12 @@ def observability_storm(smi: str, port: int, srv, engine, collector: OtlpCollect
     if scraper.failures or not scraper.count:
         raise AssertionError(f"[{label}] /metrics scrapes: {scraper.count} answered, failures "
                              f"{scraper.failures[:5]}")
-    chunks = [sse_chunks(f"{label} {i}", rec) for i, rec in enumerate(recs)]
-    usage = [c[-1]["usage"] for c in chunks]
-    served = sum(u["output_tokens"] for u in usage)
-    if served != engine.tokens_emitted - tokens0:
-        raise AssertionError(f"[{label}] usage counts {served} output tokens, the engine "
-                             f"emitted {engine.tokens_emitted - tokens0}")
     tok = ByteTokenizer(engine.model_config.vocab_size)
-    requests = [(tok.encode(p), SamplingParams(max_tokens=32)) for p in prompts]
-    ids = [recorded_for(label, recorded, prompt) for prompt, _ in requests]
-    for i, (u, c) in enumerate(zip(usage, chunks)):
-        if u["output_tokens"] != len(ids[i]) or streamed_text(c) != tok.decode(ids[i]):
-            raise AssertionError(f"[{label}] request {i}: usage {u} and the streamed text "
-                                 f"against the engine's {len(ids[i])} token ids")
-    oracle(label, engine, [{"toks": t} for t in ids], requests, None)
+    ids = [recorded_for(label, recorded, tok.encode(p)) for p in prompts]
+    _, numbers = storm_gates(label, recs, wall, prompts, ids, tok, engine)
+    if numbers["tokens"] != engine.tokens_emitted - tokens0:
+        raise AssertionError(f"[{label}] usage counts {numbers['tokens']} output tokens, the "
+                             f"engine emitted {engine.tokens_emitted - tokens0}")
     if launches["ragged_paged_attention"] <= 0 or launches["paged_decode_attention"] <= 0 \
             or launches["flash_self_attention"]:
         raise AssertionError(f"[{label}] launches {launches}: expected ragged and decode, "
@@ -4215,10 +4269,6 @@ def observability_storm(smi: str, port: int, srv, engine, collector: OtlpCollect
         raise AssertionError(f"[{label}] gauges: tpu_devices {gauges['tpu_devices']}, "
                              f"tpu_hbm_bytes_in_use {in_use} (params {params_bytes}, card "
                              f"{total}), utilization {util}, ttft counted {counted}")
-    numbers = latency_numbers([r["t0"] for r in recs],
-                              [[t for t, _, d in r["frames"] if d != "[DONE]"] for r in recs],
-                              served, wall)
-    STORM_NUMBERS[label] = numbers
     log(f"serving [{label}]: 8 SSE streams traced (sample_ratio 1.0, OTLP to a loopback "
         f"collector) with /metrics scraped {scraper.count} times every 100 ms: every timeline "
         f"enqueued → admitted → prefill_chunk+ → prefill → decode_chunk+ → finished, chunk "
@@ -4339,11 +4389,11 @@ SHED_DOCTOR = {"eval_interval_s": 0.1, "fast_window_s": 3.0, "slow_window_s": 5.
                "objectives": {"itl_p99": {"threshold_ms": 20.0}}}
 
 
-def wait_for(cond, timeout: float, what: str) -> None:
+def wait_for(cond, timeout: float, what: str, label: str = "shedding") -> None:
     end = time.monotonic() + timeout
     while not cond():
         if time.monotonic() > end:
-            raise AssertionError(f"[shedding] timed out waiting for {what}")
+            raise AssertionError(f"[{label}] timed out waiting for {what}")
         time.sleep(0.05)
 
 
@@ -4498,45 +4548,17 @@ def http_lockstep_phase(card: str) -> int:
         log(f"serving [{label}]: {HTTP_MODEL} lockstep engine built by the worker on first "
             f"request and served in {time.perf_counter() - t:.1f} s")
         recorded = record_lockstep_ids(engine)
-        rng = np.random.default_rng(5)
-        prompts = [letters(rng, n - 1) for n in HTTP_STORM_LENS]
-        recs: list = [None] * len(prompts)
-
-        def client(idx):
-            got = sse_streams(srv.port, [{"model": HTTP_MODEL, "prompt": prompts[i],
-                                          "max_tokens": 32} for i in idx])
-            for i, rec in zip(idx, got):
-                recs[i] = rec
-
+        prompts = storm_prompts()
         for _, _, wrapper in KERNELS.values():
             wrapper.launches = 0
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(range(i, len(prompts), 3),))
-                   for i in range(3)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(600)
-        wall = time.perf_counter() - t0
+        recs, wall = socket_storm(srv.port, HTTP_MODEL, prompts)
         launches = {name: wrapper.launches for name, (_, _, wrapper) in KERNELS.items()}
         tok = ByteTokenizer(engine.model_config.vocab_size)
-        requests = [(tok.encode(p), SamplingParams(max_tokens=32)) for p in prompts]
-        chunks = [sse_chunks(f"{label} {i}", rec) for i, rec in enumerate(recs)]
-        ids = [recorded_for(label, recorded, prompt) for prompt, _ in requests]
-        for i, (c, toks) in enumerate(zip(chunks, ids)):
-            u = c[-1]["usage"]
-            if u["input_tokens"] != HTTP_STORM_LENS[i] or u["output_tokens"] != len(toks) \
-                    or streamed_text(c) != tok.decode(toks):
-                raise AssertionError(f"[{label}] request {i}: usage {u} and the streamed "
-                                     f"text against the engine's {len(toks)} token ids")
-        oracle(label, engine, [{"toks": t} for t in ids], requests, None)
+        ids = [recorded_for(label, recorded, tok.encode(p)) for p in prompts]
+        chunks, numbers = storm_gates(label, recs, wall, prompts, ids, tok, engine)
         if launches["flash_self_attention"] <= 0 or launches["ragged_paged_attention"] \
                 or launches["paged_decode_attention"]:
             raise AssertionError(f"[{label}] launches {launches}: want flash, no paged kernel")
-        numbers = latency_numbers([r["t0"] for r in recs],
-                                  [[t for t, _, d in r["frames"] if d != "[DONE]"]
-                                   for r in recs], sum(len(t) for t in ids), wall)
-        STORM_NUMBERS[label] = numbers
         log(f"serving [{label}]: 8 SSE streams, SSE contract held, finish "
             f"{[c[-1]['finish_reason'] for c in chunks]}, usage = engine tokens, each "
             f"stream's text = decode of its engine token ids (oracle above), launches "
@@ -4622,6 +4644,547 @@ def boot_phase() -> None:
         f"({time.perf_counter() - t:.1f} s in all)")
 
 
+# ------------------------------------------------------------------ federation
+#: the federation phase's worker hosts: each a ``python -m
+#: cyberfabric_core_tpu_torch.modules.llm_gateway.worker`` process on the card
+FED_HOSTS = ("fedhost-0", "fedhost-1")
+FED_DEVICE = "cuda:0"
+#: the f32 identity's model: llama-3-8b widths, 4 layers (two full-width f32
+#: hosts would not fit the card), registered by ``--fed-f32-host`` processes
+FED_F32_CONFIG = "llama-3-8b-4-layers"
+FED_F32_MODEL = f"local::{FED_F32_CONFIG}-f32"
+FED_KILL_TOKENS = 256
+FED_F32_TOKENS = 96
+#: the worker hosts' doctors: their objectives cannot trip on this phase's
+#: prompts (its own faults are kills, not slow rounds)
+FED_WORKER_OBS = {"allow_fault_injection": True, "doctor": {
+    "objectives": {"itl_p99": {"threshold_ms": 600000.0},
+                   "ttft_p95": {"threshold_ms": 600000.0},
+                   "queue_wait_p95": {"threshold_ms": 600000.0},
+                   "error_rate": {"budget": 1.0}},
+    "stream_stall_s": 600.0, "round_stall_floor_s": 600.0, "queue_deadline_s": 600.0}}
+
+
+def fed_entries() -> tuple[dict, dict]:
+    """The registry entries of the federated gateway: llama-3-8b at the
+    quickstart worker's options (bf16), and the f32 4-layer model."""
+    entry = {"provider_slug": "local", "provider_model_id": HTTP_MODEL.split("::")[1],
+             "approval_state": "approved", "managed": True, "architecture": "llama",
+             "capabilities": {"chat": True, "streaming": True},
+             "limits": {"max_input_tokens": 2000, "max_output_tokens": 2048},
+             "engine_options": dict(QUICKSTART)}
+    f32 = {**entry, "provider_model_id": FED_F32_MODEL.split("::")[1],
+           "engine_options": dict(QUICKSTART, model_config=FED_F32_CONFIG, dtype="float32")}
+    return entry, f32
+
+
+def fed_config() -> dict:
+    """The federated gateway: grpc_hub (short leases), llm_gateway with
+    federation on and no engine of its own, monitoring with fault injection
+    (the f32 hosts' pacing) and a doctor that the kills cannot make shed."""
+    return {"modules": {
+        "api_gateway": {"config": {"bind_addr": "127.0.0.1:0", "auth_disabled": True}},
+        "tenant_resolver": {"config": {"single_tenant": "default"}},
+        "model_registry": {"config": {"models": list(fed_entries())}},
+        "grpc_hub": {"config": {"bind_addr": "127.0.0.1:0", "worker_lease_ttl_s": 5.0,
+                                "eviction_interval_s": 0.5}},
+        "llm_gateway": {"config": {"federation": {"enabled": True, "seed": 0,
+                                                  "failover_backoff_s": 0.01}}},
+        "monitoring": {"config": {"allow_fault_injection": True, "doctor": {
+            "objectives": {"ttft_p95": {"threshold_ms": 600000.0, "budget": 0.5}},
+            "stream_stall_s": 600.0, "round_stall_floor_s": 600.0,
+            "queue_deadline_s": 600.0, "shed_after": 100000}}}}}
+
+
+def fed_model_info(entry: dict) -> ModelInfo:
+    return ModelInfo(canonical_id=f"{entry['provider_slug']}::{entry['provider_model_id']}",
+                     provider_slug=entry["provider_slug"],
+                     provider_model_id=entry["provider_model_id"], managed=True,
+                     architecture="llama", limits=dict(entry["limits"]),
+                     engine_options=dict(entry["engine_options"]))
+
+
+def fed_spawn(hub: str, host: str, entry: dict, f32: bool = False) -> subprocess.Popen:
+    """One worker host announcing ``entry``'s model to ``hub``: the port's
+    worker entry point (``--fed-f32-host``: through this script, which
+    registers the 4-layer model and turns TF32 off first). Its log goes to
+    ``build/chip_smoke/fed/<host>.log``."""
+    root = Path(__file__).resolve().parent
+    logs = root / "build" / "chip_smoke" / "fed"
+    logs.mkdir(parents=True, exist_ok=True)
+    cfg = {"hub_endpoint": hub, "host": host, "worker": {"device": FED_DEVICE},
+           "observability": FED_WORKER_OBS, "heartbeat_interval_s": 0.5,
+           "models": [model_ref_dict(fed_model_info(entry))]}
+    cmd = ([sys.executable, str(Path(__file__).resolve()), "--fed-f32-host"] if f32 else
+           [sys.executable, "-m", "cyberfabric_core_tpu_torch.modules.llm_gateway.worker"])
+    with open(logs / f"{host}.log", "w") as err:
+        return subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=err, text=True,
+                                env={**os.environ, "FED_WORKER_CONFIG": json.dumps(cfg)})
+
+
+def fed_f32_host() -> int:
+    """``--fed-f32-host``: a worker host serving the f32 identity's model
+    (this script's 4-layer cut of llama-3-8b, TF32 off)."""
+    MODEL_CONFIGS[FED_F32_CONFIG] = dataclasses.replace(
+        get_config("llama-3-8b"), name=FED_F32_CONFIG, num_layers=4)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return worker_module.main()
+
+
+def fed_ready(procs: dict[str, subprocess.Popen], timeout: float = 300.0) -> dict[str, dict]:
+    """Each host's READY line (its engines built, announced), read together."""
+    lines: dict[str, str] = {}
+
+    def read(host, proc):
+        lines[host] = proc.stdout.readline()
+
+    readers = [threading.Thread(target=read, args=item, daemon=True) for item in procs.items()]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join(timeout)
+    bad = {h: p.poll() for h, p in procs.items() if not lines.get(h)}
+    if bad:
+        raise AssertionError(f"[federation] hosts gave no READY line (exit codes {bad}); "
+                             "their logs are in build/chip_smoke/fed/")
+    return {h: json.loads(line) for h, line in lines.items()}
+
+
+def fed_stop(procs: dict[str, subprocess.Popen]) -> None:
+    """SIGTERM (the host withdraws), SIGKILL past 30 s."""
+    for p in procs.values():
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    for p in procs.values():
+        try:
+            p.wait(30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(10)
+        p.stdout.close()
+
+
+#: the gateway's event loop: this script's own gRPC calls run there too
+#: (grpc.aio binds its poller to the first loop that uses it)
+FED_LOOP: list = []
+
+
+def fed_run(coro):
+    return asyncio.run_coroutine_threadsafe(coro, FED_LOOP[0]).result(600)
+
+
+def fed_health(endpoint: str) -> dict:
+    async def go():
+        client = GrpcLlmWorkerClient(endpoint=endpoint)
+        try:
+            return await client.health()
+        finally:
+            await client.close()
+    return fed_run(go())
+
+
+def fed_ids(endpoint: str, model: ModelInfo, prompt: str, max_tokens: int) -> list[int]:
+    """One greedy completion's token ids straight from one host's
+    LlmWorkerService (no routing)."""
+    async def go():
+        client = GrpcLlmWorkerClient(endpoint=endpoint)
+        try:
+            return [c.token_id async for c in client.completion_stream(
+                model, prompt, {"max_tokens": max_tokens, "_fed_token_stream": True})
+                if c.token_id is not None]
+        finally:
+            await client.close()
+    return fed_run(go())
+
+
+def fed_idle_stats(endpoint: str, model: str, label: str, timeout: float = 60.0) -> dict:
+    """The host's scheduler stats once it holds no request (over Health)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        st = fed_health(endpoint)["schedulers"][model]
+        if not (st["active"] or st["pending"] or st["prefilling"] or st["suspended"]):
+            return st
+        if time.monotonic() > deadline:
+            raise AssertionError(f"[{label}] the host did not go idle: {st}")
+        time.sleep(0.1)
+
+
+def fed_ledgers(pool) -> dict[str, list[int]]:
+    """Wraps the federated pool's client factory so that the token ids each
+    placed host streams are kept by request id (the pool's own ledger, in
+    arrival order): the gates' view of the tokens the text cannot show."""
+    ledgers: dict[str, list[int]] = {}
+    make = pool._factory
+
+    def recording(w):
+        client = make(w)
+        inner = client.completion_stream
+
+        async def completion_stream(model, prompt, params):
+            async for chunk in inner(model, prompt, params):
+                if chunk.token_id is not None:
+                    ledgers.setdefault(params["_request_id"], []).append(chunk.token_id)
+                yield chunk
+
+        client.completion_stream = completion_stream
+        return client
+
+    pool._factory = recording
+    return ledgers
+
+
+def fed_kill_stream(port: int, body: dict, rid: str, ready: dict[str, dict],
+                    after_deltas: int = 4) -> tuple[list[dict], str]:
+    """An SSE completion whose serving host is SIGKILLed after
+    ``after_deltas`` content deltas. Returns (the chunks, the killed host)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    chunks, killed, deltas = [], None, 0
+    try:
+        conn.request("POST", "/v1/completions", body=json.dumps({**body, "stream": True}),
+                     headers={"Content-Type": "application/json", "X-Request-Id": rid})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"[federation kill] {resp.status}: {resp.read()[:300]}")
+        frames = []
+        for raw in resp:
+            line = raw.decode().rstrip("\n")
+            if not line.startswith("data: "):
+                if line.startswith("event:"):
+                    raise AssertionError(f"[federation kill] an event frame: {line}")
+                continue
+            frames.append(line[len("data: "):])
+            if frames[-1] == "[DONE]":
+                continue
+            chunks.append(json.loads(frames[-1]))
+            deltas += bool(chunks[-1]["delta"].get("content"))
+            if killed is None and deltas >= after_deltas:
+                host = http_call(port, "GET", f"/v1/monitoring/requests/{rid}")[2][
+                    "worker_host"]
+                os.kill(ready[host]["pid"], signal.SIGKILL)
+                killed = host
+        if frames[-1:] != ["[DONE]"]:
+            raise AssertionError("[federation kill] the stream did not end with [DONE]")
+    finally:
+        conn.close()
+    if killed is None:
+        raise AssertionError(f"[federation kill] the stream ended after {deltas} deltas, "
+                             "before the kill")
+    return chunks, killed
+
+
+def round_split(p0: dict, p1: dict) -> dict:
+    """An engine's rounds between two ``stats()["pipeline"]`` readings, by
+    kind: the count and the mean dispatch / sync-wait / host-emit ms."""
+    out = {}
+    for kind, after in p1["ms_by_kind"].items():
+        before = p0["ms_by_kind"][kind]
+        n = after["count"] - before["count"]
+        if n:
+            out[kind] = {"rounds": n, **{k: round((after[k] - before[k]) / n, 2)
+                                         for k in ("dispatch_ms", "sync_wait_ms",
+                                                   "host_emit_ms")}}
+    return out
+
+
+def fed_only(smi: str) -> None:
+    """``--federation``: the http storm on one host (the port's server in
+    this process, as phase 5(a) serves it, with its gates: the federated
+    storm's reference in the same call), then the federation phase alone."""
+    srv = BackgroundServer(http_config()).start()
+    try:
+        if http_json(srv.port, "/v1/completions",
+                     {"model": HTTP_MODEL, "prompt": "warm", "max_tokens": 2})[0] != 200:
+            raise AssertionError("[http storm] the warm-up request failed")
+        engine = srv.host.worker.engine(HTTP_MODEL)
+        http_storm(smi, srv.port, engine, None, record_tokens(engine))
+        del engine  # the weights go with the server
+    finally:
+        srv.stop()
+    del srv
+    free_card()
+    federation_phase(smi)
+
+
+def fed_schedulers(ready: dict[str, dict], model: str) -> dict[str, dict]:
+    """Each host's scheduler stats for ``model`` over its Health RPC."""
+    return {h: fed_health(r["endpoint"])["schedulers"][model] for h, r in ready.items()}
+
+
+def fed_host_gates(label: str, ready: dict[str, dict], model: str,
+                   before: dict[str, dict]) -> dict[str, dict]:
+    """Each host's part in a storm, from its scheduler's stats over Health
+    before it (``before``, by host) and once the host is idle after it: the
+    launches its kernel wrappers counted in the host process, its mixed
+    rounds (the ragged kernel) and decode chunks (graph replays of the
+    decode kernel). Gates, on each host: the engine's device is CUDA, the
+    ragged and decode kernels launched and flash did not, mixed rounds and
+    graph replays ran, no decode chunk ran eager. Returns by host the
+    device, the launches, the round counts and the rounds by kind."""
+    out = {}
+    for h, b in before.items():
+        st = fed_idle_stats(ready[h]["endpoint"], model, label)
+        launched = {k: int(st["kernel_launches"][k] - b["kernel_launches"][k]) for k in KERNELS}
+        rounds = {k: int(st["pipeline"][k] - b["pipeline"][k])
+                  for k in ("mixed_rounds", "decode_graph_replays", "decode_eager_chunks")}
+        if not st["device"].startswith("cuda") or launched["ragged_paged_attention"] <= 0 or \
+                launched["paged_decode_attention"] <= 0 or launched["flash_self_attention"] or \
+                rounds["mixed_rounds"] <= 0 or rounds["decode_graph_replays"] <= 0 or \
+                rounds["decode_eager_chunks"]:
+            raise AssertionError(f"[{label}] {h}: engine on {st['device']}, launches "
+                                 f"{launched}, rounds {rounds}")
+        out[h] = {"device": st["device"], "launches": launched, **rounds,
+                  "by_kind": round_split(b["pipeline"], st["pipeline"])}
+    return out
+
+
+def fed_failovers(port: int) -> float:
+    return parse_metrics(http_call(port, "GET", "/metrics")[2])[
+        "llm_federated_failovers_total"][""]
+
+
+def federation_phase(smi: str) -> dict[str, int]:
+    """The federated-worker entry on the card (phase 5(k)): the port's gateway
+    (``grpc_hub``, ``llm_gateway`` with federation on and no engine,
+    ``monitoring``) in this process, serving two worker host processes on
+    the card, each with llama-3-8b (random bf16 weights from seed 0) at the
+    quickstart worker's options. ``smi`` labels every number. Returns the
+    federated storm's kernel launches, counted in the hosts and summed."""
+    t_phase = time.perf_counter()
+    fed_launches = {name: 0 for name in KERNELS}
+    free_card()
+    entry, f32_entry = fed_entries()
+    model = fed_model_info(entry)
+    cfg = get_config("llama-3-8b")
+    tok = ByteTokenizer(cfg.vocab_size)
+    srv = BackgroundServer(fed_config()).start()
+    FED_LOOP[:] = [srv._loop]
+    procs: dict[str, subprocess.Popen] = {}
+    try:
+        pool = srv.host.worker
+        ledgers = fed_ledgers(pool)
+        hub = srv.host.hub.endpoint
+        t = time.perf_counter()
+        procs = {h: fed_spawn(hub, h, entry) for h in FED_HOSTS}
+        ready = fed_ready(procs)
+        boot_s = time.perf_counter() - t
+        # (a) both hosts announced and listed
+        table = http_call(srv.port, "GET", "/v1/monitoring/workers")[2]
+        if sorted(w["host"] for w in table["workers"]) != list(FED_HOSTS) or \
+                any(w["models"] != [model.canonical_id] for w in table["workers"]):
+            raise AssertionError(f"[federation] workers table: {table}")
+        # the two hosts drew the same weights: one greedy prompt, each host alone
+        probe = letters(np.random.default_rng(11), 95)
+        same = {h: fed_ids(r["endpoint"], model, probe, 24) for h, r in ready.items()}
+        if len({tuple(v) for v in same.values()}) != 1:
+            raise AssertionError(f"[federation] the hosts' weights differ: {same}")
+        log(f"serving [federation]: {len(FED_HOSTS)} worker hosts on {FED_DEVICE} built "
+            f"llama-3-8b (bf16, seed 0), announced and READY in {boot_s:.1f} s; "
+            "/v1/monitoring/workers lists both; one greedy prompt gives the same 24 token "
+            "ids on each host")
+        rope = rope_frequencies(cfg.head_dim, max(cfg.max_position, QUICKSTART["max_seq_len"]),
+                                cfg.rope_theta, device=CARD)
+        dense = DenseOracle(llama.init_params(cfg, 0, torch.bfloat16, CARD), cfg, rope)
+
+        # (b) the federated storm: the http storm's 8 SSE completions from 3
+        # threads, every SSE and usage gate, and the oracle
+        prompts = storm_prompts()
+        before = fed_schedulers(ready, model.canonical_id)
+        recs, wall = socket_storm(srv.port, model.canonical_id, prompts,
+                                  request_ids("fed-storm", len(prompts)))
+        chunks, numbers = storm_gates("federated storm", recs, wall, prompts,
+                                      [ledgers[f"fed-storm-{i}"] for i in range(len(prompts))],
+                                      tok, dense)
+        placed = {}
+        for i in range(len(prompts)):
+            host = http_call(srv.port, "GET", f"/v1/monitoring/requests/fed-storm-{i}")[2][
+                "worker_host"]
+            placed[host] = placed.get(host, 0) + 1
+        log(f"serving [federated storm]: 8 SSE streams, SSE contract held, finish "
+            f"{[c[-1]['finish_reason'] for c in chunks]}, usage = the pool's ledger of "
+            f"streamed token ids ({numbers['tokens']}), each text = decode of its ids "
+            "(oracle above)")
+        log(f"info [{smi}] serving [federated storm] (client side, at the socket, 2 hosts "
+            f"on one card, placed {placed}): {format_latency(numbers)}")
+        if "http storm" in STORM_NUMBERS:
+            log(f"info [{smi}] serving [http storm] (one host, in process, same call): "
+                f"{format_latency(STORM_NUMBERS['http storm'])}; its rounds: "
+                f"{json.dumps(STORM_SPLITS.get('http storm'))}")
+
+        # (g) each host's Health RPC: its engine's device, and the kernel
+        # launches its wrappers counted over the storm, by host
+        hosts = fed_host_gates("federation health", ready, model.canonical_id, before)
+        for name in KERNELS:
+            fed_launches[name] = sum(row["launches"][name] for row in hosts.values())
+        counted = {h: {k: v for k, v in row.items() if k != "by_kind"}
+                   for h, row in hosts.items()}
+        log(f"serving [federation health]: by each host's Health RPC, its engine's device, "
+            f"the storm's kernel launches counted in the host process (ragged and decode "
+            f"> 0, flash 0), mixed rounds and decode graph replays (> 0), no eager decode "
+            f"chunk: {json.dumps(counted)}")
+        log(f"info [{smi}] serving [federated storm] each host's rounds in the storm: "
+            f"{json.dumps({h: row['by_kind'] for h, row in hosts.items()})}")
+
+        # (d) one storm request's stitched timeline
+        tl = http_call(srv.port, "GET", "/v1/monitoring/requests/fed-storm-3")[2]
+        host = tl.get("worker_host")
+        if not tl.get("stitched") or tl.get("origins") != ["gateway", host] or not any(
+                e.get("origin") == host and e["event"] == "finished" for e in tl["timeline"]):
+            raise AssertionError(f"[federation timeline] {tl.get('origins')} "
+                                 f"{[e.get('event') for e in tl.get('timeline', [])]}")
+        log(f"serving [federation timeline]: fed-storm-3's timeline stitches the gateway's "
+            f"{sum(e['origin'] == 'gateway' for e in tl['timeline'])} events and {host}'s "
+            f"{tl['segments'][host]['events']} under one request id")
+
+        # (e) the fleet document and the host-labelled series
+        fleet = http_call(srv.port, "GET", "/v1/monitoring/fleet")[2]
+        metrics = http_call(srv.port, "GET", "/metrics")[2]
+        labelled = sorted({ln.split("{")[0] for ln in metrics.splitlines()
+                           if ln.startswith("llm_") and 'host="fedhost-' in ln})
+        if sorted(r["host"] for r in fleet["hosts"]) != list(FED_HOSTS) or not all(
+                f'llm_remote_workers_healthy{{host="{h}"}} 1.0' in metrics for h in FED_HOSTS) \
+                or len(labelled) < 3:
+            raise AssertionError(f"[federation fleet] {fleet} / {labelled}")
+        log(f"serving [federation fleet]: /v1/monitoring/fleet state {fleet['state']} over "
+            f"{[(r['host'], r['state']) for r in fleet['hosts']]}; /metrics carries "
+            f"{len(labelled)} host-labelled llm_* families")
+
+        # (c) prefix affinity: the head served once, 7 requests behind it
+        rng = np.random.default_rng(7)
+        head = letters(rng, HEAD - 1)
+        hosts0 = {h: fed_health(r["endpoint"])["schedulers"][model.canonical_id][
+            "prefix_cache"] for h, r in ready.items()}
+        placements0 = dict(pool.placements)
+        assert http_json(srv.port, "/v1/completions",
+                         {"model": model.canonical_id, "prompt": head + letters(rng, 200),
+                          "max_tokens": 16}, {"X-Request-Id": "fed-head"})[0] == 200
+        head_host = http_call(srv.port, "GET", "/v1/monitoring/requests/fed-head")[2][
+            "worker_host"]
+        chain = digest_chain(head)
+        wait_for(lambda: any(w.host == head_host and match_depth(
+            chain, w.census.get("prefix", {}).get(model.canonical_id, ())) >= len(chain)
+            for w in srv.host.hub.registry.alive()), 30, "the head's gossiped prefix",
+            "federation prefix")
+        for n, s in enumerate(HEAD_SUFFIXES[1:]):
+            rid = f"fed-prefix-{n}"
+            status, _, body = http_json(srv.port, "/v1/completions",
+                                        {"model": model.canonical_id,
+                                         "prompt": head + letters(rng, s), "max_tokens": 16},
+                                        {"X-Request-Id": rid})
+            t_rec = http_call(srv.port, "GET", f"/v1/monitoring/requests/{rid}")[2]
+            placement = [e.get("placement") for e in t_rec["timeline"]
+                         if e["event"] == "admitted" and "placement" in e]
+            if status != 200 or t_rec["worker_host"] != head_host or placement != ["prefix"]:
+                raise AssertionError(f"[federation prefix] {rid}: {status}, host "
+                                     f"{t_rec['worker_host']} (head on {head_host}), "
+                                     f"placement {placement}")
+        pc = fed_health(ready[head_host]["endpoint"])["schedulers"][model.canonical_id][
+            "prefix_cache"]
+        hits = pc["hits"] - hosts0[head_host]["hits"]
+        saved = pc["prefill_tokens_saved"] - hosts0[head_host]["prefill_tokens_saved"]
+        if pool.placements["prefix"] - placements0["prefix"] < 7 or hits < 7 or \
+                saved < 7 * HEAD:
+            raise AssertionError(f"[federation prefix] placements {pool.placements}, hits "
+                                 f"{hits}, tokens saved {saved}")
+        log(f"serving [federation prefix]: a {HEAD}-token head on {head_host}, then 7 "
+            f"requests behind it: all 7 placed by prefix on {head_host}, its radix cache "
+            f"hit {hits} times saving {saved} prompt tokens")
+
+        # (f) SIGKILL of the serving host mid-stream, bf16
+        prompt = letters(np.random.default_rng(9), 399)
+        body = {"model": model.canonical_id, "prompt": prompt, "max_tokens": FED_KILL_TOKENS}
+        assert http_json(srv.port, "/v1/completions", body, {"X-Request-Id": "fed-kill-base"}
+                         )[0] == 200
+        failovers0 = fed_failovers(srv.port)
+        kchunks, killed = fed_kill_stream(srv.port, body, "fed-kill", ready)
+        survivor = next(h for h in FED_HOSTS if h != killed)
+        got, base = ledgers["fed-kill"], ledgers["fed-kill-base"]
+        finals = [c for c in kchunks if c.get("finish_reason")]
+        if len(finals) != 1 or finals[0]["usage"]["output_tokens"] != len(got) or \
+                fed_failovers(srv.port) != failovers0 + 1 or \
+                streamed_text(kchunks) != tok.decode(got):
+            raise AssertionError(f"[federation kill] terminals {finals}, {len(got)} ids, "
+                                 f"failovers {fed_failovers(srv.port) - failovers0}")
+        oracle("federation kill", dense, [{"toks": got}],
+               [(tok.encode(prompt), SamplingParams(max_tokens=FED_KILL_TOKENS))], None)
+        check_pool("federation kill, survivor",
+                   fed_idle_stats(ready[survivor]["endpoint"], model.canonical_id,
+                                  "federation kill"))
+        ktl = http_call(srv.port, "GET", "/v1/monitoring/requests/fed-kill")[2]
+        fo = [e for e in ktl["timeline"] if e["event"] == "failover"]
+        j = first_divergence(base, got)
+        tie = ""
+        if j is not None:
+            # where the streams part: both tokens against the dense forward's
+            # row over their shared prefix (a near-tie, if rounding decided it)
+            with torch.inference_mode():
+                ids = tok.encode(prompt)
+                g_got, top2 = dense_gaps(dense.params, cfg, rope, ids, got[:j + 1])
+                g_base, _ = dense_gaps(dense.params, cfg, rope, ids, base[:j + 1])
+            tie = (f"; at token {j} the dense forward puts the served token "
+                   f"{float(g_got[j]):.4f} and the undisturbed one {float(g_base[j]):.4f} "
+                   f"below its max (top-1/top-2 gap {float(top2[j]):.4f})")
+        log(f"serving [federation kill]: {killed} SIGKILLed after 4 deltas of a "
+            f"{FED_KILL_TOKENS}-token greedy stream; one terminal "
+            f"({finals[0]['finish_reason']}), llm_federated_failovers_total +1, "
+            f"{fo[0]['carried_tokens'] if fo else '?'} tokens carried to {survivor}, which "
+            f"re-prefilled them; every token through the oracle; I1 on {survivor}; the stream "
+            + ("equals the undisturbed one token for token" if j is None else
+               f"parts from the undisturbed one at token {j} of {len(got)} (bf16: the "
+               "carried tokens prefill as one chunk where they decoded one by one)" + tie))
+        # the storm on the survivor alone: the gRPC hop's cost without a second
+        # process on the card (prompts of the same lengths, another seed: the
+        # survivor's radix cache holds the storm's)
+        prompts = storm_prompts(15)
+        before = fed_schedulers({survivor: ready[survivor]}, model.canonical_id)
+        recs, wall = socket_storm(srv.port, model.canonical_id, prompts,
+                                  request_ids("fed-solo", len(prompts)))
+        _, numbers = storm_gates("federated storm, one host", recs, wall, prompts,
+                                 [ledgers[f"fed-solo-{i}"] for i in range(len(prompts))],
+                                 tok, dense)
+        solo = fed_host_gates("federated storm, one host", ready, model.canonical_id, before)
+        log(f"info [{smi}] serving [federated storm, one host] (the survivor alone, the "
+            f"storm's lengths at seed 15, at the socket): {format_latency(numbers)}; its "
+            f"launches {solo[survivor]['launches']}, rounds "
+            f"{json.dumps(solo[survivor]['by_kind'])}")
+        fed_stop(procs)
+        procs = {}
+        del dense
+        free_card()
+
+        # the f32 identity: the same kill at llama-3-8b widths, 4 layers, f32,
+        # TF32 off, where the continuation must equal the undisturbed stream
+        model32 = fed_model_info(f32_entry)
+        procs = {f"{h}-f32": fed_spawn(hub, f"{h}-f32", f32_entry, f32=True)
+                 for h in FED_HOSTS}
+        ready = fed_ready(procs)
+        for h in ready:  # pace decode so the kill lands mid-stream
+            status, _, doc = http_call(srv.port, "PUT",
+                                       "/v1/monitoring/failpoints/scheduler.readback",
+                                       {"spec": "delay(0.02)", "host": h})
+            if status != 200:
+                raise AssertionError(f"[federation f32] arming {h}: {status} {doc}")
+        body32 = {"model": model32.canonical_id, "prompt": prompt,
+                  "max_tokens": FED_F32_TOKENS}
+        assert http_json(srv.port, "/v1/completions", body32,
+                         {"X-Request-Id": "fed-f32-base"})[0] == 200
+        kchunks, killed = fed_kill_stream(srv.port, body32, "fed-f32-kill", ready)
+        got, base = ledgers["fed-f32-kill"], ledgers["fed-f32-base"]
+        if got != base or len([c for c in kchunks if c.get("finish_reason")]) != 1:
+            raise AssertionError(f"[federation f32] the failover stream parts from the "
+                                 f"undisturbed one at token {first_divergence(base, got)}")
+        log(f"serving [federation f32]: {FED_F32_CONFIG} (llama-3-8b widths, 4 layers) at "
+            f"f32, TF32 off, on two hosts: {killed} SIGKILLed mid-stream, the "
+            f"{len(got)}-token stream continued on the other host equals the undisturbed "
+            "one token for token, one terminal")
+    finally:
+        fed_stop(procs)
+        srv.stop()
+        free_card()
+    log(f"info [{smi}] federation phase: {time.perf_counter() - t_phase:.1f} s")
+    return fed_launches
+
+
 def trace_cost(smi: str) -> None:
     """``--trace-cost``: what observability costs the storm. Two hosts on the
     card, each serving llama-3-8b: one from the port's quickstart with
@@ -4669,16 +5232,14 @@ def trace_cost(smi: str) -> None:
             scraper = Scraper(host.port)
             if scraped:
                 scraper.start()
-            recs, wall = storm_from_threads(host.port, prompts, headers)
+            recs, wall = socket_storm(host.port, HTTP_MODEL, prompts, headers)
             scraper.halt.set()
             if scraped:
                 scraper.join(30)
             wait_idle(engines[host])
             chunks = [sse_chunks(f"trace cost {name}", rec) for rec in recs]
-            numbers = latency_numbers(
-                [r["t0"] for r in recs],
-                [[t for t, _, d in r["frames"] if d != "[DONE]"] for r in recs],
-                sum(c[-1]["usage"]["output_tokens"] for c in chunks), wall)
+            numbers = socket_numbers(
+                recs, sum(c[-1]["usage"]["output_tokens"] for c in chunks), wall)
             runs[name].append(numbers)
             log(f"info [{smi}] trace cost [{name}] run {n + 1}: {format_latency(numbers)}"
                 + (f" ({scraper.count} scrapes)" if scraped else ""))
@@ -4792,6 +5353,8 @@ def sampling_determinism(smi: str, reps: int = 60, runs: int = 8) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:] == ["--fed-f32-host"]:
+        return fed_f32_host()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -4808,6 +5371,12 @@ def main() -> int:
     if sys.argv[1:] == ["--tp"]:
         _build.build_all()
         tp_only(torch.cuda.get_device_name(0), subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
+        return 0
+    if sys.argv[1:] == ["--federation"]:
+        _build.build_all()
+        fed_only(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
         return 0
@@ -4875,6 +5444,12 @@ def main() -> int:
     for name in ("ragged_paged_attention", "paged_decode_attention"):
         launches[name] = http_launches[name] + SPEC_LAUNCHES[name]
     boot_phase()
+    # the worker hosts load the kernels built above (build/kernels/, keyed
+    # by source hash): no host builds. The federated storm's launches are
+    # counted in the hosts and read over their Health RPC
+    fed_launches = federation_phase(smi)
+    for name in ("ragged_paged_attention", "paged_decode_attention"):
+        launches[name] += fed_launches[name]
     f32_launches = golden_phase(card)
     golden_quant_phase(card, smi)
     log(f"info [{card}] kernels f32 entry points, main-path shapes (bound: bytes at "

@@ -1,6 +1,6 @@
 """fabric-doctor — continuous serving health: SLO burn rates, stall
 watchdogs, and a degradation state machine (the port's copy of
-``modkit/doctor.py``, without the federation's ``FleetDoctor``).
+``modkit/doctor.py``), and the federation's :class:`FleetDoctor`.
 
 The flight recorder makes every request legible (timelines, derived
 ttft/queue-wait/itl figures); the doctor consumes those signals
@@ -65,7 +65,7 @@ from .flight_recorder import default_recorder
 from .metrics import bump_counter, default_registry
 
 __all__ = [
-    "DEFAULT_OBJECTIVES", "Doctor", "DoctorConfig",
+    "DEFAULT_OBJECTIVES", "Doctor", "DoctorConfig", "FleetDoctor",
     "SloObjective", "default_doctor", "shed_retry_after",
 ]
 
@@ -318,6 +318,8 @@ class Doctor:
             Callable[[], Iterable[tuple[str, Any]]]] = None
         self._capacity_provider: Optional[
             Callable[[], dict[str, Any]]] = None
+        #: the federated gateway's fleet feed: host-level reasons for /readyz
+        self._fleet_provider: Optional[Callable[[], Iterable[str]]] = None
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._started_at = time.monotonic()
@@ -387,6 +389,16 @@ class Doctor:
         because the survivors absorb the dead replicas' load on top of the
         burn that is already visible. Cleared with ``None`` at teardown."""
         self._capacity_provider = fn
+
+    def set_fleet_provider(
+            self, fn: Optional[Callable[[], Iterable[str]]]) -> None:
+        """``fn()`` returns host-level health reason strings (``"host
+        worker-1 shedding: slo:itl_p99"``) from the gateway's FleetView,
+        folded into :meth:`readiness` so /readyz tells the truth about the
+        whole fleet. The local state still owns the 200/503 verdict (routing
+        steers around sick hosts; the gateway itself keeps serving).
+        Cleared with ``None`` at teardown."""
+        self._fleet_provider = fn
 
     def ensure_started(self) -> None:
         """Attach the sample listener and start the evaluation thread
@@ -973,6 +985,15 @@ class Doctor:
                     if entry["to"] == state:
                         reasons = list(entry["reasons"])
                         break
+            fleet_fn = self._fleet_provider
+        if fleet_fn is not None:
+            # host-level reasons ride along (informational: a sick worker
+            # host does not flip this gateway's verdict), bounded so a
+            # hostile feed cannot bloat the probe body
+            try:
+                reasons = reasons + [str(r) for r in (fleet_fn() or ())][:8]
+            except Exception:  # noqa: BLE001 — the probe must not 500
+                pass
         return state != "shedding", state, reasons
 
     def touch_event_loop(self) -> None:
@@ -1030,6 +1051,136 @@ class Doctor:
                 "last_eval": last,
             }
         return doc
+
+
+#: fleet host-state severity order: merge() reports the WORST fresh host
+_HOST_STATE_RANK = {"unknown": 0, "healthy": 0, "recovering": 1,
+                    "degraded": 2, "shedding": 3}
+
+
+class FleetDoctor:
+    """Fleet-level fold of per-host doctor reports.
+
+    Each federated worker runs its own :class:`Doctor` and piggybacks a
+    compact report on its heartbeat census; the gateway's FleetView hands
+    every host's payload to :meth:`on_report` and reads the fleet document
+    off :meth:`merge` — burn rates per objective×model×host, host health
+    states, and the worst-of fleet state that /v1/monitoring/fleet and the
+    router's health rung consume.
+
+    Both callbacks are held to the evaluator discipline: synchronous,
+    non-blocking, never raising — they run on the heartbeat service path and
+    the monitoring scrape path, and a hostile or malformed worker payload
+    must degrade to an ``unknown`` row, never to a 500."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._hosts: dict[str, dict[str, Any]] = {}
+
+    @staticmethod
+    def _empty_row(host: str, stale: bool) -> dict[str, Any]:
+        return {"host": host, "state": "unknown", "stale": bool(stale),
+                "reasons": [], "objectives": [], "watchdog_trips": {},
+                "shed_tenants": [], "evals": 0, "terminals": 0,
+                "state_since": None}
+
+    def on_report(self, host: str, payload: Any,
+                  stale: bool = False) -> dict[str, Any]:
+        """Normalize ONE worker's observability payload into a host health
+        row (never raises; non-dict / hostile shapes degrade to state
+        ``unknown``). ``stale`` marks a report older than its lease — it
+        stays visible in the table but stops feeding fleet state."""
+        row = self._empty_row(str(host), stale)
+        try:
+            doc = (payload or {}).get("doctor") \
+                if isinstance(payload, dict) else None
+            if isinstance(doc, dict):
+                state = str(doc.get("state") or "unknown")
+                row["state"] = state if state in _HOST_STATE_RANK \
+                    else "unknown"
+                if isinstance(doc.get("reasons"), list):
+                    row["reasons"] = [str(r) for r in doc["reasons"]][:8]
+                if isinstance(doc.get("objectives"), list):
+                    row["objectives"] = [dict(o) for o in doc["objectives"]
+                                         if isinstance(o, dict)]
+                if isinstance(doc.get("watchdog_trips"), dict):
+                    row["watchdog_trips"] = {
+                        str(k): int(v) for k, v
+                        in doc["watchdog_trips"].items()}
+                if isinstance(doc.get("shed_tenants"), list):
+                    row["shed_tenants"] = [str(t)
+                                           for t in doc["shed_tenants"]][:32]
+                row["evals"] = int(doc.get("evals") or 0)
+                if doc.get("state_since") is not None:
+                    row["state_since"] = float(doc["state_since"])
+            terminals = payload.get("terminals") \
+                if isinstance(payload, dict) else None
+            if isinstance(terminals, list):
+                row["terminals"] = len(terminals)
+        except Exception:  # noqa: BLE001 — hostile payloads degrade, never raise
+            row = self._empty_row(str(host), stale)
+        with self._lock:
+            self._hosts[str(host)] = row
+        return row
+
+    def forget(self, host: str) -> None:
+        """Drop a departed host's row (lease eviction already removed its
+        census; this clears the fold so the row cannot pin fleet state)."""
+        with self._lock:
+            self._hosts.pop(str(host), None)
+
+    def retain(self, hosts: Iterable[str]) -> None:
+        """Keep only ``hosts`` — the FleetView calls this after a refresh so
+        evicted workers' rows expire with their lease."""
+        keep = {str(h) for h in hosts}
+        with self._lock:
+            for h in [h for h in self._hosts if h not in keep]:
+                del self._hosts[h]
+
+    def host_states(self) -> dict[str, str]:
+        """host → degradation state for FRESH reports only (the router's
+        health-rung feed; a stale report never steers routing)."""
+        with self._lock:
+            return {h: row["state"] for h, row in self._hosts.items()
+                    if not row.get("stale") and row["state"] != "unknown"}
+
+    def merge(self, rows: Optional[Iterable[dict[str, Any]]] = None,
+              ) -> dict[str, Any]:
+        """The fleet document: worst-of fleet state over fresh hosts,
+        host-level reasons, and the objective table flattened per
+        objective×model×host. Stale rows are listed (with a staleness
+        reason) but NEVER pin the fleet state — a silent worker's report
+        expires with its lease. Never raises."""
+        if rows is None:
+            with self._lock:
+                rows = [dict(r) for r in self._hosts.values()]
+        fleet_state, rank = "unknown", -1
+        reasons: list[str] = []
+        objectives: list[dict[str, Any]] = []
+        hosts: list[dict[str, Any]] = []
+        for row in sorted(rows, key=lambda r: str(r.get("host", ""))):
+            try:
+                host = str(row.get("host", ""))
+                state = str(row.get("state", "unknown"))
+                hosts.append(row)
+                if row.get("stale"):
+                    reasons.append(f"host {host}: report stale "
+                                   "(lease expiring)")
+                    continue
+                r = _HOST_STATE_RANK.get(state, 0)
+                if r > rank or fleet_state == "unknown":
+                    fleet_state, rank = (state if state in _HOST_STATE_RANK
+                                         else "unknown"), max(rank, r)
+                if state in ("degraded", "shedding", "recovering"):
+                    why = ", ".join(row.get("reasons") or ()) or "burn"
+                    reasons.append(f"host {host} {state}: {why}")
+                for o in row.get("objectives") or ():
+                    if isinstance(o, dict):
+                        objectives.append({**o, "host": host})
+            except Exception:  # noqa: BLE001 — one bad row must not kill the doc
+                continue
+        return {"state": fleet_state, "reasons": reasons,
+                "objectives": objectives, "hosts": hosts}
 
 
 #: process-global doctor — configured by the monitoring module at boot, read

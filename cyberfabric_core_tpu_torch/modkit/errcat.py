@@ -46,6 +46,7 @@ _CATALOG: dict[str, dict[str, int]] = {
         "unknown_failpoint": 404, "bad_failpoint_spec": 400,
         "unknown_request": 404, "bad_export_format": 400, "not_ready": 503,
         "unknown_replica": 404, "replica_conflict": 409, "unknown_tenant": 404,
+        "unknown_worker": 404, "unknown_host": 404,
     },
 }
 

@@ -45,6 +45,24 @@ class Problem:
         doc.update(self.extensions)
         return doc
 
+    @classmethod
+    def from_dict(cls, doc: dict[str, Any]) -> "Problem":
+        """Inverse of :meth:`to_dict` (the gRPC transport re-raises a remote
+        worker's problem as the same problem)."""
+        known = {"type", "status", "title", "code", "detail", "instance",
+                 "trace_id", "errors"}
+        return cls(
+            status=int(doc.get("status", 500)),
+            title=doc.get("title", "Internal Server Error"),
+            code=doc.get("code", "internal_error"),
+            type=doc.get("type", "about:blank"),
+            detail=doc.get("detail"),
+            instance=doc.get("instance"),
+            trace_id=doc.get("trace_id"),
+            errors=list(doc.get("errors") or []),
+            extensions={k: v for k, v in doc.items() if k not in known},
+        )
+
 
 class ProblemError(Exception):
     """Raise anywhere below the gateway; the error-mapping layer renders it."""

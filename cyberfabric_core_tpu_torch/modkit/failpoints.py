@@ -89,6 +89,11 @@ FAILPOINT_CATALOG: dict[str, tuple[str, str]] = {
         "single-engine supervisor); an armed raise models a device still "
         "too sick to rebuild on — strikes accumulate through exponential "
         "backoff until the replica is benched"),
+    "federation.route": (
+        "runtime", "federated host placement (prefix > load > random) in "
+        "the cross-host serving pool; a raise rejects the request before "
+        "any worker host is dialed — armed once, it also exercises the "
+        "route-retry inside mid-stream failover"),
     # -- gateway ----------------------------------------------------------
     "gateway.request": (
         "gateway", "per-request middleware entry (inside the error-mapping "
@@ -97,14 +102,15 @@ FAILPOINT_CATALOG: dict[str, tuple[str, str]] = {
     "llm_gateway.worker_stream": (
         "modules", "local torch worker stream entry (chat/completion job); a "
         "raise crashes the job before the engine sees it"),
+    "grpc_hub.evict": (
+        "modules", "directory staleness eviction tick; the evict loop must "
+        "survive a failing tick"),
 }
 
 
 #: the reference's points whose module the port does not serve yet, by the
 #: ROADMAP queue 1 item that brings it
 UNPORTED_FAILPOINTS: dict[str, str] = {
-    "federation.route": "1 (the federated-worker entry)",
-    "grpc_hub.evict": "1 (the federated-worker entry)",
     "http_client.request": "17 (the other host modules)",
     "db_engine.commit": "17 (the other host modules)",
     "oagw.upstream": "17 (the other host modules)",

@@ -22,6 +22,16 @@ generators are closed, the worker cancels the request in the engine, and
 Request fields and config keys of the JAX module that the port does not
 serve (async jobs, tools, structured output, media parts, budgets, hooks)
 raise, naming their ROADMAP item.
+
+The worker behind the handlers (:func:`build_worker`): with
+``federation.enabled``, a :class:`..runtime.federation.FederatedServingPool`
+that places each request on a remote worker host announced to the host's
+``grpc_hub`` (prefix > health > load > random) over the ``llmworker.v1``
+wire, and fails a stream over to a survivor when its host dies; else, with
+``remote_worker_endpoint``, one remote worker over that wire; else the
+in-process :class:`.worker.LocalTorchWorker`. ``worker_service.expose``
+serves the local worker on the hub as ``llmworker.v1.LlmWorkerService``
+(``worker_service.token``: its bearer) for other hosts' gateways.
 """
 
 from __future__ import annotations
@@ -29,33 +39,42 @@ from __future__ import annotations
 import asyncio
 import logging
 import uuid
-from typing import Any, AsyncIterator, Optional
+from typing import Any, AsyncIterator, Callable, Optional
 
 from ...gateway.http import ClientDisconnected, Request, StreamResponse
 from ...gateway.middleware import REQUEST_ID_KEY, SECURITY_CONTEXT_KEY
 from ...gateway.router import RestRouter
 from ...gateway.validation import read_json, validate_against
 from ...modkit.errcat import ERR
+from ...modkit.doctor import default_doctor
 from ...modkit.errors import ProblemError
 from ...modkit.flight_recorder import default_recorder
 from ...modkit.metrics import bump_counter, default_registry
 from ...modkit.security import SecurityContext
 from ...modkit.sse import SSE_DONE, format_sse_json
 from ...modkit.telemetry import Tracer
+from ...runtime.federation import FederatedServingPool, FederationConfig, WorkerRegistry
 from ..sdk import ChatStreamChunk, LlmWorkerApi, ModelInfo, ModelRegistryApi
 from . import schemas
+from .grpc_service import (GrpcLlmWorkerClient, WorkerObservabilityClient,
+                           register_llm_worker_service)
+from .worker import LocalTorchWorker
 
 logger = logging.getLogger("llm_gateway")
 
 #: config keys of the JAX module; ``budget_retry_after_s`` only paces
 #: budget rejections, so without ``budgets`` it is inert in both packages
 CONFIG_KEYS = frozenset({"ttft_timeout_s", "total_timeout_s", "default_deadline_ms",
-                         "budget_retry_after_s", "worker"})
+                         "budget_retry_after_s", "worker", "federation",
+                         "remote_worker_endpoint", "worker_service"})
+#: the keys of the ``federation`` block and of its ``observability`` block
+FEDERATION_KEYS = frozenset({"enabled", "prefix_slack", "max_failovers", "failover_backoff_s",
+                             "block_chars", "max_blocks", "seed", "worker_auth_token",
+                             "observability"})
+FEDERATION_OBS_KEYS = frozenset({"stitch_timeout_s", "host_metrics"})
+WORKER_SERVICE_KEYS = frozenset({"expose", "token"})
 _UNPORTED_CONFIG = {
     "budgets": "14 (usage budgets)",
-    "federation": "1 (the federated-worker entry)",
-    "remote_worker_endpoint": "1 (the federated-worker entry)",
-    "worker_service": "1 (the federated-worker entry)",
     "video_poll_interval_s": "13 (media)",
     "video_poll_timeout_s": "13 (media)",
 }
@@ -74,6 +93,57 @@ def check_config(cfg: dict[str, Any]) -> None:
                              f"(ROADMAP queue 1 item {_UNPORTED_CONFIG[key]})")
         if key not in CONFIG_KEYS:
             raise ValueError(f"llm_gateway config: unknown key {key!r}")
+    for block, raw, known in (
+            ("federation", cfg.get("federation"), FEDERATION_KEYS),
+            ("federation.observability", (cfg.get("federation") or {}).get("observability"),
+             FEDERATION_OBS_KEYS),
+            ("worker_service", cfg.get("worker_service"), WORKER_SERVICE_KEYS)):
+        unknown = sorted(set(raw or {}) - known)
+        if unknown:
+            raise ValueError(f"llm_gateway config: unknown {block} keys {unknown}")
+
+
+def build_federated_pool(cfg: dict[str, Any],
+                         registry: Callable[[], Optional[WorkerRegistry]]
+                         ) -> FederatedServingPool:
+    """The federated pool over the hub's worker registry (resolved at each
+    use, so the hub may come up after the gateway): a cached
+    :class:`GrpcLlmWorkerClient` per placed host, an observability client per
+    host for stitched timelines and remote failpoints, and the fleet's
+    reasons on the doctor's /readyz (:meth:`LlmGatewayModule.stop` detaches
+    them)."""
+    fed = dict(cfg.get("federation") or {})
+    auth = fed.get("worker_auth_token") or (cfg.get("worker_service") or {}).get("token")
+    obs = dict(fed.get("observability") or {})
+    config = FederationConfig(
+        prefix_slack=int(fed.get("prefix_slack", 2)),
+        max_failovers=int(fed.get("max_failovers", 2)),
+        failover_backoff_s=float(fed.get("failover_backoff_s", 0.05)),
+        block_chars=int(fed.get("block_chars", 48)),
+        max_blocks=int(fed.get("max_blocks", 64)),
+        seed=int(fed.get("seed", 0)),
+        stitch_timeout_s=float(obs.get("stitch_timeout_s", 2.0)),
+        host_metrics=bool(obs.get("host_metrics", True)),
+    )
+    pool = FederatedServingPool(
+        registry, lambda w: GrpcLlmWorkerClient(endpoint=w.endpoint, auth_token=auth),
+        ChatStreamChunk, config,
+        obs_client_factory=lambda w: WorkerObservabilityClient(w.endpoint, auth_token=auth))
+    default_doctor.set_fleet_provider(pool.fleet.readiness_reasons)
+    return pool
+
+
+def build_worker(cfg: dict[str, Any],
+                 registry: Callable[[], Optional[WorkerRegistry]]) -> Any:
+    """The worker the handlers serve through: the federated pool (before a
+    remote worker, before the local one), as the JAX module picks it."""
+    check_config(cfg)
+    if (cfg.get("federation") or {}).get("enabled"):
+        return build_federated_pool(cfg, registry)
+    if cfg.get("remote_worker_endpoint"):
+        return GrpcLlmWorkerClient(endpoint=str(cfg["remote_worker_endpoint"]),
+                                   auth_token=(cfg.get("worker_service") or {}).get("token"))
+    return LocalTorchWorker(cfg.get("worker"))
 
 
 class LlmGatewayModule:
@@ -433,6 +503,22 @@ class LlmGatewayModule:
                               "limit": len(models)}}
 
     # ------------------------------------------------------------- registration
+    def register_grpc(self, server: Any, config: dict[str, Any]) -> None:
+        """With ``worker_service.expose``, serve the worker on ``server`` as
+        llmworker.v1.LlmWorkerService. A remote worker or the federated pool
+        is never served again: a proxy of other hosts' engines adds a hop a
+        call, and two hosts pointing at each other would recurse."""
+        ws = config.get("worker_service") or {}
+        if ws.get("expose") and not isinstance(self.worker, (GrpcLlmWorkerClient,
+                                                             FederatedServingPool)):
+            register_llm_worker_service(server, self.worker, auth_token=ws.get("token"))
+
+    def stop(self) -> None:
+        """Detach the fleet's /readyz feed: a stopped federated stack's hosts
+        must not colour the next stack's readiness."""
+        if getattr(self.worker, "fleet", None) is not None:
+            default_doctor.set_fleet_provider(None)
+
     def register_rest(self, router: RestRouter) -> None:
         m = "llm_gateway"
         router.route("POST", "/v1/chat/completions", self.handle_chat, sse=True, module=m)

@@ -65,16 +65,35 @@ built once on first use (a named checkpoint that is missing raises; no
 checkpoint serves random weights, with a warning), run in fixed batches of
 8 × ``min(max_position, 128)`` tokens on an executor thread; the token
 count comes from the model's tokenizer.
+
+Federation: :meth:`LocalTorchWorker.federation_census` is the heartbeat's
+gossip (load, capacity and tenants, models, the digest chains of prompts
+whose KV prefix is still resident, recent request → trace ids, and
+:meth:`LocalTorchWorker.observability_census`: the ``llm_*`` metrics, a
+compact doctor report and recent terminals; the worker config's
+``observability.enabled: false`` leaves that part out). A federated stream
+(``_fed_token_stream``) yields one chunk a token, text or not, so the
+gateway keeps an exact token ledger; a failover continuation
+(``_resume_token_ids``, ``_resume_sent_text``) prefills the prompt and the
+tokens already delivered as one prompt and emits only the text not yet
+sent. :func:`serve` (``python -m
+cyberfabric_core_tpu_torch.modules.llm_gateway.worker`` with
+``FED_WORKER_CONFIG``) runs the worker as a federation host.
 """
 
 from __future__ import annotations
 
 import asyncio
 import gc
+import json
 import logging
+import os
+import signal
+import sys
 import threading
 import time
 import uuid
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
@@ -84,14 +103,18 @@ import numpy as np
 import torch
 
 from ...device import resolve_device, to_device
+from ...modkit.doctor import DoctorConfig, default_doctor
 from ...modkit.errcat import ERR
 from ...modkit.errors import ProblemError
 from ...modkit.failpoints import failpoint_async
 from ...modkit.flight_recorder import annotate_request, default_recorder
+from ...modkit.metrics import default_registry
+from ...modkit.telemetry import traceparent_ids
 from ...models import bert
 from ...models.configs import ModelConfig, get_config
 from ...parallel.feasibility import InfeasiblePlanError
 from ...device import on_card
+from ...runtime.federation import digest_chain, prompt_text
 from ...runtime.engine import (EngineConfig, InferenceEngine, SamplingParams,
                                SchedulerSaturated, StepEvent, TenantQuotaExceeded,
                                TenantSaturated)
@@ -111,9 +134,11 @@ logger = logging.getLogger("llm_worker")
 SCHEDULERS = ("continuous", "lockstep")
 
 #: the worker config keys (``llm_gateway.config.worker``); ``batch_window_ms``
-#: paces the lockstep batcher only
+#: paces the lockstep batcher only; ``observability`` (``enabled``) gates the
+#: census's observability payload
 WORKER_KEYS = frozenset({"device", "scheduler", "max_engine_threads", "batch_window_ms",
-                         "max_loaded_models", "hbm_bytes", "hbm_headroom_frac"})
+                         "max_loaded_models", "hbm_bytes", "hbm_headroom_frac",
+                         "observability"})
 
 
 def _parse_lookahead(raw: Any) -> int:
@@ -282,9 +307,12 @@ class IncrementalDetokenizer:
     a replacement character once sent cannot be taken back. So the streamed
     text is the one-shot decode of the stream's tokens."""
 
-    def __init__(self, tokenizer: Tokenizer) -> None:
+    def __init__(self, tokenizer: Tokenizer, carried: Sequence[int] = ()) -> None:
         self._tok = tokenizer
-        self._tail: list[int] = []
+        #: ``carried``: a failover continuation's tokens, whose text was
+        #: already generated; they start the unstable tail, so a character
+        #: split across the carried and the new tokens decodes whole
+        self._tail: list[int] = list(carried)
         self._stable = ""
 
     def push(self, token_id: Optional[int], final: bool = False) -> str:
@@ -463,6 +491,11 @@ class LocalTorchWorker(LlmWorkerApi):
         self._tokens_out = 0
         #: request ids with a stream open (a reused client id gets a suffix)
         self._live: set[str] = set()
+        #: the federation census's bounded logs: request id → (model, digest
+        #: chain, prompt ids) and request id → trace id
+        self._prefix_log: OrderedDict[str, tuple[str, list[str], list[int]]] = OrderedDict()
+        self._recent_traces: OrderedDict[str, str] = OrderedDict()
+        self._census_lock = threading.Lock()
 
     @property
     def device(self) -> str:
@@ -636,18 +669,21 @@ class LocalTorchWorker(LlmWorkerApi):
     def chat_stream(self, model: ModelInfo, messages: list[dict],
                     params: dict) -> AsyncIterator[ChatStreamChunk]:
         # the rendered template carries bos and specials literally: encoding
-        # must not add a second bos
+        # must not add a second bos. The census digests the raw message text,
+        # as the federated router does on its side of the wire
         return self._stream(model, params, lambda entry: entry.tokenizer.encode(
-            render_chat(messages, entry.model_family), add_specials=False))
+            render_chat(messages, entry.model_family), add_specials=False),
+            prompt_text(messages=messages))
 
     def completion_stream(self, model: ModelInfo, prompt: str,
                           params: dict) -> AsyncIterator[ChatStreamChunk]:
         """Raw text completion: the prompt tokenized verbatim, no template."""
-        return self._stream(model, params, lambda entry: entry.tokenizer.encode(prompt))
+        return self._stream(model, params, lambda entry: entry.tokenizer.encode(prompt),
+                            prompt_text(prompt=prompt))
 
     async def _stream(self, model: ModelInfo, params: dict,
-                      encode: Callable[[_EngineEntry], list[int]]
-                      ) -> AsyncIterator[ChatStreamChunk]:
+                      encode: Callable[[_EngineEntry], list[int]],
+                      census_text: str) -> AsyncIterator[ChatStreamChunk]:
         """One request: the model's engine (built on first use), the prompt's
         ids, and :meth:`_generate_from_ids`, with the stream counted on the
         entry from the lookup on, with no await between, so hot-swap never
@@ -656,7 +692,7 @@ class LocalTorchWorker(LlmWorkerApi):
         entry = await self._entry_for(model)
         prompt_ids = encode(entry)
         entry.streams += 1
-        agen = self._generate_from_ids(entry, model, prompt_ids, params)
+        agen = self._generate_from_ids(entry, model, prompt_ids, params, census_text)
         try:
             async for chunk in agen:
                 yield chunk
@@ -711,8 +747,8 @@ class LocalTorchWorker(LlmWorkerApi):
         annotate_request(request_id, model=model_id, tenant=tenant)
 
     async def _generate_from_ids(self, entry: _EngineEntry, model: ModelInfo,
-                                 prompt_ids: list[int],
-                                 params: dict) -> AsyncIterator[ChatStreamChunk]:
+                                 prompt_ids: list[int], params: dict,
+                                 census_text: str) -> AsyncIterator[ChatStreamChunk]:
         # an armed raise crashes the job at the worker boundary, before the
         # engine sees it
         await failpoint_async("llm_gateway.worker_stream")
@@ -733,9 +769,22 @@ class LocalTorchWorker(LlmWorkerApi):
             raise ERR.llm.context_length_exceeded.error(
                 f"prompt of {len(prompt_ids)} tokens exceeds engine window "
                 f"{entry.config.max_seq_len}")
+        # a federated failover's continuation: the surviving host prefills
+        # the prompt and the tokens already delivered, so the client's stream
+        # goes on as if the host had not changed
+        n_prompt = len(prompt_ids)
+        resume_ids = [int(t) for t in (params.get("_resume_token_ids") or ())]
+        if resume_ids:
+            prompt_ids = list(prompt_ids) + resume_ids
+            if len(prompt_ids) >= entry.config.max_seq_len:
+                raise ERR.llm.context_length_exceeded.error(
+                    f"prompt of {n_prompt} tokens + {len(resume_ids)} carried failover "
+                    f"tokens exceeds engine window {entry.config.max_seq_len}")
         request_id = params.get("_request_id") or f"chat-{uuid.uuid4().hex[:20]}"
         if request_id in self._live:
             request_id = f"{request_id}-{uuid.uuid4().hex[:8]}"
+        self._note_census(request_id, model.canonical_id, census_text, prompt_ids[:n_prompt],
+                          params.get("_traceparent"))
         if entry.scheduler is not None and not entry.scheduler.servable() \
                 and entry.supervisor is not None:
             # rebuild in place off the event loop before admitting
@@ -755,8 +804,12 @@ class LocalTorchWorker(LlmWorkerApi):
         self._live.add(request_id)
         stop_strings = tuple(params.get("stop", ()) or ())
         max_stop_len = max((len(s) for s in stop_strings), default=0)
-        detok = IncrementalDetokenizer(entry.tokenizer)
-        sent_text = ""
+        detok = IncrementalDetokenizer(entry.tokenizer, resume_ids)
+        #: what the client already holds (a continuation's carried text)
+        sent_text = str(params.get("_resume_sent_text") or "") if resume_ids else ""
+        #: federated: one chunk a token event, text or not (the gateway keeps
+        #: an exact token ledger for failover and drops empty chunks)
+        fed_stream = bool(params.get("_fed_token_stream"))
         stop_hit = False
         n_tokens = 0
         #: flips once the engine ended the request: the finally below
@@ -825,6 +878,7 @@ class LocalTorchWorker(LlmWorkerApi):
                         stop_hit = True
                 if delta:
                     sent_text += delta
+                if delta or (fed_stream and ev.token_id >= 0):
                     yield ChatStreamChunk(request_id=request_id, text=delta,
                                           token_id=ev.token_id if ev.token_id >= 0 else None)
                 if ev.finished or stop_hit:
@@ -1087,6 +1141,117 @@ class LocalTorchWorker(LlmWorkerApi):
         return {"index": index, "model": row["model"], "replica": i, "action": action,
                 "lifecycle": result}
 
+    # ------------------------------------------------------- federation census
+    def _note_census(self, request_id: str, model_key: str, census_text: str,
+                     prompt_ids: list[int], trace: Optional[str]) -> None:
+        """Bounded gossip bookkeeping on the serving path: this prompt's
+        digest chain and ids (probed against the live prefix pools at census
+        time) and the request → trace join. Never raises."""
+        try:
+            chain = digest_chain(census_text) if census_text else []
+            with self._census_lock:
+                if chain:
+                    self._prefix_log[request_id] = (model_key, chain, list(prompt_ids))
+                    while len(self._prefix_log) > 64:
+                        self._prefix_log.popitem(last=False)
+                if trace:
+                    trace_id, _ = traceparent_ids(trace)
+                    if trace_id:
+                        self._recent_traces[request_id] = trace_id
+                        while len(self._recent_traces) > 64:
+                            self._recent_traces.popitem(last=False)
+        except Exception:  # noqa: BLE001 — gossip must not fail serving
+            pass
+
+    def _prefix_gossip(self) -> dict[str, list[list[str]]]:
+        """model → digest chains of the prefixes resident in KV now: each
+        logged prompt is probed with ``peek_prefix_len`` against the model's
+        live prefix pools and its chain cut to the covered fraction, so an
+        evicted prefix leaves the gossip within one heartbeat. A stale hint
+        costs one prefill on the wrong host, never correctness."""
+        with self._census_lock:
+            logged = list(self._prefix_log.values())
+        out: dict[str, list[list[str]]] = {}
+        for model_key, chain, ids in logged:
+            entry = self._entries.get(model_key)
+            if entry is None or not ids:
+                continue
+            pools = []
+            if entry.scheduler is not None:
+                pools.append(entry.scheduler.pool)
+            if entry.pool is not None:
+                pools.extend(getattr(r, "pool", None) for r in list(entry.pool.replicas))
+            best = 0
+            for pool in pools:
+                if pool is None:
+                    continue
+                try:
+                    best = max(best, int(pool.peek_prefix_len(list(ids))))
+                except Exception:  # noqa: BLE001 — a dying engine
+                    continue
+            if best <= 0:
+                continue
+            trimmed = chain[:min(len(chain), max(1, (len(chain) * best) // len(ids)))]
+            chains = out.setdefault(model_key, [])
+            if trimmed not in chains:
+                chains.append(trimmed)
+        return out
+
+    def federation_census(self) -> dict[str, Any]:
+        """The heartbeat's gossip: live load, capacity and tenants, loaded
+        models, KV-resident prefix digests, recent request → trace ids, and
+        the observability payload."""
+        load = 0
+        for _name, sched in self.schedulers():
+            try:
+                st = sched.stats()
+                load += int(st.get("active", 0)) + int(st.get("pending", 0)) \
+                    + int(st.get("prefilling", 0))
+            except Exception:  # noqa: BLE001 — a dying engine
+                continue
+        with self._census_lock:
+            traces = dict(self._recent_traces)
+        census = {
+            "load": load,
+            "capacity": {**self.replica_capacity(), "tenants": self.tenant_usage()},
+            "models": sorted(self._entries),
+            "requests_served": self._requests_served,
+            "prefix": self._prefix_gossip(),
+            "recent_traces": traces,
+        }
+        obs = self.observability_census()
+        if obs is not None:
+            census["observability"] = obs
+        return census
+
+    def observability_census(self) -> Optional[dict[str, Any]]:
+        """The census's observability payload: the ``llm_*`` metrics
+        snapshot, a compact doctor report (state, the last evaluation's
+        reasons and objective rows, trips, shed tenants) and the recent
+        terminals; None when the worker config's ``observability.enabled``
+        is false. Never raises: a broken export leaves a bare heartbeat."""
+        if not bool((self._config.get("observability") or {}).get("enabled", True)):
+            return None
+        try:
+            doc = default_doctor.report()
+            last = doc.get("last_eval") or {}
+            return {
+                "metrics": default_registry.snapshot("llm_"),
+                "doctor": {
+                    "state": doc.get("state"),
+                    "state_since": doc.get("state_since"),
+                    "reasons": list(last.get("reasons") or ()),
+                    "objectives": list(last.get("objectives") or ()),
+                    "watchdog_trips": doc.get("watchdog_trips") or {},
+                    "shed_tenants": doc.get("shed_tenants") or [],
+                    "evals": doc.get("evals", 0),
+                },
+                "terminals": default_recorder.recent(8),
+                "ts": time.time(),
+            }
+        except Exception:  # noqa: BLE001 — the heartbeat must still go out
+            return None
+
     # ------------------------------------------------------------------ health
     async def health(self) -> dict[str, Any]:
         return {
@@ -1112,3 +1277,121 @@ class LocalTorchWorker(LlmWorkerApi):
         self._entries.clear()
         self._embed_entries.clear()
         self._executor.shutdown(wait=False, cancel_futures=True)
+
+
+# ------------------------------------------------------------- serve mode
+#
+# ``python -m cyberfabric_core_tpu_torch.modules.llm_gateway.worker`` with a
+# FED_WORKER_CONFIG env JSON runs this worker as a federation host:
+#
+#   {"hub_endpoint": "127.0.0.1:PORT",      # the gateway's grpc_hub
+#    "host": "worker-0",                    # display name in the registry
+#    "auth_token": "...",                   # bearer for this LlmWorkerService
+#    "hub_auth_token": "...",               # bearer for the hub's registry
+#    "worker": {...LocalTorchWorker config...},
+#    "observability": {"enabled", "allow_fault_injection", "doctor"},
+#    "models": [...model_ref dicts, built at boot...],
+#    "roles": ["chat"], "heartbeat_interval_s": 1.0,
+#    "bind_addr": "127.0.0.1:0", "advertise_host": "127.0.0.1"}
+#
+# Boot: build the engines → bind LlmWorkerService → announce → print the
+# READY line → heartbeat the census (announcing again when evicted) →
+# SIGTERM withdraws.
+
+async def serve(cfg: dict[str, Any]) -> None:
+    from ..grpc_hub import WorkerRegistryClient
+    from ...modkit.transport_grpc import JsonGrpcServer
+    from .grpc_service import (model_from_ref, register_llm_worker_service,
+                               register_worker_observability_service)
+
+    worker_cfg = dict(cfg.get("worker") or {})
+    obs_cfg = dict(cfg.get("observability") or {})
+    # the worker-level flag is what observability_census() reads
+    worker_cfg.setdefault("observability", {"enabled": obs_cfg.get("enabled", True)})
+    obs_enabled = bool(obs_cfg.get("enabled", True))
+
+    worker = LocalTorchWorker(worker_cfg)
+    if obs_enabled:
+        # this process's own doctor: burn rates over its own terminals, fed
+        # back to the gateway on every heartbeat
+        default_doctor.configure(DoctorConfig.from_config(obs_cfg.get("doctor") or {}))
+        default_doctor.set_scheduler_provider(worker.schedulers)
+        default_doctor.set_capacity_provider(worker.replica_capacity)
+        default_doctor.ensure_started()
+    server = JsonGrpcServer()
+    registry: Optional[WorkerRegistryClient] = None
+    instance_id: Optional[str] = None
+    try:
+        models = [model_from_ref(m) for m in (cfg.get("models") or [])]
+        for m in models:
+            # pay the engine build (and on the card its graph capture) at
+            # boot, not on the first routed request
+            await worker._entry_for(m)
+        register_llm_worker_service(server, worker, auth_token=cfg.get("auth_token"))
+        if obs_enabled:
+            register_worker_observability_service(
+                server, allow_fault_injection=bool(obs_cfg.get("allow_fault_injection")),
+                auth_token=cfg.get("auth_token"))
+        port = await server.start(str(cfg.get("bind_addr", "127.0.0.1:0")))
+        endpoint = f"{cfg.get('advertise_host', '127.0.0.1')}:{port}"
+        host_label = str(cfg.get("host") or f"worker-{os.getpid()}")
+        registry = WorkerRegistryClient(str(cfg["hub_endpoint"]),
+                                        auth_token=cfg.get("hub_auth_token"))
+        info = {"host": host_label, "endpoint": endpoint, "pid": os.getpid(),
+                "models": [m.canonical_id for m in models],
+                "roles": list(cfg.get("roles") or ())}
+        instance_id = str((await registry.announce(info))["instance_id"])
+        await registry.heartbeat(instance_id, worker.federation_census())
+        # the parent blocks on this line before it routes to the host
+        print(json.dumps({"ready": True, "endpoint": endpoint, "instance_id": instance_id,
+                          "host": host_label, "pid": os.getpid()}), flush=True)
+
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            loop.add_signal_handler(sig, stop.set)
+        interval = float(cfg.get("heartbeat_interval_s", 1.0))
+        while not stop.is_set():
+            try:
+                await asyncio.wait_for(stop.wait(), timeout=interval)
+                break
+            except asyncio.TimeoutError:
+                pass
+            try:
+                if not await registry.heartbeat(instance_id, worker.federation_census()):
+                    # evicted (a hub restart or a missed lease window):
+                    # announce again under a fresh lease
+                    instance_id = str((await registry.announce(info))["instance_id"])
+            except Exception:  # noqa: BLE001 — a hub outage must not end the host
+                logger.exception("federation heartbeat failed")
+    finally:
+        if registry is not None:
+            if instance_id is not None:
+                try:
+                    await registry.withdraw(instance_id)  # graceful departure
+                except Exception:  # noqa: BLE001 — the hub may be gone already
+                    pass
+            await registry.close()
+        await server.stop()
+        if obs_enabled:
+            default_doctor.stop()
+            default_doctor.detach_recorder()
+            default_doctor.set_scheduler_provider(None)
+            default_doctor.set_capacity_provider(None)
+        await asyncio.get_running_loop().run_in_executor(None, worker.close)
+
+
+def main() -> int:
+    raw = os.environ.get("FED_WORKER_CONFIG")
+    if not raw:
+        print("worker serve mode requires the FED_WORKER_CONFIG env var (JSON: "
+              "hub_endpoint, host, worker, models, ...)", file=sys.stderr)
+        return 2
+    logging.basicConfig(level=logging.WARNING,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    asyncio.run(serve(json.loads(raw)))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,5 +1,4 @@
-"""The monitoring module (the port's counterpart of ``modules/monitoring.py``,
-without the federation's ``/v1/monitoring/workers`` and ``/fleet``).
+"""The monitoring module (the port's counterpart of ``modules/monitoring.py``).
 
 It owns the process-global metrics registry's families, the doctor's
 configuration and lifetime, and the operator surface:
@@ -11,20 +10,31 @@ configuration and lifetime, and the operator surface:
   gauges read the serving CUDA card through ``torch.cuda``'s allocator
   counters, which are host-side: a scrape never synchronises the card. The
   device families keep JAX's ``tpu_`` names so scrapers and dashboards built
-  on the JAX exposition keep working; their help text names the card.
+  on the JAX exposition keep working; their help text names the card. A
+  federated gateway merges its worker hosts' heartbeat snapshots into the
+  exposition, labelled ``host``, with one ``llm_remote_workers_healthy``
+  sample a host.
 - ``POST /v1/monitoring/profiler/start`` and ``/stop``: a ``torch.profiler``
   trace (CPU, and CUDA with a card) of everything the process runs between
   the two, written as a chrome trace into ``<home_dir>/profiles/trace-<ts>/``.
 - ``GET/PUT/DELETE /v1/monitoring/failpoints[/{name}]``: the failpoint
-  catalog, arming and disarming (403 unless ``allow_fault_injection``).
+  catalog, arming and disarming (403 unless ``allow_fault_injection``); a
+  ``host`` in the body (``?host=`` on DELETE) arms or disarms the point on
+  that federated worker host.
 - ``GET /v1/monitoring/requests`` (``?stalled=``, ``?recent=``),
   ``/requests/{request_id}`` and ``/rounds`` (``?format=chrome-trace``,
-  ``?limit=``): the flight recorder and the engines' round timings.
+  ``?limit=``): the flight recorder and the engines' round timings. In a
+  federated stack a request's timeline stitches in the segments of the
+  worker hosts that served it.
 - ``GET /v1/monitoring/slo``: the doctor's report.
 - ``GET /v1/monitoring/replicas`` and ``POST
   /v1/monitoring/replicas/{index}/drain|undrain|restart`` (``?model=``: 409
   when the index now names another model).
 - ``GET /v1/monitoring/tenants[/{tenant_id}]``.
+- ``GET /v1/monitoring/workers[/{instance_id}]``: the federation's worker
+  census (leases, load, prefix index, recent evictions).
+- ``GET /v1/monitoring/fleet`` (``?host=``): the fleet's health fold over
+  the worker hosts' heartbeats.
 
 Each route is a thin adapter over a plain method that returns a dict (or
 raises a problem), so the HTTP tier can change under them.
@@ -47,6 +57,7 @@ from ..modkit.doctor import Doctor, DoctorConfig, default_doctor
 from ..modkit.errcat import ERR
 from ..modkit.flight_recorder import FlightRecorder, default_recorder
 from ..modkit.metrics import MetricsRegistry, default_registry
+from ..runtime.federation import stitch_timelines
 from ..runtime.lifecycle import LifecycleStateError
 from ..runtime.scheduler import _snapshot
 
@@ -168,7 +179,6 @@ def pre_register(registry: MetricsRegistry) -> None:
       "Federated host placements by routing reason (prefix/health/load/random)").inc(0.0)
     c("llm_federated_failovers_total",
       "Mid-stream requests re-prefilled on a surviving host").inc(0.0)
-    g("llm_remote_workers_healthy", "Worker hosts holding a live federation lease").set(0.0)
     c("llm_replica_rebuilds_total", "Replica rebuilds by outcome (ok/failed)").inc(0.0)
     g("llm_replicas_healthy", "Replicas in lifecycle state healthy").set(0.0)
     g("llm_replicas_benched", "Replicas benched after repeated strikes").set(0.0)
@@ -181,17 +191,21 @@ def pre_register(registry: MetricsRegistry) -> None:
 class MonitoringModule:
     """``config`` is the ``monitoring`` module's ``config`` section;
     ``worker`` the llm worker whose engines the gauges, the doctor and the
-    routes read; ``home_dir`` where device traces go."""
+    routes read (in a federated stack, the federated pool); ``home_dir``
+    where device traces go; ``workers`` resolves the grpc hub's worker
+    registry (None, or resolving None: not a federated stack)."""
 
     def __init__(self, config: Optional[dict[str, Any]], worker: Any, home_dir: Path,
                  registry: Optional[MetricsRegistry] = None,
                  doctor: Doctor = default_doctor,
-                 recorder: FlightRecorder = default_recorder) -> None:
+                 recorder: FlightRecorder = default_recorder,
+                 workers: Optional[Callable[[], Any]] = None) -> None:
         config = dict(config or {})
         unknown = sorted(set(config) - CONFIG_KEYS)
         if unknown:
             raise ValueError(f"monitoring config: unknown keys {unknown}")
         self.worker = worker
+        self._workers = workers or (lambda: None)
         self.home_dir = Path(home_dir)
         self.registry = registry or default_registry
         self.recorder = recorder
@@ -243,7 +257,8 @@ class MonitoringModule:
         g = self.registry.gauge
 
         def device_count() -> float:
-            on_card = str(self.worker.device) != "cpu"
+            # a federated gateway holds no engine: its cards are the hosts'
+            on_card = str(getattr(self.worker, "device", "cpu")) != "cpu"
             return float(torch.cuda.device_count()) if on_card and \
                 torch.cuda.is_available() else 0.0
 
@@ -282,6 +297,12 @@ class MonitoringModule:
           "(the allocator's bytes in use over the CUDA card's total memory; off the "
           "card, the worst enforced feasibility plan's)"
           ).set_function(hbm_utilization_per_device)
+        def remote_workers_healthy() -> float:
+            reg = self._workers()
+            return float(reg.healthy()) if reg is not None else 0.0
+
+        g("llm_remote_workers_healthy", "Worker hosts holding a live federation lease"
+          ).set_function(remote_workers_healthy)
         g("llm_batch_active_slots", "Active continuous-batching slots").set_function(
             lambda: float(sum(s.active_slots for s in self._schedulers())))
 
@@ -373,6 +394,15 @@ class MonitoringModule:
 
     # ------------------------------------------------------------ surfaces
     def metrics_text(self) -> str:
+        """The exposition; a federated gateway's merges the worker hosts'
+        snapshots, host-labelled (a failing fold falls back to the plain
+        render, never to a scrape error)."""
+        fleet = getattr(self.worker, "fleet", None)
+        if fleet is not None:
+            try:
+                return fleet.render_with(self.registry)
+            except Exception:  # noqa: BLE001
+                logger.exception("fleet metrics fold failed")
         return self.registry.render()
 
     def profiler_start(self) -> dict[str, Any]:
@@ -426,12 +456,34 @@ class MonitoringModule:
                 "armed": {name: action.__dict__ for name, action in fp.armed().items()},
                 "stats": fp.stats()}
 
-    def arm_failpoint(self, name: str, body: dict[str, Any]) -> dict[str, Any]:
+    async def _remote_failpoint(self, host: str, action: str, name: str, spec: Any,
+                                seed: Optional[int]) -> dict[str, Any]:
+        """A failpoint armed or disarmed on a federated worker host over its
+        observability service; its refusals map onto the local problems."""
+        remote = getattr(self.worker, "remote_failpoint", None)
+        if remote is None:
+            raise ERR.monitoring.unknown_host.error(
+                f"unknown worker host {host!r} (not a federated stack)")
+        try:
+            resp = await remote(host, action, name, spec, seed=seed)
+        except KeyError:
+            raise ERR.monitoring.unknown_host.error(f"unknown worker host {host!r}")
+        if not resp.get("ok"):
+            err = str(resp.get("error") or "remote refusal")
+            if "unknown failpoint" in err:
+                raise ERR.monitoring.unknown_failpoint.error(err)
+            if "disabled" in err:
+                raise ERR.monitoring.faultlab_disabled.error(f"worker host {host!r}: {err}")
+            raise ERR.monitoring.bad_failpoint_spec.error(err[:200])
+        return resp
+
+    async def arm_failpoint(self, name: str, body: dict[str, Any]) -> dict[str, Any]:
         self._require_faultlab()
         if body.get("host"):
-            raise ERR.llm.not_ported.error(
-                "arming a failpoint on another host is not served by the port yet "
-                "(ROADMAP queue 1 item 1: the federated-worker entry)")
+            # the point fires in the worker host's process, not here
+            await self._remote_failpoint(body["host"], "arm", name,
+                                         body.get("spec", "raise"), body.get("seed"))
+            return {"armed": name, "host": body["host"]}
         if "seed" in body:
             fp.configure(int(body["seed"]))
         try:
@@ -442,8 +494,11 @@ class MonitoringModule:
             raise ERR.monitoring.bad_failpoint_spec.error(str(e)[:200])
         return {"armed": name, "stats": fp.stats()}
 
-    def disarm_failpoint(self, name: str) -> dict[str, Any]:
+    async def disarm_failpoint(self, name: str, host: Optional[str] = None) -> dict[str, Any]:
         self._require_faultlab()
+        if host:
+            await self._remote_failpoint(host, "disarm", name, "off", None)
+            return {"disarmed": True, "host": host}
         if name not in fp.FAILPOINT_CATALOG:
             raise ERR.monitoring.unknown_failpoint.error(f"unknown failpoint {name!r}")
         return {"disarmed": fp.disarm(name)}
@@ -459,13 +514,31 @@ class MonitoringModule:
         return {"in_flight": rows, "recent": self.recorder.recent(recent),
                 "recorder": self.recorder.stats()}
 
-    def request_timeline(self, request_id: str) -> dict[str, Any]:
+    async def request_timeline(self, request_id: str) -> dict[str, Any]:
+        """The request's flight record; in a federated stack, stitched with
+        the segment of every worker host its gateway events name (the
+        serving host, a failover's host), pulled over the observability
+        wire. A dead host's segment is just absent."""
         rec = self.recorder.lookup(request_id)
         if rec is None:
             raise ERR.monitoring.unknown_request.error(
                 f"no flight record for request {request_id!r} (live table + finished "
                 "ring miss — it may have aged out)")
-        return rec
+        fetch = getattr(self.worker, "fetch_remote_timeline", None)
+        if fetch is None:
+            return rec
+        hosts: list[str] = []
+        for ev in rec.get("timeline") or ():
+            for key in ("worker_host", "from_host"):
+                h = ev.get(key)
+                if h and h not in hosts:
+                    hosts.append(h)
+        segments = {}
+        for h in hosts:
+            seg = await fetch(h, request_id)
+            if seg is not None:
+                segments[h] = seg
+        return stitch_timelines(rec, segments) if segments else rec
 
     def rounds(self, fmt: str = "json", limit: int = 512) -> dict[str, Any]:
         if fmt not in ("json", "chrome-trace"):
@@ -504,6 +577,43 @@ class MonitoringModule:
     def tenants(self) -> dict[str, Any]:
         rows = self._tenant_rows()
         return {"tenants": [rows[t] for t in sorted(rows)], "count": len(rows)}
+
+    def workers(self) -> dict[str, Any]:
+        """The federation's worker census (an empty table off federation)."""
+        reg = self._workers()
+        if reg is None:
+            return {"workers": [], "evicted": [], "lease_ttl_s": 0.0,
+                    "prefix_index_size": 0, "federation": False}
+        return {**reg.rows(), "federation": True}
+
+    def worker_row(self, instance_id: str) -> dict[str, Any]:
+        reg = self._workers()
+        w = reg.lookup(instance_id) if reg is not None else None
+        if w is None:
+            raise ERR.monitoring.unknown_worker.error(
+                f"no live federation lease for worker {instance_id!r} (never announced, "
+                "withdrawn, or evicted)")
+        return w.row(lease_ttl_s=reg.lease_ttl_s)
+
+    def fleet(self, host: Optional[str] = None) -> dict[str, Any]:
+        """The fleet's health fold (``host``: that host's row only; 404 for a
+        host no live lease carries)."""
+        fleet = getattr(self.worker, "fleet", None)
+        if fleet is None:
+            if host:
+                raise ERR.monitoring.unknown_host.error(
+                    f"unknown worker host {host!r} (not a federated stack)")
+            return {"federation": False, "state": "unknown", "reasons": [], "hosts": [],
+                    "objectives": [], "workers": 0, "stale": 0, "lease_ttl_s": 0.0}
+        doc = fleet.report()
+        if host:
+            rows = [r for r in doc["hosts"] if host in (r.get("host"), r.get("instance_id"))]
+            if not rows:
+                raise ERR.monitoring.unknown_host.error(
+                    f"unknown worker host {host!r} (no live lease carries that host name "
+                    "or instance id)")
+            doc = {**doc, "hosts": rows}
+        return doc
 
     def tenant(self, tenant_id: str) -> dict[str, Any]:
         row = self._tenant_rows().get(tenant_id)
@@ -558,7 +668,7 @@ class MonitoringModule:
                 "properties": {"spec": {"type": ["string", "object"]},
                                "seed": {"type": "integer"}, "host": {"type": "string"}},
                 "additionalProperties": False})
-            return self.arm_failpoint(request.match_info["name"], body)
+            return await self.arm_failpoint(request.match_info["name"], body)
 
         def replica_index(request: Request) -> int:
             raw = request.match_info["index"]
@@ -591,13 +701,14 @@ class MonitoringModule:
             return self.list_failpoints()
 
         async def disarm(request: Request) -> dict:
-            return self.disarm_failpoint(request.match_info["name"])
+            return await self.disarm_failpoint(request.match_info["name"],
+                                               request.query.get("host"))
 
         async def reset(request: Request) -> dict:
             return self.reset_failpoints()
 
         async def timeline(request: Request) -> dict:
-            return self.request_timeline(request.match_info["request_id"])
+            return await self.request_timeline(request.match_info["request_id"])
 
         async def slo(request: Request) -> dict:
             return self.slo()
@@ -610,6 +721,15 @@ class MonitoringModule:
 
         async def tenant(request: Request) -> dict:
             return self.tenant(request.match_info["tenant_id"])
+
+        async def workers(request: Request) -> dict:
+            return self.workers()
+
+        async def worker_row(request: Request) -> dict:
+            return self.worker_row(request.match_info["instance_id"])
+
+        async def fleet(request: Request) -> dict:
+            return self.fleet(request.query.get("host"))
 
         for method, path, handler in (
                 ("GET", "/metrics", metrics),
@@ -628,5 +748,8 @@ class MonitoringModule:
                 ("POST", f"{mon}/replicas/{{index}}/undrain", replica_route("undrain")),
                 ("POST", f"{mon}/replicas/{{index}}/restart", replica_route("restart")),
                 ("GET", f"{mon}/tenants", tenants),
-                ("GET", f"{mon}/tenants/{{tenant_id}}", tenant)):
+                ("GET", f"{mon}/tenants/{{tenant_id}}", tenant),
+                ("GET", f"{mon}/workers", workers),
+                ("GET", f"{mon}/workers/{{instance_id}}", worker_row),
+                ("GET", f"{mon}/fleet", fleet)):
             router.route(method, path, handler, module=m)

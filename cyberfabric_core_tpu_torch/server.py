@@ -13,11 +13,17 @@ The config is JSON: ``server`` (``home_dir`` only: where device traces
 go), ``logging``, ``tracing`` (``enabled``, ``sample_ratio``,
 ``otlp_endpoint``, ``service_name``; without the section tracing is off) and
 ``modules`` with the quickstart's ``api_gateway``, ``tenant_resolver``,
-``authn_resolver``, ``model_registry``, ``llm_gateway`` and ``monitoring``
-sections (:class:`Host` checks them). Engines run on the CUDA card unless
-``llm_gateway.config.worker.device`` says ``cpu``; without a card the first
-engine build raises. Any other module or key raises at boot, naming the
-ROADMAP item that brings it.
+``authn_resolver``, ``model_registry``, ``llm_gateway``, ``monitoring`` and
+``grpc_hub`` sections (:class:`Host` checks them). Engines run on the CUDA
+card unless ``llm_gateway.config.worker.device`` says ``cpu``; without a
+card the first engine build raises. Any other module or key raises at boot,
+naming the ROADMAP item that brings it.
+
+A federated gateway runs ``grpc_hub`` with
+``llm_gateway.config.federation.enabled`` and holds no engine: worker hosts
+(``python -m cyberfabric_core_tpu_torch.modules.llm_gateway.worker`` with
+``FED_WORKER_CONFIG``) announce themselves to the hub's endpoint
+(``Host.hub.endpoint``) and serve the requests the gateway routes to them.
 """
 
 from __future__ import annotations
@@ -35,8 +41,8 @@ from typing import Any, Optional, Sequence
 from .gateway.module import ApiGateway, GatewayConfig
 from .gateway.router import RestRouter
 from .modkit.telemetry import Tracer, set_global_tracer, tracer_from_config
-from .modules.llm_gateway.module import LlmGatewayModule
-from .modules.llm_gateway.worker import LocalTorchWorker
+from .modules.grpc_hub import GrpcHubModule
+from .modules.llm_gateway.module import LlmGatewayModule, build_worker
 from .modules.model_registry import ModelRegistry
 from .modules.monitoring import MonitoringModule
 
@@ -47,7 +53,6 @@ QUICKSTART = Path(__file__).parent / "config" / "quickstart.json"
 #: modules of the JAX host's configs the port does not serve, by ROADMAP item
 _UNPORTED_MODULES = {
     "authz_resolver": "15 (auth modes)",
-    "grpc_hub": "1 (the federated-worker entry)",
     "types_registry": "17 (the other host modules)",
     "types": "17 (the other host modules)",
     "module_orchestrator": "17 (the other host modules)",
@@ -110,9 +115,10 @@ def _tenant(modules: dict[str, Any], gateway: GatewayConfig) -> str:
 
 
 class Host:
-    """The assembled host: registry, worker, llm-gateway handlers and the
-    HTTP server. Raises on a module or key the port does not serve; nothing
-    is bound or built until :meth:`start` and the first request."""
+    """The assembled host: registry, worker, llm-gateway handlers, the HTTP
+    server and, with ``grpc_hub``, the gRPC hub. Raises on a module or key the
+    port does not serve; nothing is bound or built until :meth:`start` and
+    the first request."""
 
     def __init__(self, config: dict[str, Any]) -> None:
         for key in config:
@@ -124,7 +130,7 @@ class Host:
                 raise ValueError(f"module {name!r} is not served by the port yet "
                                  f"(ROADMAP queue 1 item {_UNPORTED_MODULES[name]})")
             if name not in ("api_gateway", "tenant_resolver", "authn_resolver",
-                            "model_registry", "llm_gateway", "monitoring"):
+                            "model_registry", "llm_gateway", "monitoring", "grpc_hub"):
                 raise ValueError(f"unknown module {name!r}")
         home_dir = _home_dir(config.get("server"))
         gw_cfg = GatewayConfig.from_config(_section(modules, "api_gateway"))
@@ -133,15 +139,24 @@ class Host:
         # global tracer: one exporter covers HTTP → tokens
         self.tracer = set_global_tracer(_tracer(config.get("tracing")))
         self.registry = ModelRegistry(_section(modules, "model_registry"))
+        self.hub: Optional[GrpcHubModule] = None
+        if "grpc_hub" in modules:
+            self.hub = GrpcHubModule(_section(modules, "grpc_hub"))
+        workers = self._worker_registry
         llm_cfg = _section(modules, "llm_gateway")
-        self.worker = LocalTorchWorker(llm_cfg.get("worker"))
+        if (llm_cfg.get("worker_service") or {}).get("expose") and self.hub is None:
+            raise ValueError("llm_gateway config: worker_service.expose needs the grpc_hub "
+                             "module")
+        self.worker = build_worker(llm_cfg, workers)
         self.llm = LlmGatewayModule(llm_cfg, self.registry, self.worker)
+        if self.hub is not None:
+            self.llm.register_grpc(self.hub.server, llm_cfg)
         router = RestRouter()
         self.llm.register_rest(router)
         self.monitoring: Optional[MonitoringModule] = None
         if "monitoring" in modules:
             self.monitoring = MonitoringModule(_section(modules, "monitoring"),
-                                               self.worker, home_dir)
+                                               self.worker, home_dir, workers=workers)
             self.monitoring.register_rest(router)
             # only a host that runs the doctor sheds
             self.llm.doctor = self.monitoring.doctor
@@ -150,22 +165,43 @@ class Host:
     async def _health(self) -> dict[str, Any]:
         return {"status": "ok", "worker": await self.worker.health()}
 
+    def _worker_registry(self) -> Any:
+        """The federation's worker registry (None without the hub)."""
+        return self.hub.registry if self.hub is not None else None
+
     @property
     def port(self) -> Optional[int]:
         return self.gateway.bound_port
 
     async def start(self) -> None:
-        await self.gateway.start()
+        """The hub first (workers dial it; the pool routes over it), then the
+        HTTP server; a boot that fails after the hub started stops it."""
+        if self.hub is not None:
+            await self.hub.start()
+        try:
+            await self.gateway.start()
+        except BaseException:
+            if self.hub is not None:
+                await self.hub.stop()
+            raise
         if self.monitoring is not None:
             self.monitoring.start()
 
     async def stop(self) -> None:
         """Stop accepting, let requests in progress finish (a few seconds),
-        then retire the doctor and the engines."""
+        then retire the doctor, the engines (or the remote workers'
+        clients) and the hub."""
         await self.gateway.stop()
         if self.monitoring is not None:
             self.monitoring.stop()
-        await asyncio.get_running_loop().run_in_executor(None, self.worker.close)
+        self.llm.stop()
+        close = self.worker.close
+        if asyncio.iscoroutinefunction(close):
+            await close()
+        else:
+            await asyncio.get_running_loop().run_in_executor(None, close)
+        if self.hub is not None:
+            await self.hub.stop()
 
 
 class BackgroundServer:

@@ -168,7 +168,8 @@ def test_config_rejects_what_jax_rejects():
             jdoctor.DoctorConfig.from_config(raw).build_objectives()
         with pytest.raises(ValueError):
             pdoctor.DoctorConfig.from_config(raw).build_objectives()
-    assert not hasattr(pdoctor, "FleetDoctor")
+    # the federation's fold is the port's since its federated-worker entry
+    assert pdoctor.__all__ == jdoctor.__all__ and hasattr(pdoctor.Doctor, "set_fleet_provider")
 
 
 # ------------------------------------------------------------ over REST

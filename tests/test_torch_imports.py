@@ -4,11 +4,16 @@ tier's third-party packages.
 A fresh interpreter imports every module of ``cyberfabric_core_tpu_torch``
 and ``chip_smoke.py``'s imports; afterwards no ``jax*`` and no
 ``cyberfabric_core_tpu`` module may have been loaded by them, and none of
-the packages the JAX host tier serves with (``aiohttp``, ``yaml``,
-``jsonschema``, ``pydantic``, ``grpc``, ``cryptography``, ``psycopg``): the
-port serves on PyTorch and the standard library alone, so it needs none of
-them on a GPU machine. An AST scan of the package's sources finds
-no such import statement either."""
+the packages the JAX host tier serves with but the port does without
+(``aiohttp``, ``yaml``, ``jsonschema``, ``pydantic``, ``cryptography``,
+``psycopg``). An AST scan of the package's sources finds no such import
+statement either.
+
+``grpc`` (with ``google.protobuf``) is the one host package the port
+imports: the federation's wire is the JAX package's ``llmworker.v1`` and
+``directory.v1`` protobuf over ``grpc.aio``, so a JAX gateway and a port
+worker serve each other, and the card's machine has both installed
+(ROADMAP departure 16)."""
 
 import ast
 import json
@@ -33,7 +38,7 @@ def _modules() -> list[str]:
 #: third-party packages of the JAX host tier the port does without (aiohttp
 #: and jsonschema leave the list when the port's HTTP tier moves onto them,
 #: ROADMAP queue 1 item 1)
-HOST_ONLY = ("aiohttp", "yaml", "jsonschema", "pydantic", "grpc", "cryptography", "psycopg")
+HOST_ONLY = ("aiohttp", "yaml", "jsonschema", "pydantic", "cryptography", "psycopg")
 
 
 def _forbidden(name: str) -> bool:

@@ -207,8 +207,11 @@ def test_catalog_is_jax_s_for_the_points_the_port_has():
         assert jfp.FAILPOINT_CATALOG[name][0] == entry[0], name
     assert set(pfp.FAILPOINT_CATALOG) | set(pfp.UNPORTED_FAILPOINTS) == \
         set(jfp.FAILPOINT_CATALOG)
-    with pytest.raises(KeyError, match="ROADMAP queue 1 item 1"):
-        pfp.arm("federation.route", "raise")
+    # the federation's points are the port's since its federated-worker entry
+    pfp.arm("federation.route", "raise")
+    assert pfp.disarm("federation.route")
+    with pytest.raises(KeyError, match="ROADMAP queue 1 item 17"):
+        pfp.arm("http_client.request", "raise")
     with pytest.raises(KeyError, match="ROADMAP queue 1 item 17"):
         pfp.arm("serverless.tick", "raise")
     with pytest.raises(KeyError, match="catalog"):

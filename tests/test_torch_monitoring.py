@@ -278,7 +278,8 @@ def test_failpoints_refused_without_fault_injection(host):
     port = host["port"]
     status, _, doc = _request(port, "GET", "/v1/monitoring/failpoints")
     assert status == 200 and doc["enabled"] is False
-    assert "scheduler.readback" in doc["catalog"] and "federation.route" not in doc["catalog"]
+    assert "scheduler.readback" in doc["catalog"] and "federation.route" in doc["catalog"]
+    assert "serverless.tick" not in doc["catalog"]
     for method, path, body in (("PUT", "/v1/monitoring/failpoints/scheduler.admit",
                                 {"spec": "raise"}),
                                ("DELETE", "/v1/monitoring/failpoints/scheduler.admit", None),
@@ -294,9 +295,18 @@ def test_armed_failpoints_over_rest(host):
         status, _, prob = _request(port, "PUT", "/v1/monitoring/failpoints/no.such",
                                    {"spec": "raise"})
         assert status == 404 and prob["code"] == "unknown_failpoint"
-        status, _, prob = _request(port, "PUT", "/v1/monitoring/failpoints/federation.route",
+        status, _, prob = _request(port, "PUT", "/v1/monitoring/failpoints/serverless.tick",
                                    {"spec": "raise"})
-        assert status == 404 and "ROADMAP queue 1 item 1" in prob["detail"]
+        assert status == 404 and "ROADMAP queue 1 item 17" in prob["detail"]
+        status, _, body = _request(port, "PUT", "/v1/monitoring/failpoints/federation.route",
+                                   {"spec": "raise"})
+        assert status == 200 and body["armed"] == "federation.route"
+        assert _request(port, "DELETE", "/v1/monitoring/failpoints/federation.route")[2] == \
+            {"disarmed": True}
+        # a host of a stack that is not federated is unknown
+        status, _, prob = _request(port, "PUT", "/v1/monitoring/failpoints/scheduler.admit",
+                                   {"spec": "raise", "host": "fedhost-0"})
+        assert status == 404 and prob["code"] == "unknown_host"
         status, _, prob = _request(port, "PUT", "/v1/monitoring/failpoints/scheduler.admit",
                                    {"spec": "explode"})
         assert status == 400 and prob["code"] == "bad_failpoint_spec"
