@@ -27,6 +27,27 @@ fatal on failure:
    kernel's bound, with the kernels' blocks, splits or walked tiles and
    achieved rates; the same timings at tiny-llama's (D 16), phi-3-mini's
    (D 96) and gemma-7b's (D 256) heads;
+3'. training, outside inference mode and before any serving phase: (a) the
+   GPipe pipeline at llama-3-8b widths cut to 4 layers, f32, TF32 off, B=8,
+   T=256, every stage and data-parallel row on the one card: the pipelined
+   loss equal to ``reference_loss_fn``'s within rtol = atol = 2e-5 at (pp,
+   dp, M) = (2, 1, 4), (4, 1, 4) and (2, 2, 2); at (2, 2, 2) the gradients
+   of ``embed``, ``lm_head`` and layer 0's ``wq`` and ``down`` within rtol
+   5e-4, atol 5e-5; over 5 ``make_train_step`` steps on one Markov batch
+   the last loss below the first; the step's ms, training tokens/s and
+   peak memory beside a reference-loss step's ms; (b) ring attention at
+   llama-3-8b's heads, B=1, T=4096 over 4 ranks on the card, f32: the
+   output equal to the plain ``attention_with_cache`` within 2e-5, also
+   with a length, and at T=512 the q, k and v gradients too; (c) the
+   trained pair of ``bench.py --spec-cross``: ``train_lm`` on tiny-llama-8l
+   and tiny-llama (parameter seeds 0 and 99, 300 steps), both losses
+   falling, cast to bf16, the draft saved and served as the lockstep
+   engine's ``draft_checkpoint``: the greedy stream with draft speculation
+   equal to spec off's, acceptance strictly between 0 and 100% at
+   temperature 0 and 0.8, flash launched (counted into the kernels line)
+   and no paged kernel; acceptance, tokens per round, the histogram and
+   tokens/s printed. After each phase here and below, the card's memory as
+   the phase returned and after a cycle collection;
 4. serving, runs of ``ContinuousBatchingEngine`` at llama-3-8b full width
    (random weights from a seed, built once and shared), each from
    quickstart-shaped ``engine_options`` through the llm-gateway worker's own
@@ -243,17 +264,20 @@ fatal on failure:
 7. a ``{"kernels": [...]}`` line (the paged kernels' launches from the HTTP
    storm, the speculative storm at k=4 and the federated storm, each read
    just after its run, the federated storm's in its hosts over Health;
-   flash's from the phase-separated run and the lockstep storm), then
+   flash's from the phase-separated run, the lockstep storm and the trained
+   pair), then
    ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --tp`` runs the mixed storm at tp=1 and phase (ix)
 alone, and prints no result line; ``--federation`` runs the one-host HTTP
-storm (with its gates) and phase 5(k) alone, and prints no result line either.
+storm (with its gates) and phase 5(k) alone, and prints no result line either;
+``--train`` runs the training section (3') alone, with no result line.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -264,12 +288,14 @@ import math
 import os
 import re
 import selectors
+import shutil
 import signal
 import socket
 import subprocess
 import sys
 import threading
 import time
+import types
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -280,11 +306,13 @@ import torch
 from cyberfabric_core_tpu_torch import server
 from cyberfabric_core_tpu_torch.modkit import failpoints
 from cyberfabric_core_tpu_torch.models import llama
+from cyberfabric_core_tpu_torch.models import toytrain
 from cyberfabric_core_tpu_torch.models.configs import MODEL_CONFIGS, get_config
 from cyberfabric_core_tpu_torch.ops import _build
 from cyberfabric_core_tpu_torch.ops import flash_attention as fa
 from cyberfabric_core_tpu_torch.ops import paged_attention as pa
 from cyberfabric_core_tpu_torch.ops import sampling
+from cyberfabric_core_tpu_torch.ops.attention import attention_with_cache
 from cyberfabric_core_tpu_torch.modules.llm_gateway import worker as worker_module
 from cyberfabric_core_tpu_torch.modules.llm_gateway.grpc_service import (GrpcLlmWorkerClient,
                                                                        model_ref_dict)
@@ -295,6 +323,9 @@ from cyberfabric_core_tpu_torch.ops.timing import graph_ms
 from cyberfabric_core_tpu_torch.parallel.feasibility import (H100_HBM_BYTES,
                                                              InfeasiblePlanError,
                                                              card_hbm_bytes, gate_engine_plan)
+from cyberfabric_core_tpu_torch.parallel import pipeline
+from cyberfabric_core_tpu_torch.parallel.mesh import StageMesh
+from cyberfabric_core_tpu_torch.parallel.ring_attention import ring_attention
 from cyberfabric_core_tpu_torch.parallel.sharding import rank_bytes
 from cyberfabric_core_tpu_torch.runtime.federation import digest_chain, match_depth
 from cyberfabric_core_tpu_torch.runtime.engine import (EngineConfig, InferenceEngine,
@@ -309,6 +340,7 @@ from cyberfabric_core_tpu_torch.runtime.scheduler import ContinuousBatchingEngin
 from cyberfabric_core_tpu_torch.runtime.speculative import (DraftModel, build_verify_fn,
                                                            span_verify_logits)
 from cyberfabric_core_tpu_torch.runtime.tokenizer import ByteTokenizer
+from cyberfabric_core_tpu_torch.runtime.weights import save_llama_params
 from cyberfabric_core_tpu_torch.server import BackgroundServer
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -362,13 +394,14 @@ def bf16_ulp_close(out: torch.Tensor, ref: torch.Tensor) -> float:
 F32_TOL = 2e-5
 
 
-def f32_close(out: torch.Tensor, ref: torch.Tensor) -> float:
-    """Max |out - ref|; raises unless every element is within F32_TOL *
-    (1 + |ref|)."""
+def f32_close(out: torch.Tensor, ref: torch.Tensor, rtol: float = F32_TOL,
+              atol: float = F32_TOL) -> float:
+    """Max |out - ref|; raises unless every element is within atol + rtol *
+    |ref| (F32_TOL * (1 + |ref|) by default)."""
     err = (out.double() - ref.double()).abs()
-    bad = int((err > F32_TOL + F32_TOL * ref.double().abs()).sum())
+    bad = int((err > atol + rtol * ref.double().abs()).sum())
     if bad or not torch.isfinite(out).all():
-        raise AssertionError(f"{bad} f32 elements beyond rtol = atol = {F32_TOL} "
+        raise AssertionError(f"{bad} f32 elements beyond rtol {rtol}, atol {atol} "
                              f"(max abs err {float(err.max()):.3e})")
     return float(err.max())
 
@@ -2267,6 +2300,47 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
+def card_memory(label: str) -> int:
+    """Card memory once a phase has stopped its engines and returned: what
+    the allocator holds at that moment, then after a cycle collection (an
+    engine that only a reference cycle keeps alive is freed there), then
+    with PyTorch's cuBLAS workspaces cleared (one cached per handle and
+    stream), with the CUDA tensors still reachable and the largest of them.
+    The cache is emptied after. Returns the bytes left at the end."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    gc.set_debug(gc.DEBUG_SAVEALL)  # keep what the collection finds, to name it
+    gc.collect()
+    gc.set_debug(0)
+    cycles = collections.Counter(type(o).__qualname__ for o in gc.garbage
+                                 if type(o).__module__.startswith(("cyberfabric", "__main__"))
+                                 or isinstance(o, (types.TracebackType, types.FrameType)))
+    gc.garbage.clear()
+    gc.collect()
+    left = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    bare = torch.cuda.memory_allocated()
+    torch.cuda.empty_cache()
+    live: dict[int, tuple[int, tuple, torch.dtype]] = {}
+    with warnings.catch_warnings():  # isinstance reads deprecated torch attributes
+        warnings.simplefilter("ignore")
+        for obj in gc.get_objects():
+            if isinstance(obj, torch.Tensor) and obj.is_cuda and obj.layout == torch.strided:
+                storage = obj.untyped_storage()
+                live[storage.data_ptr()] = (storage.nbytes(), tuple(obj.shape), obj.dtype)
+    top = sorted(live.values(), key=lambda t: -t[0])[:4]
+    log(f"memory [{label}]: allocated {gib(held)} as the phase returned, {gib(left)} after a "
+        f"cycle collection, {gib(bare)} without the cuBLAS workspaces; {len(live)} reachable "
+        f"CUDA storages of "
+        f"{gib(sum(t[0] for t in live.values()))}, largest "
+        + ", ".join(f"{gib(n)} {list(shape)} {str(dt).replace('torch.', '')}"
+                    for n, shape, dt in top))
+    if held - left > 2 ** 28:
+        log(f"memory [{label}]: the collection freed {gib(held - left)}; the cycles held "
+            f"(port and script objects, tracebacks, frames): {dict(cycles.most_common(12))}")
+    return bare
+
+
 def decode_step(params, rope, pools):
     """One decode step at 8 rows of lengths 127..2046 through ``pools`` and
     the head: what a replayed decode chunk runs ``decode_chunk`` times."""
@@ -3403,7 +3477,7 @@ def serving_phases(card: str, smi: str) -> dict[str, int]:
     params = engine.params
     repair_a_cost(card, engine)
     del engine
-    torch.cuda.empty_cache()
+    card_memory("mixed")
 
     # the same storm with the ring off; the probe request of storm_requests
     # warms this engine the same way (and caches the same prompt)
@@ -3413,10 +3487,11 @@ def serving_phases(card: str, smi: str) -> dict[str, int]:
                   launched=("ragged_paged_attention", "paged_decode_attention"),
                   never=("flash_self_attention",))
     del engine
-    torch.cuda.empty_cache()
+    card_memory("mixed, depth 0")
 
     for depth in (2, 0):
         graphs_against_eager(card, params, requests, depth)
+    card_memory("graphs against eager")
 
     # an unbounded round budget lets the storm's same-bucket prompts (700 and
     # 1000 at 1024, 1300 and 1500 at 2048) meet in one admission pass and
@@ -3428,7 +3503,7 @@ def serving_phases(card: str, smi: str) -> dict[str, int]:
                                 launched=("flash_self_attention", "paged_decode_attention"),
                                 never=("ragged_paged_attention",))
     del engine
-    torch.cuda.empty_cache()
+    card_memory("phase-separated")
 
     engine, ecfg = build_engine("dense", dict(QUICKSTART, prefix_cache_pages=0), params)
     dense_requests = [(p, SamplingParams(max_tokens=16)) for p, _ in requests[:4]]
@@ -3436,28 +3511,40 @@ def serving_phases(card: str, smi: str) -> dict[str, int]:
                   launched=("flash_self_attention",),
                   never=("ragged_paged_attention", "paged_decode_attention"))
     del engine
-    torch.cuda.empty_cache()
+    card_memory("dense")
 
     for label, opts, is_mixed in [("prefix-mixed", QUICKSTART, True),
                                   ("prefix-phase-separated", phase_opts, False)]:
         engine, ecfg = build_engine(label, opts, params)
         prefix_phase(card, label, engine, ecfg, is_mixed)
         del engine
-        torch.cuda.empty_cache()
+        card_memory(label)
     cancel_phase(card, params)
+    card_memory("cancel")
     preempt_phase(card, params)
+    card_memory("preemption")
     tenants_phase(card, params)
+    card_memory("tenants")
     SPEC_LAUNCHES.update(spec_phase(card, params))
+    card_memory("spec storm")
     lockstep_flash = lockstep_storm_phase(card, smi, params, requests)
+    card_memory("lockstep storm")
     lockstep_spec_phase(card, smi, params)
+    card_memory("lockstep speculation")
     quant_phase(card, smi, params)
+    card_memory("quant-8b")
     dp_phase(card, smi, params)
+    card_memory("dp")
     pd_phase(card, smi, params, requests, unified)
+    card_memory("pd")
     tp_phase(card, smi, params, requests, mixed, stats)
+    card_memory("tp")
     del params
-    free_card()
+    card_memory("serving weights dropped")
     mixtral_phase(card, smi)
+    card_memory("mixtral")
     tiny_quickstart_run(card)
+    card_memory("tiny-llama quickstart")
     return {"ragged_paged_attention": mixed["ragged_paged_attention"],
             "paged_decode_attention": mixed["paged_decode_attention"],
             "flash_self_attention": phase["flash_self_attention"] + lockstep_flash}
@@ -5352,6 +5439,265 @@ def sampling_determinism(smi: str, reps: int = 60, runs: int = 8) -> None:
         sampling.cumsum_rows = rows_cumsum
 
 
+# ------------------------------------------------------------------- training
+#: the pipeline's cell: llama-3-8b widths cut to 4 layers, f32, TF32 off
+TRAIN_LAYERS = 4
+TRAIN_B, TRAIN_T = 8, 256
+#: (pp, dp, M), every stage and row on the one card
+TRAIN_GRID = ((2, 1, 4), (4, 1, 4), (2, 2, 2))
+#: (rtol, atol) of the gradients, as tests/test_pipeline.py:67; the loss
+#: takes F32_TOL, as :50
+TRAIN_GRAD_TOL = (5e-4, 5e-5)
+TRAIN_GRAD_LEAVES = ("embed", "lm_head", "layers.0.wq", "layers.0.down")
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4
+#: ring attention at llama-3-8b's heads: one sequence of RING_T over 4 ranks
+RING_T, RING_SP, RING_GRAD_T = 4096, 4, 512
+RING_LENGTH = 3000
+#: the trained pair of bench.py --spec-cross: (config, parameter seed)
+PAIR_TARGET, PAIR_DRAFT = ("tiny-llama-8l", 0), ("tiny-llama", 99)
+PAIR_STEPS, PAIR_BATCH, PAIR_SEQ, PAIR_LR, PAIR_DATA_SEED = 300, 64, 64, 3e-3, 1234
+PAIR_TOKENS = 256
+
+
+def timed_ms(fn) -> tuple[float, object]:
+    """Host ms of ``fn()`` between two synchronisations, and its result."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3, out
+
+
+def pipeline_train_phase(smi: str) -> None:
+    """GPipe at llama-3-8b widths, 4 layers, f32, TF32 off, B=8, T=256,
+    every stage and data-parallel row on the one card. Gates: the
+    pipelined loss at each (pp, dp, M) of TRAIN_GRID equal to
+    ``reference_loss_fn``'s within F32_TOL (random ids from a seed);
+    at (2, 2, 2) the gradients of TRAIN_GRAD_LEAVES within TRAIN_GRAD_TOL;
+    over TRAIN_STEPS ``make_train_step`` steps on one Markov batch, the last
+    loss below the first. Printed: the step's ms and training tokens/s, the
+    peak of ``max_memory_allocated``, beside a reference-loss step's ms in
+    the same call. The stages share one card and run one after another, so
+    no bubble or speed-up is read from these numbers."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the training phases would not be f32")
+    cfg = dataclasses.replace(get_config("llama-3-8b"), name="llama-3-8b, 4 layers",
+                              num_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = llama.init_params(cfg, 0, torch.float32, CARD)
+    ids = torch.from_numpy(np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_T)).astype(np.int32)).to(CARD)
+    targets = torch.roll(ids, -1, dims=1)
+    reference = pipeline.reference_loss_fn(cfg)
+    with torch.no_grad():
+        ref = reference(params, ids, targets)
+        for pp, dp, M in TRAIN_GRID:
+            mesh = StageMesh(pp, dp, [CARD] * (pp * dp))
+            loss = pipeline.pipelined_loss_fn(cfg, mesh, M)(params, ids, targets)
+            log(f"training [pipeline loss (pp, dp, M) = {(pp, dp, M)}]: {loss.item():.7f} "
+                f"against the reference's {ref.item():.7f}")
+            f32_close(loss, ref)
+    leaves = dict(zip(params.state_dict(), pipeline.trainable(params)))
+    wanted = [leaves[n] for n in TRAIN_GRAD_LEAVES]
+    mesh = StageMesh(2, 2, [CARD] * 4)
+    piped = pipeline.pipelined_loss_fn(cfg, mesh, 2)
+    g_ref = torch.autograd.grad(reference(params, ids, targets), wanted)
+    g_pipe = torch.autograd.grad(piped(params, ids, targets), wanted)
+    errs = {n: f32_close(p, r, *TRAIN_GRAD_TOL)
+            for n, p, r in zip(TRAIN_GRAD_LEAVES, g_pipe, g_ref)}
+    log(f"training [pipeline gradients (2, 2, 2)]: within rtol {TRAIN_GRAD_TOL[0]}, atol "
+        f"{TRAIN_GRAD_TOL[1]}; max |difference| by leaf {errs}, max |g| "
+        f"{ {n: float(r.abs().max()) for n, r in zip(TRAIN_GRAD_LEAVES, g_ref)} }")
+    del g_ref, g_pipe, wanted
+
+    seqs = torch.from_numpy(toytrain.markov_sampler(cfg.vocab_size, seed=PAIR_DATA_SEED)(
+        TRAIN_B, TRAIN_T + 1, np.random.default_rng(PAIR_DATA_SEED + 1))).to(CARD)
+    ids, targets = seqs[:, :-1], seqs[:, 1:]
+    train_step, init_opt = pipeline.make_train_step(cfg, mesh, 2, learning_rate=TRAIN_LR)
+    opt = init_opt(params)
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        ms, (params, opt, loss) = timed_ms(lambda: train_step(params, opt, ids, targets))
+        losses.append(loss.item())
+        step_ms.append(ms)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[pipeline train step] losses {losses}")
+
+    def reference_step():
+        opt.zero_grad(set_to_none=True)
+        reference(params, ids, targets).backward()
+        opt.step()
+
+    ref_ms = [timed_ms(reference_step)[0] for _ in range(2)]
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    log(f"training [pipeline train step (2, 2, 2)]: losses {[round(x, 5) for x in losses]} "
+        f"(lr {TRAIN_LR}, one Markov batch)")
+    log(f"info [{smi}] training [pipeline, llama-3-8b widths, {TRAIN_LAYERS} layers, f32, B "
+        f"{TRAIN_B}, T {TRAIN_T}, (pp, dp, M) (2, 2, 2) on one card]: step ms "
+        f"{[round(x, 1) for x in step_ms]} (median after the first {steady:.1f}; "
+        f"{TRAIN_B * TRAIN_T / steady * 1e3:.0f} training tokens/s); reference-loss step ms "
+        f"{[round(x, 1) for x in ref_ms]}; max_memory_allocated "
+        f"{gib(torch.cuda.max_memory_allocated())}")
+    del params, opt, leaves
+
+
+def ring_phase(smi: str) -> None:
+    """Ring attention at llama-3-8b's heads (32 / 8, D 128), f32, B=1,
+    RING_SP ranks on the one card: at T=RING_T the output equal to the
+    plain ``attention_with_cache`` within F32_TOL, without lengths and
+    with one of RING_LENGTH (its valid rows); at T=RING_GRAD_T the q, k and
+    v gradients of a seeded weighting of the output equal the plain
+    attention's. Printed: both functions' device ms at T=RING_T."""
+    cfg = get_config("llama-3-8b")
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=CARD).manual_seed(5)
+    ranks = [CARD] * RING_SP
+
+    def qkv(T):
+        return tuple(torch.randn((1, T, h, D), generator=gen, device=CARD) for h in (Hq, Hkv, Hkv))
+
+    def plain(q, k, v, lengths):
+        T = q.shape[1]
+        positions = torch.arange(T, dtype=torch.int32, device=CARD)[None]
+        return attention_with_cache(q, k, v, positions, lengths)
+
+    q, k, v = qkv(RING_T)
+    with torch.no_grad():
+        for length in (RING_T, RING_LENGTH):
+            lens = torch.tensor([length], dtype=torch.int32, device=CARD)
+            out = ring_attention(q, k, v, ranks, lengths=None if length == RING_T else lens)
+            err = f32_close(out[:, :length], plain(q, k, v, lens)[:, :length])
+            log(f"training [ring attention T {RING_T}, sp {RING_SP}, length {length}]: within "
+                f"rtol = atol = {F32_TOL}, max |difference| {err:.3g}")
+        full = torch.tensor([RING_T], dtype=torch.int32, device=CARD)
+        ring_ms = cuda_ms(lambda: ring_attention(q, k, v, ranks), iters=5)
+        plain_ms = cuda_ms(lambda: plain(q, k, v, full), iters=5)
+    q, k, v = (t.requires_grad_() for t in qkv(RING_GRAD_T))
+    lens = torch.tensor([RING_GRAD_T], dtype=torch.int32, device=CARD)
+    out = ring_attention(q, k, v, ranks)
+    w = torch.randn(out.shape, generator=gen, device=CARD)
+    grads = torch.autograd.grad((out * w).sum(), (q, k, v))
+    want = torch.autograd.grad((plain(q, k, v, lens) * w).sum(), (q, k, v))
+    errs = {n: f32_close(g, r) for n, g, r in zip("qkv", grads, want)}
+    log(f"training [ring attention gradients T {RING_GRAD_T}]: within rtol = atol = {F32_TOL}, "
+        f"max |difference| by input {errs}")
+    log(f"info [{smi}] training [ring attention, 32 / 8 heads, D 128, f32, B 1, T {RING_T}, "
+        f"sp {RING_SP} on one card]: ring {ring_ms:.3f} ms, plain attention {plain_ms:.3f} ms "
+        "(device ms a call; the ranks run one after another)")
+
+
+def trained_pair_phase(smi: str) -> int:
+    """The trained draft/target pair of ``bench.py --spec-cross``, on the
+    card: ``train_lm`` on tiny-llama-8l (parameter seed 0) and tiny-llama
+    (99), PAIR_STEPS steps at batch PAIR_BATCH, seq PAIR_SEQ, lr PAIR_LR,
+    data seed PAIR_DATA_SEED; both cast to bf16, the draft saved with
+    ``save_llama_params`` and loaded by the engine as ``draft_checkpoint``;
+    a lockstep ``InferenceEngine`` (max_seq_len 512, max_batch 1,
+    decode_chunk 4, flash on its prefill) with speculation off and with
+    ``speculative="draft"`` at ``spec_k`` 8, PAIR_TOKENS tokens from a
+    32-token Markov prompt (``prompt_rng`` seed 7), kernel counts set to 0
+    just before and read just after. Gates: each training loss ends below
+    the initial tree's loss on the first batch; the greedy stream with
+    speculation equals the stream without; at temperature 0 and 0.8,
+    verify rounds ran and acceptance lies strictly between 0 and 100%;
+    flash launched and no paged kernel. Printed: the losses, acceptance,
+    tokens per round, the acceptance histogram and tokens/s with
+    speculation off and on at both temperatures. Returns the flash
+    launches."""
+    trees = {}
+    for name, seed in (PAIR_TARGET, PAIR_DRAFT):
+        cfg = get_config(name)
+        t = time.perf_counter()
+        params, final = toytrain.train_lm(cfg, steps=PAIR_STEPS, batch=PAIR_BATCH,
+                                          seq_len=PAIR_SEQ, param_seed=seed,
+                                          data_seed=PAIR_DATA_SEED, lr=PAIR_LR, device=CARD,
+                                          log=log)
+        train_s = time.perf_counter() - t
+        seqs = torch.from_numpy(toytrain.markov_sampler(cfg.vocab_size, seed=PAIR_DATA_SEED)(
+            PAIR_BATCH, PAIR_SEQ + 1, np.random.default_rng(PAIR_DATA_SEED + 1))).to(CARD)
+        with torch.no_grad():
+            first = pipeline.reference_loss_fn(cfg)(
+                llama.init_params(cfg, seed, torch.float32, CARD), seqs[:, :-1],
+                seqs[:, 1:]).item()
+        log(f"info [{smi}] training [{name}, parameter seed {seed}]: loss {first:.4f} on the "
+            f"first batch before training, {final:.4f} after {PAIR_STEPS} steps, "
+            f"{train_s:.1f} s ({train_s / PAIR_STEPS * 1e3:.1f} ms a step)")
+        if not final < first:
+            raise AssertionError(f"[{name}] training loss {first} -> {final}")
+        trees[name] = toytrain.cast_params(params, torch.bfloat16)
+        del params
+    target, draft = PAIR_TARGET[0], PAIR_DRAFT[0]
+    ddir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "trained-draft"
+    save_llama_params(trees[draft], get_config(draft), ddir)
+    prompt = toytrain.markov_sampler(get_config(target).vocab_size, seed=PAIR_DATA_SEED)(
+        1, 32, np.random.default_rng(7))[0].tolist()
+    plain_cfg = EngineConfig(model=target, max_seq_len=512, max_batch=1, decode_chunk=4)
+    spec_cfg = dataclasses.replace(plain_cfg, speculative="draft", draft_model=draft,
+                                   draft_checkpoint=str(ddir), spec_k=8)
+    for _, _, wrapper in KERNELS.values():
+        wrapper.launches = 0
+    runs = {}
+    for mode, ecfg in (("off", plain_cfg), ("draft", spec_cfg)):
+        for temp in (0.0, 0.8):
+            engine = InferenceEngine(ecfg, params=trees[target], seed=3)
+            sp = SamplingParams(max_tokens=PAIR_TOKENS, temperature=temp, seed=11)
+            engine.generate([prompt], dataclasses.replace(sp, max_tokens=8))  # warm-up
+            runs[mode, temp] = lockstep_spec_run(f"trained pair, spec {mode}, temperature "
+                                                 f"{temp}", engine, prompt, sp)
+            del engine
+    launches = {name: wrapper.launches for name, (_, _, wrapper) in KERNELS.items()}
+    if runs["draft", 0.0]["toks"] != runs["off", 0.0]["toks"]:
+        raise AssertionError(f"[trained pair] greedy speculation leaves spec off's stream at "
+                             f"token {first_divergence(runs['draft', 0.0]['toks'], runs['off', 0.0]['toks'])}")
+    for temp in (0.0, 0.8):
+        st = runs["draft", temp]["stats"]
+        if not (st["verify_calls"] > 0 and 0 < st["accepted"] < st["drafted"]):
+            raise AssertionError(f"[trained pair, temperature {temp}] {st}")
+    if launches["flash_self_attention"] <= 0 or launches["ragged_paged_attention"] \
+            or launches["paged_decode_attention"]:
+        raise AssertionError(f"[trained pair] launches {launches}: want flash, no paged kernel")
+    summary = {}
+    for (mode, temp), run in runs.items():
+        st = run["stats"]
+        summary[f"spec {mode}, temperature {temp}"] = {
+            "tokens_per_s": round(run["tokens_per_s"], 1), "tokens": len(run["toks"]),
+            **({} if mode == "off" else {
+                "acceptance_pct": round(100.0 * st["accepted"] / st["drafted"], 1),
+                "tokens_per_round": round(st["spec_tokens"] / st["verify_calls"], 2),
+                "verify_calls": st["verify_calls"], "fallback_steps": st["fallback_steps"],
+                "accept_hist": dict(sorted(run["accept_hist"].items()))})}
+    log(f"serving [trained pair]: greedy speculation equals spec off's {len(runs['off', 0.0]['toks'])} "
+        f"tokens; launches {launches}")
+    log(f"info [{smi}] serving [trained pair, {target} target (bf16) with a {draft} draft "
+        f"from draft_checkpoint, lockstep, bs 1, spec_k 8, {PAIR_TOKENS} tokens from a "
+        f"32-token Markov prompt]: " + json.dumps(summary))
+    shutil.rmtree(ddir, ignore_errors=True)
+    return launches["flash_self_attention"]
+
+
+def training_phases(smi: str) -> int:
+    """The training section (outside inference mode): the pipeline, ring
+    attention and the trained pair, each followed by a reading of the
+    card's memory. Returns the trained pair's flash launches."""
+    t = time.perf_counter()
+    pipeline_train_phase(smi)
+    card_memory("training: pipeline")
+    ring_phase(smi)
+    card_memory("training: ring attention")
+    flash = trained_pair_phase(smi)
+    card_memory("training: trained pair")
+    log(f"training section: {time.perf_counter() - t:.1f} s")
+    return flash
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     if sys.argv[1:] == ["--fed-f32-host"]:
         return fed_f32_host()
@@ -5362,33 +5708,15 @@ def main() -> int:
         with torch.inference_mode():
             profile_ring(torch.cuda.get_device_name(0))
         return 0
-    if sys.argv[1:] == ["--sampling-determinism"]:
+    # one section alone, with no result line
+    sections = {"--sampling-determinism": sampling_determinism, "--federation": fed_only,
+                "--train": training_phases, "--trace-cost": trace_cost,
+                "--tp": lambda smi: tp_only(torch.cuda.get_device_name(0), smi)}
+    if len(sys.argv) == 2 and sys.argv[1] in sections:
         _build.build_all()
-        sampling_determinism(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
+        sections[sys.argv[1]](nvidia_smi())
         return 0
-    if sys.argv[1:] == ["--tp"]:
-        _build.build_all()
-        tp_only(torch.cuda.get_device_name(0), subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
-        return 0
-    if sys.argv[1:] == ["--federation"]:
-        _build.build_all()
-        fed_only(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
-        return 0
-    if sys.argv[1:] == ["--trace-cost"]:
-        _build.build_all()
-        trace_cost(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                   "--format=csv,noheader"], capture_output=True, text=True,
-                                  timeout=60, check=True).stdout.strip().splitlines()[0])
-        return 0
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     log(smi)
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(0)
@@ -5434,12 +5762,20 @@ def main() -> int:
     log("info kernels at the other head dims, main-path shapes: " + json.dumps(by_dim))
     torch.cuda.empty_cache()
 
+    card_memory("kernels")
+    # training first, on a card no serving phase has used yet; outside
+    # inference mode, which would keep autograd from saving tensors
+    trained_pair_flash = training_phases(smi)
     launches = serving_phases(card, smi)
+    launches["flash_self_attention"] += trained_pair_flash
     # the slice's main path: the paged kernels' launches from the HTTP storm
     # (flash is not on it; its count stays the phase-separated run's)
     http_launches = http_phase(smi)  # its numbers carry the card's name and power limit
+    card_memory("http")
     observability_phase(smi)
+    card_memory("observability")
     http_lockstep_phase(smi)
+    card_memory("http lockstep")
     # ... and the speculative storm's (its k=4 run), each read just after it
     for name in ("ragged_paged_attention", "paged_decode_attention"):
         launches[name] = http_launches[name] + SPEC_LAUNCHES[name]
@@ -5448,9 +5784,11 @@ def main() -> int:
     # by source hash): no host builds. The federated storm's launches are
     # counted in the hosts and read over their Health RPC
     fed_launches = federation_phase(smi)
+    card_memory("federation")
     for name in ("ragged_paged_attention", "paged_decode_attention"):
         launches[name] += fed_launches[name]
     f32_launches = golden_phase(card)
+    card_memory("golden")
     golden_quant_phase(card, smi)
     log(f"info [{card}] kernels f32 entry points, main-path shapes (bound: bytes at "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, operations at the f32 CUDA-core peak "

@@ -722,8 +722,13 @@ def _tp_dense(params: ShardedLlama, h: torch.Tensor, positions: torch.Tensor,
         if flash_r[r] is not None:
             return flash_self_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                         flash_r[r], sliding_window=window)
-        return attention_with_cache(q, k_caches[r][layer], v_caches[r][layer], pos_r[r],
-                                    len_r[r], sliding_window=window)
+        keys, values = k_caches[r][layer], v_caches[r][layer]
+        if k.requires_grad:
+            # a training forward: autograd keeps what attention reads, and
+            # the next layer's write into the same cache would invalidate a
+            # view of it
+            keys, values = keys.clone(), values.clone()
+        return attention_with_cache(q, keys, values, pos_r[r], len_r[r], sliding_window=window)
     return _tp_stack(params, h, positions, rope_tables, attend, valid)
 
 

@@ -17,6 +17,12 @@ collectives are plain functions with a fixed order:
 Ranks may share a device: ``cpu`` for every rank on the CPU (the tests),
 ``cuda:0`` for every rank on a one-card machine. NCCL refuses two ranks on
 one card, so the port does not build on ``torch.distributed``.
+
+Training lays its devices out the same way: :class:`StageMesh` gives the
+GPipe pipeline's ``pp`` stages × ``dp`` data-parallel rows one device each,
+and ring attention takes its ``sp`` ranks as a :class:`RankMesh`. A hand-off
+between stages or a ring rotation is ``.to(device)``, a no-op between two
+entries on one device.
 """
 
 from __future__ import annotations
@@ -75,6 +81,26 @@ class RankMesh:
 
     def __repr__(self) -> str:
         return f"RankMesh(tp={self.tp}, devices={[str(d) for d in self.devices]})"
+
+
+class StageMesh:
+    """``pp`` pipeline stages × ``dp`` data-parallel rows: stage p's row d on
+    ``devices[p * dp + d]`` (devices may repeat). Row 0's device is the
+    stage's own: its layers and their optimizer moments live there."""
+
+    def __init__(self, pp: int, dp: int, devices: Sequence[DeviceLike]) -> None:
+        if pp < 1 or dp < 1 or len(devices) != pp * dp:
+            raise ValueError(f"a pp={pp} x dp={dp} mesh needs {pp * dp} devices, "
+                             f"have {len(devices)}")
+        self.pp, self.dp = pp, dp
+        self.rows = tuple(RankMesh(devices[p * dp:(p + 1) * dp]) for p in range(pp))
+
+    def device(self, stage: int, row: int = 0) -> torch.device:
+        return self.rows[stage].devices[row]
+
+    def __repr__(self) -> str:
+        return (f"StageMesh(pp={self.pp}, dp={self.dp}, "
+                f"devices={[[str(d) for d in r.devices] for r in self.rows]})")
 
 
 def cuda_rank_devices(tp: int) -> list[torch.device]:

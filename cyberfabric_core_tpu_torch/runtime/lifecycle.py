@@ -45,6 +45,7 @@ import logging
 import random
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field, fields
 from typing import Any, Callable, Optional
 
@@ -161,7 +162,11 @@ class ReplicaLifecycleManager:
 
     def __init__(self, pool: Any, config: Optional[LifecycleConfig] = None,
                  name: Optional[str] = None) -> None:
-        self.pool = pool
+        # the pool owns this manager: a weak reference keeps the two out of a
+        # reference cycle, so a closed pool's replicas (their KV pools and
+        # graphs) are freed as soon as the pool is dropped, not at the next
+        # cycle collection
+        self._pool = weakref.ref(pool)
         self.config = config or LifecycleConfig()
         self.name = name or f"pool{next(_POOL_SEQ)}"
         self._lock = threading.Lock()
@@ -194,8 +199,15 @@ class ReplicaLifecycleManager:
         if t is not None:
             t.join(self.config.check_interval_s * 10 + 1.0)
 
+    @property
+    def pool(self) -> Any:
+        """The supervised pool; None once it has been dropped."""
+        return self._pool()
+
     def _loop(self) -> None:
         while not self._stop.wait(self.config.check_interval_s):
+            if self.pool is None:
+                return
             try:
                 self.tick()
             except Exception:  # noqa: BLE001 — the healer must not die

@@ -202,7 +202,23 @@ def _wait(cond, timeout=20.0):
     return False
 
 
-def test_shedding_cycle_over_rest():
+class _HeldClock:
+    """The doctor's clock over REST: real time until held, then still until
+    released. Held from the moment the slow streams end, it keeps their
+    samples inside the doctor's 2 s window however long a loaded machine
+    takes to read the shed state and send the chat that is shed."""
+
+    def __init__(self) -> None:
+        self.held = None
+
+    def time(self) -> float:
+        return time.time() if self.held is None else self.held
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_shedding_cycle_over_rest(monkeypatch):
     from cyberfabric_core_tpu_torch import server
 
     cfg = json.loads(server.QUICKSTART.read_text())
@@ -214,6 +230,12 @@ def test_shedding_cycle_over_rest():
         "doctor": {"eval_interval_s": 0.1, "fast_window_s": 2.0, "slow_window_s": 3.0,
                    "min_samples": 2, "shed_after": 1, "recover_after": 2,
                    "objectives": {"itl_p99": {"threshold_ms": 20.0}}}}}
+    clock = _HeldClock()
+    monkeypatch.setattr(pdoctor, "time", clock)
+    # the doctor's stream-stall watchdog reads the process-wide recorder: a
+    # stream another test left live there (a prefill-role engine's handed-off
+    # request whose sink never finishes it) would trip it 30 s later
+    pfr.default_recorder.reset()
     srv = server.BackgroundServer(cfg).start()
     port = srv.port
     try:
@@ -231,6 +253,7 @@ def test_shedding_cycle_over_rest():
         for t in threads:
             t.join(60)
         assert [r[0] for r in results] == [200, 200]
+        clock.held = time.time()
         assert _wait(lambda: _request(port, "GET", "/readyz")[0] == 503)
         status, _, doc = _request(port, "GET", "/readyz")
         assert doc["code"] == "not_ready" and doc["state"] == "shedding"
@@ -241,6 +264,7 @@ def test_shedding_cycle_over_rest():
         assert int(hdrs["retry-after"]) >= 1
         assert _request(port, "DELETE",
                         "/v1/monitoring/failpoints/scheduler.readback")[0] == 200
+        clock.held = None
         assert _wait(lambda: _request(port, "GET", "/readyz")[0] == 200)
         assert _request(port, "POST", "/v1/chat/completions", CHAT)[0] == 200
         slo = _request(port, "GET", "/v1/monitoring/slo")[2]

@@ -15,8 +15,10 @@ JAX pool does on the same prompt.
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -324,3 +326,21 @@ def test_pool_self_heals_and_rebuilt_streams_match(jax_pool_baseline):
         assert not pool._requests
     finally:
         pool.shutdown()
+
+
+def test_closed_pool_frees_its_replicas_without_a_collection():
+    """The pool owns its lifecycle manager, which holds the pool weakly: a
+    closed pool dropped by its caller frees its replicas (their KV pools
+    and decode graphs) at once, not at the next cycle collection."""
+    pool = DataParallelServingPool(_tiny_cfg(), n_replicas=2, devices=["cpu", "cpu"], seed=0,
+                                   lifecycle=LifecycleConfig(check_interval_s=0.01))
+    replicas = [weakref.ref(r) for r in pool.replicas]
+    manager = pool.lifecycle
+    gc.disable()
+    try:
+        pool.close()
+        del pool
+        assert [r() for r in replicas] == [None, None]
+        assert manager.pool is None
+    finally:
+        gc.enable()
